@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch / CUDA port (rep_yolo_tpu_torch) on one card.
 
-Drives the port's main path, fused float serving of cfg/rep_yolo.yaml at
-640 px, and holds every CUDA kernel of that path against its plain PyTorch
-version on the card. Phases, one JSON line each:
+Drives the port's two paths, fused float serving of cfg/rep_yolo.yaml at
+640 px and the same with the calibrated int8 backbone region (``--fast
+int8``), and holds every CUDA kernel of those paths against its plain
+PyTorch version on the card. Phases, one JSON line each:
 
   1. device and build: the card, then nvcc of every csrc/*.cu (parallel)
   2. kernels vs plain: axial attention (K1 projection, K2 both modes) at the
@@ -24,6 +25,25 @@ version on the card. Phases, one JSON line each:
   7. times: per kernel at the served shapes (batch 4), the median of 20
      CUDA-event timed runs of 10 back-to-back calls each, beside the plain
      version and the bound; end-to-end ms of one served batch
+
+and for the int8 path:
+
+  2b. kernels_q8_vs_plain: K4 conv3x3_q8, K5 conv1x1_q8 and K6 max_pool2_q8
+     at every backbone shape of 640 px, batch 4 (random weights, random
+     int8 maps): int8 outputs identical but for +-1 LSB on at most 1e-4 of
+     the elements, the float exit atol = rtol = 1e-5, pools identical
+  4b. int8_e2e: golden weights, calibrated on the seeded uniform batch, at
+     640 px, batch 2: the int8 kernel path vs the int8 plain path (region
+     maps as above, raw maps atol = rtol = 1e-3, decoded boxes 1e-2 px,
+     the NMS keep set identical); the region plan; and, as a report with
+     no gate, int8 against float: the backbone exit (l7), raw maps and
+     detections
+  5b. serving_int8: as 5 with --fast int8; launch counts of that run per
+     forward: 25 K4, 28 K5, 1 K6 beside the float path's 12 / 6 / 6 / 1
+  6b. profile of both engines, in turns (float, int8, int8, float)
+  7b. times_q8: K4-K6 per backbone shape beside the plain version, the
+     bound and the f32 cuDNN conv of the same shape; summed per forward
+  8. served_ab: one served batch of 4, float and int8 in turns
 
 Then the kernels line {"kernels": [...]} and, last, {"ok": true, "device":
 {...}}. Any failure raises and exits non-zero without the last line.
@@ -47,9 +67,12 @@ import urllib.request
 ROOT = pathlib.Path(__file__).resolve().parent
 CFG = str(ROOT / "cfg" / "rep_yolo.yaml")
 GOLDEN = ROOT / "tests" / "golden"
+SIZE = 640             # served image size of every end-to-end phase
+T0 = time.perf_counter()
 
 MEM_BW = 3.35e12       # H100 SXM HBM3 bytes/s (data sheet)
 F32_PEAK = 67e12       # H100 SXM f32 non-tensor FLOP/s (data sheet)
+INT8_PEAK = 1979e12    # H100 SXM dense int8 tensor-core OP/s (data sheet)
 # (c_, H, W) of the six CCVA attention blocks at 640 px (layers 21, 27, 37,
 # 43, 53, 59)
 ATTN_SHAPES = [(64, 80, 80), (32, 80, 80), (128, 40, 40), (64, 40, 40),
@@ -58,12 +81,13 @@ LINES: list[dict] = []
 
 
 def emit(obj: dict) -> None:
+    obj["t_s"] = round(time.perf_counter() - T0, 1)
     LINES.append(obj)
     print(json.dumps(obj), flush=True)
 
 
-def cuda_ms(fn, runs: int = 20, warmup: int = 3) -> float:
-    """Median over `runs` of the ms per call of 10 back-to-back calls
+def cuda_ms(fn, runs: int = 20, warmup: int = 3, reps: int = 10) -> float:
+    """Median over `runs` of the ms per call of `reps` back-to-back calls
     between two CUDA events (one call alone would also time the host's
     launch latency of a kernel shorter than it)."""
     import torch
@@ -75,16 +99,17 @@ def cuda_ms(fn, runs: int = 20, warmup: int = 3) -> float:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        for _ in range(10):
+        for _ in range(reps):
             fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b) / 10)
+        times.append(a.elapsed_time(b) / reps)
     return statistics.median(times)
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
-    tb, tf = nbytes / MEM_BW * 1e3, flops / F32_PEAK * 1e3
+def bound(nbytes: float, flops: float,
+          peak: float = F32_PEAK) -> tuple[float, str]:
+    tb, tf = nbytes / MEM_BW * 1e3, flops / peak * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
@@ -159,6 +184,101 @@ def nms_cases(device):
              torch.as_tensor(v, device=device), t) for n, b, v, t in cases]
 
 
+def backbone_q8_shapes():
+    """The int8 region's kernel calls of one SIZE-px forward: (name,
+    kernel, input channels (per section for K5), output channels, input
+    size, stride, float input, float output, fused pool, calls per
+    forward)."""
+    rows = [("l0 stem", "conv3x3_q8", (3,), 48, SIZE, 2, True, False, False,
+             1)]
+    for layer, c1, c2, hw, pool, exit_ in (
+            (1, 48, 48, SIZE // 2, True, False),
+            (3, 48, 128, SIZE // 4, True, False),
+            (5, 128, 256, SIZE // 8, False, False),
+            (7, 256, 512, SIZE // 16, False, True)):
+        half = c1 // 2
+        rows += [
+            (f"l{layer} st1-st3", "conv3x3_q8", (c1,), c1, hw, 1, False,
+             False, False, 3),
+            (f"l{layer} st4-st6", "conv3x3_q8", (half,), half, hw, 1, False,
+             False, False, 3),
+            (f"l{layer} cv*_1", "conv1x1_q8", (c1,), half, hw, 1, False,
+             False, False, 3),
+            (f"l{layer} cv*_2", "conv1x1_q8", (half,), c1, hw, 1, False,
+             False, False, 3),
+            (f"l{layer} cv1", "conv1x1_q8", (c1, c1, c1), c2, hw, 1, False,
+             exit_, pool, 1)]
+        if layer == 5:
+            rows.append(("l6 MP", "max_pool2_q8", (c2,), c2, hw, 2, False,
+                         False, False, 1))
+    return rows
+
+
+def q8_case(torch, row, batch, dev, seed):
+    """Inputs and calls of one backbone shape: (kernel fn, plain fn,
+    f32 cuDNN fn or None, out_scale, bytes, ops). Random weights at
+    1/sqrt(fan_in), random int8 maps at s_in = 1/127; out_scale puts the
+    plain float output's absmax at 127."""
+    import torch.nn.functional as F
+
+    from rep_yolo_tpu_torch.ops.kernels import conv_flat as KC
+    from rep_yolo_tpu_torch.ops.kernels import pool_flat as KP
+
+    name, kern, cins, cout, hw, stride, f32_in, f32_out, pool, _ = row
+    g = torch.Generator(device=dev).manual_seed(seed)
+    s_in = 1.0 / 127.0
+    if kern == "max_pool2_q8":
+        x = torch.randint(-127, 128, (batch, hw, hw, cins[0]), generator=g,
+                          device=dev, dtype=torch.int8)
+        nbytes = x.numel() * 1.25
+        B, H, W, C = x.shape
+        lib = lambda: x.reshape(B, H // 2, 2, W // 2, 2, C).amax((2, 4))  # noqa
+        return (lambda: KP.max_pool2_q8(x), lambda: KP.max_pool2_q8_plain(x),
+                lib, None, nbytes, 0.0)
+    k = 3 if kern == "conv3x3_q8" else 1
+    cin = sum(cins)
+    w = torch.randn((cout, cin, k, k), generator=g, device=dev) \
+        / (cin * k * k) ** 0.5
+    b = 0.1 * torch.randn((cout,), generator=g, device=dev)
+    qw = KC.QConv(w, b)
+    if f32_in:
+        xs = [torch.rand((batch, hw, hw, cins[0]), generator=g, device=dev)]
+        xf = xs[0]
+    else:
+        xs = [torch.randint(-127, 128, (batch, hw, hw, c), generator=g,
+                            device=dev, dtype=torch.int8) for c in cins]
+        xf = torch.cat(xs, -1).float() * s_in
+    xf = xf.permute(0, 3, 1, 2).contiguous()
+    if kern == "conv3x3_q8":
+        def run(fn, out):
+            return fn(xs[0], qw, s_in, stride, "silu", out)
+        kfn, pfn = KC.conv3x3_q8, KC.conv3x3_q8_plain
+    else:
+        def run(fn, out):
+            return fn(xs, qw, s_in, "silu", out, pool)
+        kfn, pfn = KC.conv1x1_q8, KC.conv1x1_q8_plain
+    out_s = None if f32_out else \
+        float(run(pfn, None).abs().max()) / 127.0
+    ho = (hw - 1) // stride + 1
+    npix_out = batch * ho * ho // (4 if pool else 1)
+    nbytes = (sum(t.numel() * t.element_size() for t in xs) + qw.w_q.numel()
+              + 8 * cout + npix_out * cout * (4 if f32_out else 1))
+    ops = 2.0 * batch * ho * ho * cout * cin * k * k
+    lib = lambda: F.conv2d(xf, w, b, stride=stride, padding=k // 2)  # noqa
+    return (lambda: run(kfn, out_s), lambda: run(pfn, out_s), lib, out_s,
+            nbytes, ops)
+
+
+def q8_diff(torch, got, ref, out_scale):
+    """(max abs err in the output's float units, elements off by one LSB,
+    elements off by more) of a kernel output against its plain version."""
+    if got.dtype != torch.int8:
+        return float((got - ref).abs().max()), 0, 0
+    d = (got.int() - ref.int()).abs()
+    return (float(d.max()) * (out_scale or 1.0), int((d == 1).sum()),
+            int((d > 1).sum()))
+
+
 # ---------------------------------------------------------------------------
 
 
@@ -231,6 +351,35 @@ def phase_kernels(torch, dev, errs):
           "attention": rows, "nms": nms_rows})
 
 
+def phase_kernels_q8(torch, dev, errs):
+    """K4-K6 against their plain versions at every backbone shape."""
+    rows = []
+    for i, row in enumerate(backbone_q8_shapes()):
+        kfn, pfn, _, out_s, _, _ = q8_case(torch, row, 4, dev, 100 + i)
+        got, ref = kfn(), pfn()
+        torch.cuda.synchronize()
+        err, off1, off_more = q8_diff(torch, got, ref, out_s)
+        n = got.numel()
+        r = {"shape": row[0], "kernel": row[1], "out": list(got.shape),
+             "dtype": str(got.dtype), "max_abs_err": err,
+             "lsb_off_by_1": off1, "lsb_off_by_more": off_more}
+        rows.append(r)
+        if got.dtype == torch.int8:
+            ok = off_more == 0 and off1 <= 1e-4 * n
+            if row[1] == "max_pool2_q8":
+                ok = off1 == 0
+        else:
+            ok = bool(torch.allclose(got, ref, atol=1e-5, rtol=1e-5))
+        if not ok:
+            raise AssertionError(f"{row[1]} differs from its plain version: "
+                                 f"{r}")
+        errs[row[1]] = max(errs.get(row[1], 0.0), err)
+    emit({"phase": "kernels_q8_vs_plain", "ok": True, "batch": 4,
+          "tolerance": "int8 identical but for +-1 LSB on <= 1e-4 of the "
+                       "elements; float exit atol = rtol = 1e-5; pool "
+                       "identical", "shapes": rows})
+
+
 def phase_golden(torch, dev):
     import numpy as np
 
@@ -280,7 +429,7 @@ def phase_attention_e2e(torch, dev):
         models[gm] = RepYOLO.from_config(CFG, device=dev).load_state(
             st).fuse()
     x = torch.from_numpy(np.random.default_rng(1).uniform(
-        0, 1, (2, 640, 640, 3)).astype(np.float32)).to(dev)
+        0, 1, (2, SIZE, SIZE, 3)).astype(np.float32)).to(dev)
     conf, iou = 0.001, 0.45
     m = models[0.5]
     maps_k = m.apply(x)
@@ -308,7 +457,7 @@ def phase_attention_e2e(torch, dev):
     valid_k = top_k[..., 4] > conf
     keep_same = bool(torch.equal(KN.nms_keep(boxes_k, valid_k, iou),
                                  KN.nms_keep_plain(boxes_k, valid_k, iou)))
-    out = {"phase": "attention_e2e", "gamma": 0.5, "batch": 2, "size": 640,
+    out = {"phase": "attention_e2e", "gamma": 0.5, "batch": 2, "size": SIZE,
            "raw_map_max_abs_err": map_err,
            "gamma_effect_box_max_abs_px": visible,
            "decoded_box_max_abs_err_px": box_err,
@@ -326,7 +475,159 @@ def phase_attention_e2e(torch, dev):
         raise AssertionError(f"attention end-to-end check failed: {out}")
 
 
-def phase_serving(torch, dev):
+@contextlib.contextmanager
+def plain_q8():
+    """Run the int8 region through the plain versions of K4-K6."""
+    from rep_yolo_tpu_torch.ops.kernels import conv_flat as KC
+    from rep_yolo_tpu_torch.ops.kernels import pool_flat as KP
+
+    saved = KC.conv3x3_q8, KC.conv1x1_q8, KP.max_pool2_q8
+    KC.conv3x3_q8, KC.conv1x1_q8 = KC.conv3x3_q8_plain, KC.conv1x1_q8_plain
+    KP.max_pool2_q8 = KP.max_pool2_q8_plain
+    try:
+        yield
+    finally:
+        KC.conv3x3_q8, KC.conv1x1_q8, KP.max_pool2_q8 = saved
+
+
+def _region_outputs(model, x):
+    """Raw maps of one forward and the region's per-layer outputs."""
+    net = model.net
+    seen = {}
+    run = net._run_q8
+
+    def record(spec, mod, step, inp):
+        seen[spec.i] = run(spec, mod, step, inp)
+        return seen[spec.i]
+
+    net._run_q8 = record
+    try:
+        maps = model.apply(x)
+    finally:
+        del net._run_q8
+    return maps, seen
+
+
+def phase_int8_e2e(torch, dev):
+    import numpy as np
+
+    from rep_yolo_tpu_torch.models import heads
+    from rep_yolo_tpu_torch.models.model import RepYOLO
+    from rep_yolo_tpu_torch.models.region import Q8Map
+    from rep_yolo_tpu_torch.ops.boxes import xywh2xyxy
+    from rep_yolo_tpu_torch.ops.kernels import launch_counts, \
+        reset_launch_counts
+    from rep_yolo_tpu_torch.ops.kernels import nms as KN
+    from rep_yolo_tpu_torch.ops.nms import non_max_suppression
+    from rep_yolo_tpu_torch.ops.quant import enable_int8_fast_path
+    from rep_yolo_tpu_torch.serve import calibration_batch
+    from rep_yolo_tpu_torch.utils.weights import load_reference_npz
+
+    m = RepYOLO.from_config(CFG, device=dev).load_state(
+        load_reference_npz(GOLDEN / "model_weights.npz")).fuse()
+    scales = enable_int8_fast_path(m, calibration_batch(SIZE, dev))
+    x = torch.from_numpy(np.random.default_rng(1).uniform(
+        0, 1, (2, SIZE, SIZE, 3)).astype(np.float32)).to(dev)
+    conf, iou, nl = 0.001, 0.45, m.cfg.nl
+
+    def decode(maps):
+        pred = heads.decode_predictions(maps[:nl], m.anchors_px, m.strides)
+        top = heads.decode_topk(maps[:nl], m.anchors_px, m.strides, k=1024,
+                                conf_thres=conf)
+        return pred, top
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    maps_k, seen_k = _region_outputs(m, x)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    with plain_q8():
+        maps_p, seen_p = _region_outputs(m, x)
+    plan = dict(m.net.region_plan)
+    want = {"conv3x3_q8": 25, "conv1x1_q8": 28, "max_pool2_q8": 1}
+    if {k: counts[k] for k in want} != want:
+        raise AssertionError(f"int8 forward launched {counts}, want {want}")
+
+    region = {}
+    for i in sorted(seen_k):
+        a, b = seen_k[i], seen_p[i]
+        if isinstance(a, Q8Map):
+            err, off1, more = q8_diff(torch, a.data, b.data, a.scale)
+            n = a.data.numel()
+        else:
+            err, off1, more, n = float((a - b).abs().max()), 0, 0, a.numel()
+        region[f"l{i}"] = {"max_abs_err": err, "lsb_off_by_1": off1,
+                           "lsb_off_by_more": more, "elements": n}
+        if more or off1 > 1e-4 * n or (not isinstance(a, Q8Map)
+                                       and err > 1e-3):
+            raise AssertionError(f"int8 region l{i} differs: {region}")
+    map_err = max(float((a - b).abs().max()) for a, b in zip(maps_k, maps_p))
+    for a, b in zip(maps_k, maps_p):
+        torch.testing.assert_close(a, b, atol=1e-3, rtol=1e-3)
+    pred_k, top_k = decode(maps_k)
+    pred_p, _ = decode(maps_p)
+    box_err = float((pred_k[..., :4] - pred_p[..., :4]).abs().max())
+    boxes = xywh2xyxy(top_k[..., :4])
+    valid = top_k[..., 4] > conf
+    keep_same = bool(torch.equal(KN.nms_keep(boxes, valid, iou),
+                                 KN.nms_keep_plain(boxes, valid, iou)))
+
+    # report only: the int8 mode against the float mode, same weights; the
+    # golden head squeezes the raw maps, so the backbone's exit (l7, the
+    # region's float output) is compared too
+    q8 = m.net.q8
+    m.net.set_q8(None)
+    exit_f = {}
+    hook = m.net.model[7].register_forward_hook(
+        lambda _m, _a, out: exit_f.setdefault(7, out))
+    try:
+        maps_f = m.apply(x)
+    finally:
+        hook.remove()
+        m.net.set_q8(q8)
+    e8, ef = seen_k[7], exit_f[7]
+    pred_f, top_f = decode(maps_f)
+    det = {f"{mode}_conf{c}": non_max_suppression(
+        t, c, iou, presorted=True).count.tolist()
+        for mode, t in (("int8", top_k), ("float", top_f))
+        for c in (conf, 0.25)}
+    vs_float = {
+        "backbone_exit_l7": {
+            "max_abs_diff": float((e8 - ef).abs().max()),
+            "float_absmax": float(ef.abs().max()),
+            "rel_l2": float((e8 - ef).norm() / ef.norm()),
+            "cosine": float(torch.nn.functional.cosine_similarity(
+                e8.flatten(), ef.flatten(), dim=0))},
+        "raw_map_max_abs_diff": [float((a - b).abs().max())
+                                 for a, b in zip(maps_k, maps_f)],
+        "raw_map_mean_abs_diff": [float((a - b).abs().mean())
+                                  for a, b in zip(maps_k, maps_f)],
+        "raw_map_absmax_float": [float(b.abs().max()) for b in maps_f],
+        "decoded_box_max_abs_diff_px": float(
+            (pred_k[..., :4] - pred_f[..., :4]).abs().max()),
+        "decoded_obj_max_abs_diff": float(
+            (pred_k[..., 4] - pred_f[..., 4]).abs().max()),
+        "detections": det}
+    expect = {0: "region entry", 2: "MP fused", 4: "MP fused",
+              6: "in-region flat int8 pool"}
+    plan_ok = all(plan.get(i, "").startswith(v) for i, v in expect.items())
+    plan_ok &= "NHWC bf16 out" in plan.get(7, "")
+    out = {"phase": "int8_e2e", "batch": 2, "size": SIZE,
+           "n_scales": len(scales), "region_plan": plan,
+           "launches_per_forward": {k: counts[k] for k in want},
+           "region_vs_plain": region, "raw_map_max_abs_err": map_err,
+           "decoded_box_max_abs_err_px": box_err,
+           "nms_keep_identical": keep_same, "int8_vs_float": vs_float}
+    out["ok"] = box_err <= 1e-2 and keep_same and plan_ok
+    emit(out)
+    if not out["ok"]:
+        raise AssertionError(f"int8 end-to-end check failed: {out}")
+
+
+def phase_serving(torch, dev, fast=None):
+    """serve.py's HTTP server on the engine (float, or ``fast="int8"``):
+    3 requests, the launch counts of that run, responses equal to direct
+    engine calls."""
     import numpy as np
 
     from rep_yolo_tpu_torch.data.letterbox import letterbox_batch
@@ -334,10 +635,11 @@ def phase_serving(torch, dev):
         reset_launch_counts
     from rep_yolo_tpu_torch.serve import build_engine, make_server
 
-    size, max_batch = 640, 4
+    size, max_batch = SIZE, 4
     t0 = time.perf_counter()
     engine = build_engine(CFG, str(GOLDEN / "model_weights.npz"), size,
-                          max_batch, conf=0.001, iou=0.45, device=dev)
+                          max_batch, conf=0.001, iou=0.45, device=dev,
+                          fast=fast)
     build_s = time.perf_counter() - t0
     rng = np.random.default_rng(2)
     requests = []
@@ -373,8 +675,11 @@ def phase_serving(torch, dev):
         srv.server_close()
         th.join(timeout=30)
     n_fwd = len(requests)
+    q8 = 1 if fast == "int8" else 0
     want = {"axial_project": 12 * n_fwd, "axial_attend_criss_cross": 6 * n_fwd,
-            "axial_attend_vertical": 6 * n_fwd, "nms_keep": n_fwd}
+            "axial_attend_vertical": 6 * n_fwd, "nms_keep": n_fwd,
+            "conv3x3_q8": 25 * n_fwd * q8, "conv1x1_q8": 28 * n_fwd * q8,
+            "max_pool2_q8": n_fwd * q8}
     if counts != want:
         raise AssertionError(f"launch counts {counts} != {want}")
     dets = []
@@ -391,16 +696,10 @@ def phase_serving(torch, dev):
 
     batch4 = requests[2]
     x = torch.from_numpy(batch4).to(dev)
-    e2e = []
-    for _ in range(13):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        engine(batch4)
-        torch.cuda.synchronize()
-        e2e.append((time.perf_counter() - t) * 1e3)
-    e2e_ms = statistics.median(e2e[3:])
+    e2e_ms = served_ms(torch, engine, batch4)
     fwd_ms = cuda_ms(lambda: engine.infer(x), runs=10)
-    emit({"phase": "serving", "ok": True, "health": health,
+    emit({"phase": "serving" if fast is None else f"serving_{fast}",
+          "ok": True, "health": health,
           "build_engine_s": round(build_s, 3), "batches": [1, 2, 4],
           "detections_per_image": dets,
           "server_ms": [r["ms"] for r in responses],
@@ -410,10 +709,26 @@ def phase_serving(torch, dev):
     return counts, e2e_ms, engine, x
 
 
+def served_ms(torch, engine, batch) -> float:
+    """Host ms of one served batch: median of 10 after 3 warm-ups."""
+    e2e = []
+    for _ in range(13):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        engine(batch)
+        torch.cuda.synchronize()
+        e2e.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(e2e[3:])
+
+
 def _category(name: str) -> str:
     low = name.lower()
     if "axial_project" in low or "axial_attend" in low:
         return "attention kernels (K1, K2)"
+    if "conv3x3_q8" in low or "conv1x1_q8" in low:
+        return "int8 conv kernels (K4, K5)"
+    if "max_pool2_q8" in low:
+        return "int8 pool kernel (K6)"
     if "nms_mask" in low or "nms_scan" in low:
         return "nms kernel (K3)"
     if any(s in low for s in ("conv", "xmma", "cudnn", "fprop", "winograd",
@@ -426,56 +741,153 @@ def _category(name: str) -> str:
     return "elementwise / other"
 
 
-def _profile_once(torch, engine, x, reps):
+def profiled(torch, fn, reps: int):
+    """Run ``fn`` ``reps`` times under torch.profiler: (host wall ms per
+    run, {kernel name: device ms per run}, device events recorded)."""
     from torch.profiler import ProfilerActivity, profile
 
-    engine.infer(x)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         for _ in range(reps):
-            engine.infer(x)
+            fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t) * 1e3 / reps
-    cats: dict[str, float] = {}
     names: dict[str, float] = {}
+    events = 0
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = e.self_cuda_time_total
-        ms = us / 1e3 / reps
-        if ms > 0:
-            names[e.key] = names.get(e.key, 0.0) + ms
-            c = _category(e.key)
-            cats[c] = cats.get(c, 0.0) + ms
+        if us > 0:
+            names[e.key] = names.get(e.key, 0.0) + us / 1e3 / reps
+            events += e.count
+    return wall, names, events
+
+
+def profiled_whole(torch, fn, reps: int, tries: int = 5):
+    """``profiled`` until a window holds a non-zero whole multiple of
+    ``reps`` device events (``fn`` launches the same kernels each call).
+    The profiler now and then drops some or all of a window's events
+    (about one window in a hundred on the card, a one-call window among
+    them), so such a window is measured again."""
+    for _ in range(tries):
+        wall, names, events = profiled(torch, fn, reps)
+        if events and events % reps == 0:
+            return wall, names, events
+    raise AssertionError(f"the profiler recorded {events} device events "
+                         f"for {reps} calls in each of {tries} tries")
+
+
+FLUSH_BYTES = 256 << 20     # > 5x the H100's 50 MB L2
+_FLUSH: dict = {}
+
+
+def l2_flush(torch):
+    """(fn, kernel names): ``fn`` evicts the card's L2 by rewriting a
+    FLUSH_BYTES buffer in place; the names are the kernels it launches,
+    which ``device_ms`` leaves out of its sums."""
+    if not _FLUSH:
+        buf = torch.zeros(FLUSH_BYTES // 8, dtype=torch.int64, device="cuda")
+        fn = buf.bitwise_not_
+        fn()
+        _, names, _ = profiled_whole(torch, fn, 4)
+        _FLUSH.update(fn=fn, names=set(names))
+    return _FLUSH["fn"], _FLUSH["names"]
+
+
+def device_ms(torch, fn, reps: int = 10, warmup: int = 3) -> float:
+    """Device ms per call of ``fn`` from a cold L2 (each call follows an
+    ``l2_flush``, so its inputs come from HBM as in a served forward): the
+    sum of its kernels' device times under the profiler, without the
+    host's launch gaps between them or the flush."""
+    flush, skip = l2_flush(torch)
+
+    def call():
+        flush()
+        fn()
+
+    for _ in range(warmup):
+        call()
+    _, names, _ = profiled_whole(torch, call, reps)
+    return sum(ms for k, ms in names.items() if k not in skip)
+
+
+def _profile_once(torch, engine, x, reps):
+    engine.infer(x)
+    wall, names, _ = profiled_whole(torch, lambda: engine.infer(x), reps)
+    cats: dict[str, float] = {}
+    for name, ms in names.items():
+        c = _category(name)
+        cats[c] = cats.get(c, 0.0) + ms
     return wall, cats, names
 
 
-def phase_profile(torch, engine, x, reps: int = 5):
+def phase_profile(torch, engines, x, reps: int = 5):
     """Device time by kernel category over `reps` served batches and the
-    device's busy share of the wall time, in two turns."""
-    runs = [_profile_once(torch, engine, x, reps) for _ in range(2)]
-    wall = [r[0] for r in runs]
-    dev = [sum(r[1].values()) for r in runs]
-    cats: dict[str, float] = {}
-    names: dict[str, float] = {}
-    for r in runs:
-        for c, ms in r[1].items():
-            cats[c] = cats.get(c, 0.0) + ms / len(runs)
-        for n, ms in r[2].items():
-            names[n] = names.get(n, 0.0) + ms / len(runs)
-    measured = min(dev) > 0
-    emit({"phase": "profile", "ok": True, "batch": int(x.shape[0]),
-          "reps": reps, "wall_ms_per_batch": wall,
-          "device_ms_per_batch": dev if measured else "not measured",
-          "device_busy_share": [d / w for d, w in zip(dev, wall)]
-          if measured else "not measured",
-          "by_category_ms": dict(sorted(cats.items(), key=lambda kv: -kv[1])),
-          "top_kernels_ms": [[k[:90], v] for k, v in sorted(
-              names.items(), key=lambda kv: -kv[1])[:10]]})
+    device's busy share of the wall time, for each engine ({mode: engine}),
+    in turns: each engine, then the same in reverse."""
+    modes = list(engines)
+    runs = {m: [] for m in modes}
+    for m in modes + modes[::-1]:
+        runs[m].append(_profile_once(torch, engines[m], x, reps))
+    for mode in modes:
+        wall = [r[0] for r in runs[mode]]
+        dev = [sum(r[1].values()) for r in runs[mode]]
+        cats: dict[str, float] = {}
+        names: dict[str, float] = {}
+        for r in runs[mode]:
+            for c, ms in r[1].items():
+                cats[c] = cats.get(c, 0.0) + ms / len(runs[mode])
+            for n, ms in r[2].items():
+                names[n] = names.get(n, 0.0) + ms / len(runs[mode])
+        measured = min(dev) > 0
+        emit({"phase": "profile", "mode": mode, "ok": True,
+              "batch": int(x.shape[0]), "reps": reps,
+              "wall_ms_per_batch": wall,
+              "device_ms_per_batch": dev if measured else "not measured",
+              "device_busy_share": [d / w for d, w in zip(dev, wall)]
+              if measured else "not measured",
+              "by_category_ms": dict(sorted(cats.items(),
+                                            key=lambda kv: -kv[1])),
+              "top_kernels_ms": [[k[:90], v] for k, v in sorted(
+                  names.items(), key=lambda kv: -kv[1])[:10]]})
+
+
+def kernel_times(torch, kfn, pfn, lib=None) -> dict:
+    """One kernel call's times at one shape: ``ms`` its device time (the
+    profiler), ``event_ms`` the back-to-back CUDA-event time (which also
+    holds the host's launch latency where that exceeds the kernel),
+    ``plain_ms`` and ``library_ms`` device times of the plain version and
+    of the library call."""
+    return {"ms": device_ms(torch, kfn), "event_ms": cuda_ms(kfn),
+            "plain_ms": device_ms(torch, pfn),
+            "library_ms": None if lib is None else device_ms(torch, lib)}
+
+
+TIME_KEYS = ("ms", "event_ms", "plain_ms", "library_ms", "bound_ms")
+
+
+def add_times(agg: dict, t: dict, n: int = 1) -> None:
+    """Add n calls' times (and bytes, ops) of one shape to a per-forward
+    sum; a library time missing at any shape leaves the sum None."""
+    for k in TIME_KEYS + ("bytes", "ops"):
+        if k not in agg:
+            agg[k] = 0.0
+        agg[k] = None if agg[k] is None or t[k] is None else \
+            agg[k] + n * t[k]
+
+
+def kernel_row(name, source, replaces, launches, err, agg, peak) -> dict:
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": agg["ms"], "plain_ms": agg["plain_ms"],
+            "bound_ms": agg["bound_ms"],
+            "bound_by": bound(agg["bytes"], agg["ops"], peak)[1],
+            "library_ms": agg["library_ms"], "event_ms": agg["event_ms"]}
 
 
 def phase_times(torch, dev, counts, errs):
@@ -484,41 +896,30 @@ def phase_times(torch, dev, counts, errs):
     from rep_yolo_tpu_torch.ops.kernels import reset_launch_counts
 
     batch = 4
-    agg = {n: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bytes": 0.0,
-               "flops": 0.0} for n in ("axial_project",
-                                       "axial_attend_criss_cross",
-                                       "axial_attend_vertical")}
+    agg = {n: {} for n in ("axial_project", "axial_attend_criss_cross",
+                           "axial_attend_vertical", "nms_keep")}
     per_shape = []
     for i, (c, h, w) in enumerate(ATTN_SHAPES):
         x, wqk, pq, pv, gamma = attention_inputs(c, h, w, batch, 10 + i,
                                                  0.7, dev)
         q, k, v = KA.project(x, wqk, pq, pv)
-        t1 = cuda_ms(lambda: KA.project(x, wqk, pq, pv))
-        p1 = cuda_ms(lambda: KA.project_plain(x, wqk, pq, pv))
         for cc in (True, False):
             name = "axial_attend_" + ("criss_cross" if cc else "vertical")
             (b1, f1), (b2, f2) = attention_cost(c, h, w, batch, cc)
-            t2 = cuda_ms(lambda: KA.attend(q, k, v, x, gamma, cc))
-            p2 = cuda_ms(lambda: KA.attend_plain(q, k, v, x, gamma, cc))
-            bd2, _ = bound(b2, f2)
-            agg[name]["ms"] += t2
-            agg[name]["plain_ms"] += p2
-            agg[name]["bound_ms"] += bd2
-            agg[name]["bytes"] += b2
-            agg[name]["flops"] += f2
-            per_shape.append({"kernel": name, "shape": [batch, h, w, c],
-                              "ms": t2, "plain_ms": p2, "bound_ms": bd2,
-                              "bound_by": bound(b2, f2)[1]})
+            t = kernel_times(torch, lambda: KA.attend(q, k, v, x, gamma, cc),
+                             lambda: KA.attend_plain(q, k, v, x, gamma, cc))
+            t.update(zip(("bound_ms", "bound_by"), bound(b2, f2)),
+                     bytes=b2, ops=f2)
+            add_times(agg[name], t)
+            per_shape.append({"kernel": name, "shape": [batch, h, w, c], **t})
         # the projection runs once per block, twice per CCVA
-        bd1, by1 = bound(b1, f1)
-        agg["axial_project"]["ms"] += 2 * t1
-        agg["axial_project"]["plain_ms"] += 2 * p1
-        agg["axial_project"]["bound_ms"] += 2 * bd1
-        agg["axial_project"]["bytes"] += 2 * b1
-        agg["axial_project"]["flops"] += 2 * f1
-        per_shape.append({"kernel": "axial_project", "shape": [batch, h, w, c],
-                          "ms": t1, "plain_ms": p1, "bound_ms": bd1,
-                          "bound_by": by1})
+        t = kernel_times(torch, lambda: KA.project(x, wqk, pq, pv),
+                         lambda: KA.project_plain(x, wqk, pq, pv))
+        t.update(zip(("bound_ms", "bound_by"), bound(b1, f1)),
+                 bytes=b1, ops=f1)
+        add_times(agg["axial_project"], t, 2)
+        per_shape.append({"kernel": "axial_project",
+                          "shape": [batch, h, w, c], **t})
 
     import numpy as np
 
@@ -529,42 +930,85 @@ def phase_times(torch, dev, counts, errs):
     boxes = torch.as_tensor(np.concatenate([c - wh / 2, c + wh / 2], -1),
                             dtype=torch.float32, device=dev)
     valid = torch.ones((batch, K), dtype=torch.bool, device=dev)
-    tn = cuda_ms(lambda: KN.nms_keep(boxes, valid, 0.45))
-    pn = cuda_ms(lambda: KN.nms_keep_plain(boxes, valid, 0.45), runs=5)
-    nb = batch * K * (16 + 1 + 1)
-    nf = batch * K * (K - 1) / 2 * 12
+    t = kernel_times(torch, lambda: KN.nms_keep(boxes, valid, 0.45),
+                     lambda: KN.nms_keep_plain(boxes, valid, 0.45))
+    nb, nf = batch * K * (16 + 1 + 1), batch * K * (K - 1) / 2 * 12
+    t.update(zip(("bound_ms", "bound_by"), bound(nb, nf)), bytes=nb, ops=nf)
+    add_times(agg["nms_keep"], t)
     reset_launch_counts()
 
     src_attn = "rep_yolo_tpu_torch/csrc/axial_attention.cu"
     kernels = []
-    for name, replaces in (
-            ("axial_project", "rep_yolo_tpu/ops/pallas/axial_attention.py:263"),
-            ("axial_attend_criss_cross",
+    for name, src, replaces in (
+            ("axial_project", src_attn,
              "rep_yolo_tpu/ops/pallas/axial_attention.py:263"),
-            ("axial_attend_vertical",
-             "rep_yolo_tpu/ops/pallas/axial_attention.py:285")):
-        a = agg[name]
-        kernels.append({"name": name, "route": "cuda", "source": src_attn,
-                        "replaces": replaces, "launches": counts[name],
-                        "max_abs_err": errs[name], "ms": a["ms"],
-                        "plain_ms": a["plain_ms"], "bound_ms": a["bound_ms"],
-                        "bound_by": bound(a["bytes"], a["flops"])[1],
-                        "library_ms": None})
-    bdn, byn = bound(nb, nf)
-    kernels.append({"name": "nms_keep", "route": "cuda",
-                    "source": "rep_yolo_tpu_torch/csrc/nms.cu",
-                    "replaces": "rep_yolo_tpu/ops/pallas/nms_kernel.py:97",
-                    "launches": counts["nms_keep"],
-                    "max_abs_err": errs["nms_keep"], "ms": tn,
-                    "plain_ms": pn, "bound_ms": bdn, "bound_by": byn,
-                    "library_ms": None})
+            ("axial_attend_criss_cross", src_attn,
+             "rep_yolo_tpu/ops/pallas/axial_attention.py:263"),
+            ("axial_attend_vertical", src_attn,
+             "rep_yolo_tpu/ops/pallas/axial_attention.py:285"),
+            ("nms_keep", "rep_yolo_tpu_torch/csrc/nms.cu",
+             "rep_yolo_tpu/ops/pallas/nms_kernel.py:97")):
+        kernels.append(kernel_row(name, src, replaces, counts[name],
+                                  errs[name], agg[name], F32_PEAK))
     emit({"phase": "times", "ok": True, "batch": batch,
-          "note": "attention rows sum the six 640-px CCVA shapes of one "
+          "note": f"attention rows sum the six {SIZE}-px CCVA shapes of one "
                   "served batch (the projection twice per CCVA); nms_keep "
-                  "at K=1024, batch 4; CUDA events, median of 20 runs of 10 "
-                  "back-to-back calls",
+                  "at K=1024, batch 4; ms, plain_ms: device time under the "
+                  "profiler from a cold L2, 10 calls after 3 warm-ups; "
+                  "event_ms: CUDA events, median of 20 runs of 10 "
+                  "back-to-back calls (L2-warm)",
           "per_shape": per_shape})
     return kernels
+
+
+def phase_times_q8(torch, dev, counts, errs):
+    """K4-K6 per backbone shape (batch 4): kernel, plain version, bound and
+    the f32 cuDNN conv of the same shape; the kernels line's rows sum one
+    forward (each shape times its calls per forward)."""
+    from rep_yolo_tpu_torch.ops.kernels import reset_launch_counts
+
+    agg = {n: {} for n in ("conv3x3_q8", "conv1x1_q8", "max_pool2_q8")}
+    per_shape = []
+    for i, row in enumerate(backbone_q8_shapes()):
+        kfn, pfn, lib, _, nbytes, ops = q8_case(torch, row, 4, dev, 200 + i)
+        t = kernel_times(torch, kfn, pfn, lib)
+        t.update(zip(("bound_ms", "bound_by"), bound(nbytes, ops, INT8_PEAK)),
+                 bytes=nbytes, ops=ops)
+        add_times(agg[row[1]], t, row[-1])
+        per_shape.append({"shape": row[0], "kernel": row[1],
+                          "calls_per_forward": row[-1], **t})
+    reset_launch_counts()
+    kernels = []
+    for name, src, replaces in (
+            ("conv3x3_q8", "conv_flat", "conv_flat.py:353"),
+            ("conv1x1_q8", "conv_flat", "conv_flat.py:719"),
+            ("max_pool2_q8", "pool_flat", "pool_flat.py:80")):
+        kernels.append(kernel_row(
+            name, f"rep_yolo_tpu_torch/csrc/{src}.cu",
+            f"rep_yolo_tpu/ops/pallas/{replaces}", counts[name], errs[name],
+            agg[name], INT8_PEAK))
+    emit({"phase": "times_q8", "ok": True, "batch": 4,
+          "note": f"rows sum one {SIZE}-px forward (each shape times its "
+                  "calls per forward); library_ms = the f32 cuDNN conv (TF32 "
+                  "off) of the same shape, for the pool one amax over the "
+                  "(B, H/2, 2, W/2, 2, C) view; ms, plain_ms, library_ms: "
+                  "device time under the profiler from a cold L2, 10 calls "
+                  "after 3 warm-ups; event_ms: CUDA events, median of 20 "
+                  "runs of 10 back-to-back calls (L2-warm)",
+          "per_shape": per_shape})
+    return kernels
+
+
+def phase_served_ab(torch, engines, batch):
+    """One served batch of 4 for each engine, in turns (each, then the
+    same in reverse): host ms median of 10 after 3 warm-ups."""
+    modes = list(engines)
+    out = {m: [] for m in modes}
+    for m in modes + modes[::-1]:
+        out[m].append(served_ms(torch, engines[m], batch))
+    emit({"phase": "served_ab", "ok": True, "turns": modes + modes[::-1],
+          "served_batch4_host_ms": out})
+    return out
 
 
 def main(argv=None) -> int:
@@ -595,17 +1039,26 @@ def main(argv=None) -> int:
     with torch.inference_mode():
         card = phase_device_build(torch)
         phase_kernels(torch, dev, errs)
+        phase_kernels_q8(torch, dev, errs)
         phase_golden(torch, dev)
         phase_attention_e2e(torch, dev)
+        phase_int8_e2e(torch, dev)
         counts, e2e_ms, engine, x = phase_serving(torch, dev)
-        phase_profile(torch, engine, x)
+        counts_q8, e2e_q8_ms, engine_q8, _ = phase_serving(torch, dev,
+                                                           "int8")
+        engines = {"float32": engine, "int8": engine_q8}
+        phase_profile(torch, engines, x)
+        ab = phase_served_ab(torch, engines, x.cpu().numpy())
         engine.close()
+        engine_q8.close()
         kernels = phase_times(torch, dev, counts, errs)
+        kernels += phase_times_q8(torch, dev, counts_q8, errs)
     missing = [k["name"] for k in kernels if k["launches"] <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "
                              f"{missing}")
     emit({"card": card, "served_batch4_ms": e2e_ms,
+          "served_batch4_int8_ms": e2e_q8_ms, "served_ab_ms": ab,
           "total_s": round(time.perf_counter() - t0, 3)})
     kline = {"kernels": kernels}
     print(json.dumps(kline), flush=True)

@@ -28,10 +28,10 @@ BUILD_DIR = PKG_DIR / "_build"
 
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 COMMON_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
-# Per-source extra flags. The NMS IoU must round exactly like its plain
-# version (no fused multiply-add contraction), or boxes at the threshold
-# flip.
-EXTRA_FLAGS = {"nms.cu": ["--fmad=false"]}
+# Per-source extra flags. The NMS IoU and the int8 convolutions' epilogue
+# must round exactly like their plain versions (no fused multiply-add
+# contraction), or boxes at the threshold and int8 requants flip.
+EXTRA_FLAGS = {"nms.cu": ["--fmad=false"], "conv_flat.cu": ["--fmad=false"]}
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -1,8 +1,9 @@
 """Routed network executor: ModelConfig plan -> ``nn.Module``.
 
-Port of the float branch of ``rep_yolo_tpu/models/network.py``
-(``DetectionNet.__call__`` without the int8 region planner). Layer ``i``
-lives at ``model.{i}``, so state keys match the reference's.
+Port of ``rep_yolo_tpu/models/network.py`` (``DetectionNet.__call__``):
+the float graph, and with ``set_q8`` the int8 backbone region planned by
+``models/region.py``. Layer ``i`` lives at ``model.{i}``, so state keys
+match the reference's.
 """
 
 from __future__ import annotations
@@ -11,7 +12,10 @@ import torch
 from torch import nn
 
 from rep_yolo_tpu_torch.models.config import LayerSpec, ModelConfig
+from rep_yolo_tpu_torch.models.region import (Q8Map, Q8Region, RegionPlan,
+                                              Step, plan_region)
 from rep_yolo_tpu_torch.nn import blocks as B
+from rep_yolo_tpu_torch.ops.kernels import pool_flat as K_pool
 
 
 def build_module(spec: LayerSpec, deploy: bool) -> nn.Module:
@@ -53,30 +57,97 @@ def build_module(spec: LayerSpec, deploy: bool) -> nn.Module:
 
 class DetectionNet(nn.Module):
     """Input NHWC float images in [0, 1]; output the raw head maps
-    (B, H_l, W_l, na, no) per level. Only the deploy form runs."""
+    (B, H_l, W_l, na, no) per level. Only the deploy form runs.
+
+    ``set_q8(Q8Region(scales))`` switches on the int8 backbone region; the
+    plan is computed once per input size (``region_plan`` holds the last
+    one's decisions) and the region's weights are quantized once."""
 
     def __init__(self, cfg: ModelConfig, deploy: bool = False):
         super().__init__()
         self.cfg = cfg
         self.deploy = deploy
         self.model = nn.ModuleList(build_module(s, deploy) for s in cfg.layers)
+        self.q8: Q8Region | None = None
+        self.region_plan: dict[int, str] = {}
+        self._plans: dict[tuple[int, int], RegionPlan] = {}
+        self._q8w: dict[int, object] = {}
+
+    def set_q8(self, region: Q8Region | None) -> None:
+        """Turn the int8 region on (calibrated scales) or off (None)."""
+        self.q8 = region
+        self.region_plan = {}
+        self._plans.clear()
+        self._q8w.clear()
+
+    def plan_for(self, h: int, w: int) -> RegionPlan:
+        """The region plan for (h, w) inputs, made once per size; the
+        weights of the layers it runs in int8 are quantized once."""
+        if (h, w) not in self._plans:
+            plan = plan_region(self.cfg, self.q8, h, w)
+            for i, step in plan.steps.items():
+                if i in self._q8w or step.kind not in ("stem", "der"):
+                    continue
+                mod = self.model[i]
+                self._q8w[i] = (mod.q8_weights() if step.kind == "stem"
+                                else mod.q8_weights(step.scales))
+            self._plans[(h, w)] = plan
+        plan = self._plans[(h, w)]
+        self.region_plan = dict(plan.strings)
+        return plan
 
     def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
         if not self.deploy:
             raise RuntimeError("only the fused deploy graph runs; fuse first")
+        steps = ({} if self.q8 is None
+                 else self.plan_for(x.shape[1], x.shape[2]).steps)
+        first = steps.get(self.cfg.layers[0].i)
         # NCHW inside: cuDNN's f32 convolutions run NCHW kernels and
-        # transpose around channels_last activations (PERF.md)
-        y = x.permute(0, 3, 1, 2).contiguous()
-        saved: dict[int, torch.Tensor] = {}
+        # transpose around channels_last activations (PERF.md); the int8
+        # stem reads the NHWC images as they are
+        y = x if first is not None and first.kind == "stem" else \
+            x.permute(0, 3, 1, 2).contiguous()
+        saved: dict[int, torch.Tensor | Q8Map] = {}
+        floats: dict[int, torch.Tensor] = {}   # dequantized region maps
         for spec, mod in zip(self.cfg.layers, self.model):
+            step = steps.get(spec.i)
+            raw = step is not None and (step.kind.startswith("mp")
+                                        or step.cm_in)
+
             def fetch(j):
-                return y if j in (spec.i - 1, -1) else saved[j]
+                t = y if j in (spec.i - 1, -1) else saved[j]
+                if isinstance(t, Q8Map) and not raw:
+                    if j not in floats:
+                        floats[j] = t.to_float()
+                    return floats[j]
+                return t
 
             inp = fetch(spec.f[0]) if len(spec.f) == 1 else \
                 [fetch(j) for j in spec.f]
             if spec.name == "IDetect" and not isinstance(inp, list):
                 inp = [inp]
-            y = mod(inp)
+            y = mod(inp) if step is None else self._run_q8(spec, mod, step,
+                                                           inp)
             if spec.save:
                 saved[spec.i] = y
         return y
+
+    def _run_q8(self, spec: LayerSpec, mod: nn.Module, step: Step, inp):
+        if step.kind == "mp_fused":
+            return inp
+        if step.kind == "mp_pool":
+            return Q8Map(K_pool.max_pool2_q8(inp.data), inp.scale)
+        if step.cm_in:
+            x = inp.data
+        elif spec.f == (-1,) and step.kind == "stem":
+            x = inp                                  # the NHWC images
+        else:
+            x = inp.permute(0, 2, 3, 1).contiguous()
+        qw = self._q8w[spec.i]
+        if step.kind == "stem":
+            y = mod.forward_stem_q8(x, qw, step.s_in, step.out_scale)
+        else:
+            y = mod.forward_q8(x, qw, step.scales, step.out_scale, step.pool)
+        if step.out_scale is None:
+            return y.permute(0, 3, 1, 2).contiguous()   # the float exit
+        return Q8Map(y, step.out_scale)

@@ -13,6 +13,10 @@ attention blocks hand their kernels NHWC views.
 Reference quirks kept as they are: CA returns the pooled (B,C,1,1)
 tensor; q and k share one BN; VerticalAttention uses raw energies; the
 centre pixel counts in both criss-cross branches.
+
+The int8 region (``models/region.py``) runs the stem and the DER blocks
+through the int8 kernels instead: ``RepSBlock.forward_stem_q8`` and
+``DERBlock.forward_q8`` take and give channels-last (B, H, W, C) maps.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from rep_yolo_tpu_torch.ops.kernels import axial_attention as K_axial
+from rep_yolo_tpu_torch.ops.kernels import conv_flat as K_conv
 
 BN_EPS = 1e-3
 
@@ -114,6 +119,44 @@ class RepSBlock(nn.Module):
     def forward(self, x):
         return F.silu(self.reparam_conv(x))
 
+    def q8_weights(self) -> K_conv.QConv:
+        return K_conv.QConv(self.reparam_conv.weight, self.reparam_conv.bias)
+
+    def forward_stem_q8(self, x: torch.Tensor, qw: K_conv.QConv,
+                        s_in: float, out_scale: float) -> torch.Tensor:
+        """The thin stride-2 stem straight into the int8 region (port of
+        ``RepSBlock._stem_fast_q8``): x (B, H, W, c1) float -> (B, H/2,
+        W/2, c2) int8 at ``out_scale``. The JAX package reached this conv by
+        space-to-depth and a 2x2 kernel embedded in a 3x3, a TPU layout
+        trick that adds only zero taps; K4 computes the stride-2 conv
+        directly, with the same weight scales and s32 sums."""
+        return K_conv.conv3x3_q8(x, qw, s_in, stride=2, act="silu",
+                                 out_scale=out_scale)
+
+
+# The 13 convs of a DER block in dataflow order: (name, module path, JAX
+# scope suffix), and the conv whose input scale each int8 output is
+# emitted at (nn/blocks.py DERBlock._fast_deploy of the JAX package).
+DER_CONVS = (
+    ("st1", "stage1.0.reparam_conv", "stage1/reparam_conv"),
+    ("st2", "stage2.0.reparam_conv", "stage2/reparam_conv"),
+    ("st3", "stage3.0.reparam_conv", "stage3/reparam_conv"),
+    ("cv0_1", "cv0_1.conv", "cv0_1/conv"),
+    ("st4", "stage4.0.reparam_conv", "stage4/reparam_conv"),
+    ("cv0_2", "cv0_2.conv", "cv0_2/conv"),
+    ("cv1_1", "cv1_1.conv", "cv1_1/conv"),
+    ("st5", "stage5.0.reparam_conv", "stage5/reparam_conv"),
+    ("cv1_2", "cv1_2.conv", "cv1_2/conv"),
+    ("cv2_1", "cv2_1.conv", "cv2_1/conv"),
+    ("st6", "stage6.0.reparam_conv", "stage6/reparam_conv"),
+    ("cv2_2", "cv2_2.conv", "cv2_2/conv"),
+    ("cv1", "cv1.conv", "cv1/conv"),
+)
+DER_NEXT = {"st1": "st2", "st2": "st3", "st3": "cv0_1", "cv0_1": "st4",
+            "st4": "cv0_2", "cv0_2": "cv1_1", "cv1_1": "st5",
+            "st5": "cv1_2", "cv1_2": "cv2_1", "cv2_1": "st6",
+            "st6": "cv2_2", "cv2_2": "cv1"}
+
 
 class DERBlock(nn.Module):
     """Three full-width RepS stages, three half-width stages between 1x1
@@ -145,6 +188,58 @@ class DERBlock(nn.Module):
         x4_2 = self.cv1_2(self.stage5[0](self.cv1_1(x4_1)))
         x4_3 = self.cv2_2(self.stage6[0](self.cv2_1(x4_2)))
         return self.cv1(torch.cat([x1, x4_1, x4_3], 1))
+
+    @staticmethod
+    def q8_scales(scales, prefix: str) -> dict[str, float] | None:
+        """The 13 convs' input scales under ``prefix`` (e.g. ``l1``), or
+        None when any is missing: the block then declines the int8 path."""
+        out = {}
+        for name, _, key in DER_CONVS:
+            s = scales.get(f"{prefix}/{key}")
+            if s is None or s <= 0.0:
+                return None
+            out[name] = float(s)
+        return out
+
+    def q8_weights(self, sc: dict[str, float]) -> dict[str, K_conv.QConv]:
+        """The 13 convs quantized once. The concat's sections arrive int8
+        at three scales (x1 at s(st2), x4_1 at s(cv1_1), x4_3 at s(cv1)):
+        cv1 folds them into its input channels and then quantizes the whole
+        matrix, one scale per output channel, and runs at s_in = 1."""
+        mods = dict(self.named_modules())
+        c1 = self.stage1[0].reparam_conv.in_channels
+        out = {}
+        for name, path, _ in DER_CONVS:
+            conv = mods[path]
+            fold = None
+            if name == "cv1":
+                fold = torch.cat([torch.full((c1,), sc[k], dtype=torch.float32)
+                                  for k in ("st2", "cv1_1", "cv1")])
+            out[name] = K_conv.QConv(conv.weight, conv.bias, fold)
+        return out
+
+    def forward_q8(self, x: torch.Tensor, qw: dict[str, K_conv.QConv],
+                   sc: dict[str, float], out_scale: float | None,
+                   pool: bool) -> torch.Tensor:
+        """The block on the int8 kernels (port of ``_fast_deploy``, q8).
+
+        x (B, H, W, c1): int8 at s(st1), or float, quantized by K4. Every
+        conv emits int8 at its successor's input scale; cv1 runs over the
+        three sections with the trailing MP fused when ``pool``, and emits
+        int8 at ``out_scale`` or float32 (the region's exit)."""
+        def conv(name, h):
+            q, s, nxt = qw[name], sc[name], sc[DER_NEXT[name]]
+            if q.k == 3:
+                return K_conv.conv3x3_q8(h, q, s, 1, "silu", nxt)
+            return K_conv.conv1x1_q8(h, q, s, "silu", nxt)
+
+        x1 = conv("st1", x)
+        x3 = conv("st3", conv("st2", x1))
+        x4_1 = conv("cv0_2", conv("st4", conv("cv0_1", x3)))
+        x4_2 = conv("cv1_2", conv("st5", conv("cv1_1", x4_1)))
+        x4_3 = conv("cv2_2", conv("st6", conv("cv2_1", x4_2)))
+        return K_conv.conv1x1_q8([x1, x4_1, x4_3], qw["cv1"], 1.0, "silu",
+                                 out_scale, pool)
 
 
 class SPPCSPC(nn.Module):

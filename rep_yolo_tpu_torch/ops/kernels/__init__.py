@@ -6,9 +6,11 @@ launch counters, so a run can show which kernels the main path went through.
 
 from __future__ import annotations
 
-from rep_yolo_tpu_torch.ops.kernels import axial_attention, nms
+from rep_yolo_tpu_torch.ops.kernels import (axial_attention, conv_flat, nms,
+                                            pool_flat)
 
-_COUNTERS = (axial_attention.LAUNCHES, nms.LAUNCHES)
+_COUNTERS = (axial_attention.LAUNCHES, nms.LAUNCHES, conv_flat.LAUNCHES,
+             pool_flat.LAUNCHES)
 
 
 def launch_counts() -> dict[str, int]:

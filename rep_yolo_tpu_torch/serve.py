@@ -1,8 +1,9 @@
 """Model-serving HTTP server on the card (port of ``deploy/server.py``).
 
 The engine is the fused float32 deploy forward, the top-k decode and the
-CUDA NMS kernel. Requests are padded to ``max_batch`` so every call runs
-the same shapes.
+CUDA NMS kernel; with ``--fast int8`` the backbone runs as the calibrated
+int8 region (``models/region.py``) on the int8 kernels. Requests are
+padded to ``max_batch`` so every call runs the same shapes.
 
 Protocol (stdlib only):
   POST /v1/infer  body: raw float32 NHWC letterboxed images in [0, 1];
@@ -11,7 +12,7 @@ Protocol (stdlib only):
            "ms": float}
   GET /v1/health -> {"status": "ok", "device": ..., ...}
 
-Run:  python -m rep_yolo_tpu_torch.serve --weights tests/golden/model_weights.npz
+Run:  python -m rep_yolo_tpu_torch.serve --weights tests/golden/model_weights.npz [--fast int8]
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ import torch
 from rep_yolo_tpu_torch.device import resolve_device
 from rep_yolo_tpu_torch.models.model import RepYOLO
 from rep_yolo_tpu_torch.ops.nms import Detections, non_max_suppression
+from rep_yolo_tpu_torch.ops.quant import enable_int8_fast_path
 from rep_yolo_tpu_torch.utils.weights import load_reference_npz
 
 
@@ -84,14 +86,29 @@ class Engine:
         return [rows[i][valid[i]].tolist() for i in range(b)]
 
 
+def calibration_batch(img_size: int, device) -> torch.Tensor:
+    """The default calibration batch: two seeded uniform images, as
+    bench.py calibrates its int8 mode (numpy's generator stands in for
+    JAX's)."""
+    x = np.random.default_rng(2).uniform(0, 1, (2, img_size, img_size, 3))
+    return torch.from_numpy(x.astype(np.float32)).to(device)
+
+
 def build_engine(cfg: str, weights: str | None, img_size: int,
                  max_batch: int, conf: float, iou: float,
-                 device=None) -> Engine:
+                 device=None, fast: str | None = None,
+                 calib: torch.Tensor | None = None) -> Engine:
     """Build, load (a reference-keyed .npz, else a seeded init), fuse and
     warm the engine. float32 throughout: TF32 is turned off for cuDNN and
     matmuls, as the JAX server runs its convs at full f32 precision; cuDNN
     keeps to deterministic algorithms, so a request repeated gives the same
-    detections."""
+    detections. ``fast="int8"`` calibrates on ``calib`` (NHWC images in
+    [0, 1]; default ``calibration_batch``) and serves the int8 backbone
+    region only: the JAX package's ``--fast int8`` with
+    ``set_neck_q8(False)``. That package's default ``--fast int8`` also runs
+    the neck in int8, which the port does not yet."""
+    if fast not in (None, "int8"):
+        raise ValueError(f"unknown fast path {fast!r}")
     dev = resolve_device(device)
     if dev.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -102,7 +119,11 @@ def build_engine(cfg: str, weights: str | None, img_size: int,
         model.load_state(load_reference_npz(weights))
     else:
         model.init(torch.Generator().manual_seed(0))
-    engine = Engine(model.fuse(), img_size, max_batch, conf, iou)
+    model = model.fuse()
+    if fast == "int8":
+        enable_int8_fast_path(model, calib if calib is not None
+                              else calibration_batch(img_size, dev))
+    engine = Engine(model, img_size, max_batch, conf, iou)
     engine(np.zeros((max_batch, img_size, img_size, 3), np.float32))
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -127,7 +148,8 @@ def make_handler(engine: Engine):
                 return self._json(404, {"error": "not found"})
             self._json(200, {"status": "ok", "device": str(engine.device),
                              "img_size": engine.img_size,
-                             "max_batch": engine.max_batch})
+                             "max_batch": engine.max_batch,
+                             "int8": engine.model.net.q8 is not None})
 
         def do_POST(self):
             if self.path != "/v1/infer":
@@ -154,7 +176,7 @@ def make_server(engine: Engine, host: str = "0.0.0.0",
     return ThreadingHTTPServer((host, port), make_handler(engine))
 
 
-def main(argv=None):
+def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--cfg", default="cfg/rep_yolo.yaml")
     p.add_argument("--weights", default=None,
@@ -166,12 +188,23 @@ def main(argv=None):
     p.add_argument("--host", default="0.0.0.0")
     p.add_argument("--port", type=int, default=8000)
     p.add_argument("--device", default=None)
-    args = p.parse_args(argv)
+    p.add_argument("--fast", default=None, choices=["int8"],
+                   help="'int8': calibrate on seeded uniform images and run "
+                        "the backbone as the int8 region on the int8 kernels "
+                        "(the JAX package's --fast int8 with its neck left in "
+                        "float, set_neck_q8(False))")
+    return p.parse_args(argv)
+
+
+def main(argv=None):
+    args = parse_args(argv)
     engine = build_engine(args.cfg, args.weights, args.img_size,
-                          args.max_batch, args.conf, args.iou, args.device)
+                          args.max_batch, args.conf, args.iou, args.device,
+                          fast=args.fast)
     srv = make_server(engine, args.host, args.port)
     print(f"serving on {args.host}:{srv.server_address[1]} (size "
-          f"{args.img_size}, max batch {args.max_batch}, {engine.device})")
+          f"{args.img_size}, max batch {args.max_batch}, {engine.device}, "
+          f"{args.fast or 'float32'})")
     srv.serve_forever()
 
 

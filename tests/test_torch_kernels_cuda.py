@@ -7,7 +7,9 @@ installed (``tests/conftest.py`` imports JAX, hence ``--noconftest``):
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py
 
 Tolerances: attention f32 atol = rtol = 1e-4 (summation order differs);
-NMS keep sets identical.
+NMS keep sets identical; the int8 kernels: int8 outputs identical but for
++-1 LSB on at most 1e-4 of the elements (CUDA's expf against torch's
+sigmoid), float32 outputs atol = rtol = 1e-5, pools identical.
 """
 
 import numpy as np
@@ -18,8 +20,10 @@ from rep_yolo_tpu_torch.nn.blocks import AxialAttention
 from rep_yolo_tpu_torch.nn.fuse import fuse_state_dict
 from rep_yolo_tpu_torch.ops import nms as TN
 from rep_yolo_tpu_torch.ops.kernels import axial_attention as KA
+from rep_yolo_tpu_torch.ops.kernels import conv_flat as KC
 from rep_yolo_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
 from rep_yolo_tpu_torch.ops.kernels import nms as KN
+from rep_yolo_tpu_torch.ops.kernels import pool_flat as KP
 
 pytestmark = pytest.mark.cuda
 TOL = dict(atol=1e-4, rtol=1e-4)
@@ -94,3 +98,90 @@ def test_nms_keep_matches_plain_and_greedy(cuda, k):
     assert torch.equal(keep, KN.nms_keep_plain(b, v, 0.45))
     if k <= 1000:
         assert torch.equal(keep.cpu(), TN._greedy_keep(b.cpu(), v.cpu(), 0.45))
+
+
+def _assert_q8_close(got, ref):
+    assert got.dtype == ref.dtype and got.shape == ref.shape
+    if got.dtype == torch.int8:
+        d = (got.int() - ref.int()).abs()
+        assert int(d.max()) <= 1 and float((d > 0).float().mean()) <= 1e-4
+    else:
+        torch.testing.assert_close(got, ref, atol=1e-5, rtol=1e-5)
+
+
+def _qconv(rng, c_in, c_out, k, device):
+    w = torch.from_numpy(rng.normal(0, 0.1, (c_out, c_in, k, k)).astype(
+        np.float32))
+    b = torch.from_numpy(rng.normal(0, 0.5, (c_out,)).astype(np.float32))
+    return KC.QConv(w.to(device), b.to(device))
+
+
+@pytest.mark.parametrize("stride,c_in,c_out,h,w,f32_in,out_scale", [
+    (2, 3, 48, 64, 96, True, 0.03),        # the stem: f32 image, C 3 -> 4
+    (1, 48, 48, 24, 40, False, 0.05),      # one 48-channel chunk
+    (1, 24, 24, 16, 20, False, 0.05),      # O = 24 < one block of 32
+    (1, 256, 256, 13, 21, False, None),    # 4 chunks, ragged tiles, f32 out
+    (1, 128, 64, 16, 16, True, 0.02),      # f32 in, several chunks
+])
+def test_conv3x3_q8_matches_plain(cuda, stride, c_in, c_out, h, w, f32_in,
+                                  out_scale):
+    rng = np.random.default_rng(c_in + h)
+    qw = _qconv(rng, c_in, c_out, 3, cuda)
+    if f32_in:
+        x = torch.from_numpy(rng.uniform(-1, 1, (2, h, w, c_in)).astype(
+            np.float32)).to(cuda)
+    else:
+        x = torch.from_numpy(rng.integers(-127, 128, (2, h, w, c_in)).astype(
+            np.int8)).to(cuda)
+    args = (qw, 0.01, stride, "silu", out_scale)
+    got = KC.conv3x3_q8(x, *args)
+    _assert_q8_close(got, KC.conv3x3_q8_plain(x, *args))
+
+
+@pytest.mark.parametrize("secs,c_out,h,w,pool,out_scale", [
+    ((48, 48, 48), 48, 16, 32, True, 0.04),     # DER cv1 with the MP
+    ((256, 256, 256), 512, 8, 10, False, None),  # l7 cv1, the float exit
+    ((48,), 24, 12, 20, False, 0.04),           # cv0_1
+    ((24,), 48, 12, 20, False, 0.04),           # cv0_2: one 24 chunk
+    ((128, 128, 128), 256, 10, 14, True, None),
+])
+def test_conv1x1_q8_matches_plain(cuda, secs, c_out, h, w, pool, out_scale):
+    rng = np.random.default_rng(sum(secs) + h)
+    qw = _qconv(rng, sum(secs), c_out, 1, cuda)
+    xs = [torch.from_numpy(rng.integers(-127, 128, (2, h, w, c)).astype(
+        np.int8)).to(cuda) for c in secs]
+    args = (qw, 1.0, "silu", out_scale, pool)
+    got = KC.conv1x1_q8(xs, *args)
+    _assert_q8_close(got, KC.conv1x1_q8_plain(xs, *args))
+    if pool and out_scale is not None:
+        unfused = KP.max_pool2_q8(KC.conv1x1_q8(xs, qw, 1.0, "silu",
+                                                out_scale))
+        assert torch.equal(got, unfused)
+
+
+@pytest.mark.parametrize("shape", [(2, 80, 80, 256), (3, 10, 14, 4),
+                                   (2, 6, 8, 8)])
+def test_max_pool2_q8_matches_plain(cuda, shape):
+    x = torch.from_numpy(np.random.default_rng(0).integers(
+        -128, 128, shape).astype(np.int8)).to(cuda)
+    assert torch.equal(KP.max_pool2_q8(x), KP.max_pool2_q8_plain(x))
+
+
+def test_q8_wrappers_count_launches_and_refuse_bad_input(cuda):
+    rng = np.random.default_rng(3)
+    qw = _qconv(rng, 8, 8, 3, cuda)
+    x = torch.zeros((1, 8, 8, 8), dtype=torch.int8, device=cuda)
+    reset_launch_counts()
+    y = KC.conv3x3_q8(x, qw, 0.01, out_scale=0.02)
+    KP.max_pool2_q8(y)
+    KC.conv1x1_q8([y], _qconv(rng, 8, 16, 1, cuda), 0.02)
+    counts = launch_counts()
+    assert (counts["conv3x3_q8"], counts["conv1x1_q8"],
+            counts["max_pool2_q8"]) == (1, 1, 1)
+    with pytest.raises(ValueError):                  # int8 C not 4k
+        KC.conv3x3_q8(torch.zeros((1, 8, 8, 3), dtype=torch.int8,
+                                  device=cuda), _qconv(rng, 3, 8, 3, cuda),
+                      0.01)
+    with pytest.raises(ValueError):                  # odd map for the pool
+        KP.max_pool2_q8(torch.zeros((1, 5, 4, 4), dtype=torch.int8,
+                                    device=cuda))
