@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch / CUDA port (rep_yolo_tpu_torch) on one card.
 
-Drives the port's two paths, fused float serving of cfg/rep_yolo.yaml at
-640 px and the same with the calibrated int8 backbone region (``--fast
-int8``), and holds every CUDA kernel of those paths against its plain
-PyTorch version on the card. Phases, one JSON line each:
+Drives the port's paths, fused float serving of cfg/rep_yolo.yaml at 640 px
+and the same with the calibrated int8 region (``--fast int8``: the backbone,
+neck and head in int8, the attention blocks in float; and the backbone
+region alone, ``Q8Region(neck=False)``), and holds every CUDA kernel of those
+paths against its plain PyTorch version on the card. Phases, one JSON line
+each:
 
   1. device and build: the card, then nvcc of every csrc/*.cu (parallel)
   2. kernels vs plain: axial attention (K1 projection, K2 both modes) at the
@@ -33,17 +35,31 @@ and for the int8 path:
      int8 maps): int8 outputs identical but for +-1 LSB on at most 1e-4 of
      the elements, the float exit atol = rtol = 1e-5, pools identical
   4b. int8_e2e: golden weights, calibrated on the seeded uniform batch, at
-     640 px, batch 2: the int8 kernel path vs the int8 plain path (region
-     maps as above, raw maps atol = rtol = 1e-3, decoded boxes 1e-2 px,
-     the NMS keep set identical); the region plan; and, as a report with
-     no gate, int8 against float: the backbone exit (l7), raw maps and
-     detections
+     640 px, batch 2, the backbone region alone: the int8 kernel path vs the
+     int8 plain path (region maps as above, raw maps atol = rtol = 1e-3,
+     decoded boxes 1e-2 px, the NMS keep set identical); the region plan;
+     and, as a report with no gate, int8 against float: the backbone exit
+     (l7), raw maps and detections
+  4c. int8_neck_e2e: the same with the neck on (the default --fast int8),
+     every in-region map of the neck and head included; the layers whose
+     convs still run as f32 cuDNN convs (only the attention islands) and,
+     as a report, the P3-P5 features (l29, l45, l61) against float
   5b. serving_int8: as 5 with --fast int8; launch counts of that run per
-     forward: 25 K4, 28 K5, 1 K6 beside the float path's 12 / 6 / 6 / 1
-  6b. profile of both engines, in turns (float, int8, int8, float)
-  7b. times_q8: K4-K6 per backbone shape beside the plain version, the
-     bound and the f32 cuDNN conv of the same shape; summed per forward
-  8. served_ab: one served batch of 4, float and int8 in turns
+     forward: 36 K4, 76 K5, 3 K6, 18 K7, 1 K8 beside the float path's
+     12 / 6 / 6 / 1; serving_int8_backbone: the backbone region alone,
+     25 K4, 28 K5, 1 K6
+  5c. kernels_neck_vs_plain: every int8 kernel call of layers 9-65 of one
+     served int8 forward (batch 4, the real maps and weights, recorded on
+     the way), K4 (stride 1 and 2), K5 (1-3 sections, int8 or f32 out), K6,
+     K7 and K8, against its plain version on the same inputs, as 2b
+  6b. profile of the three engines, in turns (float, int8 backbone, int8,
+     and back)
+  7b. times_q8: K4-K6 per backbone shape, and K4-K8 per distinct neck call
+     of 5c, beside the plain version, the bound and the PyTorch yardstick
+     (the f32 cuDNN conv of the same shape; for K7 the f32 depthwise conv;
+     for K8 the sequence of three F.max_pool2d and a torch.cat); summed per
+     forward and, for the neck, per layer
+  8. served_ab: one served batch of 4, the three engines in turns
 
 Then the kernels line {"kernels": [...]} and, last, {"ok": true, "device":
 {...}}. Any failure raises and exits non-zero without the last line.
@@ -269,6 +285,129 @@ def q8_case(torch, row, batch, dev, seed):
             nbytes, ops)
 
 
+Q8_KERNELS = ("conv3x3_q8", "conv1x1_q8", "max_pool2_q8", "dwconv5x5_q8",
+              "spp_pools_q8")
+# launches of one int8 forward at 640 px, the neck on / the backbone alone
+Q8_PER_FORWARD = {"conv3x3_q8": 36, "conv1x1_q8": 76, "max_pool2_q8": 3,
+                  "dwconv5x5_q8": 18, "spp_pools_q8": 1}
+Q8_BACKBONE_PER_FORWARD = {"conv3x3_q8": 25, "conv1x1_q8": 28,
+                           "max_pool2_q8": 1, "dwconv5x5_q8": 0,
+                           "spp_pools_q8": 0}
+NECK_FIRST = 9          # the neck's first layer (SPPCSPC)
+
+
+def q8_module(name):
+    """The module that holds kernel wrapper ``name`` and its plain
+    version."""
+    from rep_yolo_tpu_torch.ops.kernels import conv_flat as KC
+    from rep_yolo_tpu_torch.ops.kernels import neck_flat as KNF
+    from rep_yolo_tpu_torch.ops.kernels import pool_flat as KP
+
+    return {"conv3x3_q8": KC, "conv1x1_q8": KC, "max_pool2_q8": KP,
+            "dwconv5x5_q8": KNF, "spp_pools_q8": KNF}[name]
+
+
+def record_q8_calls(model, x):
+    """One forward of ``model`` on ``x``: (raw maps, [(layer, kernel name,
+    bound arguments)] of every int8 kernel call, with its real inputs)."""
+    import inspect
+
+    net = model.net
+    calls, layer = [], [None]
+    run = net._run_q8
+    saved = {}
+
+    def run_rec(spec, mod, step, inp):
+        layer[0] = spec.i
+        return run(spec, mod, step, inp)
+
+    for name in Q8_KERNELS:
+        mod = q8_module(name)
+        fn = saved[name] = getattr(mod, name)
+        sig = inspect.signature(getattr(mod, name + "_plain"))
+
+        def rec(*a, _fn=fn, _n=name, _sig=sig, **k):
+            b = _sig.bind(*a, **k)
+            b.apply_defaults()
+            calls.append((layer[0], _n, dict(b.arguments)))
+            return _fn(*a, **k)
+        setattr(mod, name, rec)
+    net._run_q8 = run_rec
+    try:
+        maps = model.apply(x)
+    finally:
+        del net._run_q8
+        for name, fn in saved.items():
+            setattr(q8_module(name), name, fn)
+    return maps, calls
+
+
+def call_case(torch, name, args):
+    """A recorded int8 kernel call: (kernel fn, plain fn, PyTorch yardstick
+    fn, out_scale, bytes, int8 ops, signature). The yardstick runs the f32
+    function of the same shape: the cuDNN conv, the depthwise conv, the
+    amax pool, or for the SPP pyramid three F.max_pool2d and a torch.cat."""
+    import torch.nn.functional as F
+
+    mod = q8_module(name)
+    kfn, pfn = getattr(mod, name), getattr(mod, name + "_plain")
+    out_s = args.get("out_scale")
+
+    def kcall():
+        return kfn(**args)
+
+    def pcall():
+        return pfn(**args)
+
+    if name in ("max_pool2_q8", "spp_pools_q8"):
+        x = args["x"]
+        xf = x.permute(0, 3, 1, 2).float().contiguous()
+        if name == "max_pool2_q8":
+            B, H, W, C = x.shape
+            lib = lambda: x.reshape(B, H // 2, 2, W // 2, 2, C).amax((2, 4))  # noqa
+            nbytes, ops = x.numel() * 1.25, 0.0
+        else:
+            def lib():
+                return torch.cat([xf] + [F.max_pool2d(xf, k, 1, k // 2)
+                                         for k in (5, 9, 13)], 1)
+            # 3 levels x 2 separable passes x 4 byte maxima per element
+            nbytes, ops = x.numel() * 5.0, 24.0 * x.numel()
+        sig = (name, tuple(x.shape))
+        return kcall, pcall, lib, None, nbytes, ops, sig
+    if name == "dwconv5x5_q8":
+        x, qd = args["x"], args["qd"]
+        C = qd.c
+        xf = x.permute(0, 3, 1, 2).float().contiguous()
+        wf = qd.w_q.float().reshape(C, 1, 5, 5)
+        lib = lambda: F.conv2d(xf, wf, qd.bias, padding=2, groups=C)  # noqa
+        out_b = 4 if out_s is None else 1
+        nbytes = x.numel() * (1 + out_b) + qd.w_q.numel() + 8 * C
+        ops = 2.0 * 25 * x.numel()
+        sig = (name, tuple(x.shape), args["act"], out_s is None)
+        return kcall, pcall, lib, out_s, nbytes, ops, sig
+    qw = args["qw"]
+    if name == "conv3x3_q8":
+        xs, stride, k = [args["x"]], args["stride"], 3
+    else:
+        xs = args["xs"] if isinstance(args["xs"], (list, tuple)) \
+            else [args["xs"]]
+        stride, k = 1, 1
+    pool = bool(args.get("pool"))
+    B, H, W = xs[0].shape[:3]
+    cin = sum(t.shape[-1] for t in xs)
+    ho, wo = (H - 1) // stride + 1, (W - 1) // stride + 1
+    xf = torch.cat(xs, -1).float().permute(0, 3, 1, 2).contiguous()
+    wf = qw.w_q.float().permute(0, 3, 1, 2)[:, :cin].contiguous()
+    lib = lambda: F.conv2d(xf, wf, qw.bias, stride=stride, padding=k // 2)  # noqa
+    npix = B * ho * wo // (4 if pool else 1)
+    nbytes = (sum(t.numel() * t.element_size() for t in xs) + qw.w_q.numel()
+              + 8 * qw.c_out + npix * qw.c_out * (4 if out_s is None else 1))
+    ops = 2.0 * B * ho * wo * qw.c_out * cin * k * k
+    sig = (name, tuple(tuple(t.shape) for t in xs), str(xs[0].dtype),
+           qw.c_out, stride, args["act"], out_s is None, pool)
+    return kcall, pcall, lib, out_s, nbytes, ops, sig
+
+
 def q8_diff(torch, got, ref, out_scale):
     """(max abs err in the output's float units, elements off by one LSB,
     elements off by more) of a kernel output against its plain version."""
@@ -477,17 +616,15 @@ def phase_attention_e2e(torch, dev):
 
 @contextlib.contextmanager
 def plain_q8():
-    """Run the int8 region through the plain versions of K4-K6."""
-    from rep_yolo_tpu_torch.ops.kernels import conv_flat as KC
-    from rep_yolo_tpu_torch.ops.kernels import pool_flat as KP
-
-    saved = KC.conv3x3_q8, KC.conv1x1_q8, KP.max_pool2_q8
-    KC.conv3x3_q8, KC.conv1x1_q8 = KC.conv3x3_q8_plain, KC.conv1x1_q8_plain
-    KP.max_pool2_q8 = KP.max_pool2_q8_plain
+    """Run the int8 region through the plain versions of K4-K8."""
+    saved = {n: getattr(q8_module(n), n) for n in Q8_KERNELS}
+    for n in Q8_KERNELS:
+        setattr(q8_module(n), n, getattr(q8_module(n), n + "_plain"))
     try:
         yield
     finally:
-        KC.conv3x3_q8, KC.conv1x1_q8, KP.max_pool2_q8 = saved
+        for n, fn in saved.items():
+            setattr(q8_module(n), n, fn)
 
 
 def _region_outputs(model, x):
@@ -508,7 +645,47 @@ def _region_outputs(model, x):
     return maps, seen
 
 
-def phase_int8_e2e(torch, dev):
+def _region_diff(torch, a, b):
+    """(max abs err, LSB off by 1, LSB off by more, elements, float) of one
+    region output of the kernel path against the plain path: an int8 map
+    (err in its float units), a float map, or a list of them (a concat, the
+    head's levels)."""
+    from rep_yolo_tpu_torch.models.region import Q8Map
+
+    if isinstance(a, list):
+        parts = [_region_diff(torch, u, v) for u, v in zip(a, b)]
+        return (max(p[0] for p in parts), sum(p[1] for p in parts),
+                sum(p[2] for p in parts), sum(p[3] for p in parts),
+                any(p[4] for p in parts))
+    if isinstance(a, Q8Map):
+        if (a.perm is None) != (b.perm is None) or (
+                a.perm is not None and not torch.equal(a.perm, b.perm)):
+            raise AssertionError("region maps differ in their permutation")
+        scale = a.scale if isinstance(a.scale, float) else 1.0
+        return (*q8_diff(torch, a.data, b.data, scale), a.data.numel(),
+                False)
+    return float((a - b).abs().max()), 0, 0, a.numel(), True
+
+
+def float_conv_layers(torch, model, x):
+    """The layers whose convs run as float (cuDNN) convs in one forward."""
+    layers = set()
+    hooks = [m.register_forward_pre_hook(
+        lambda _m, _a, i=int(name.split(".")[1]): layers.add(i))
+        for name, m in model.net.named_modules()
+        if isinstance(m, torch.nn.Conv2d)]
+    try:
+        model.apply(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    return sorted(layers)
+
+
+def phase_int8_e2e(torch, dev, neck=False):
+    """The int8 region end to end, kernel path against plain path: the
+    backbone region alone (``neck=False``) or with the neck
+    and head (the default --fast int8)."""
     import numpy as np
 
     from rep_yolo_tpu_torch.models import heads
@@ -525,7 +702,7 @@ def phase_int8_e2e(torch, dev):
 
     m = RepYOLO.from_config(CFG, device=dev).load_state(
         load_reference_npz(GOLDEN / "model_weights.npz")).fuse()
-    scales = enable_int8_fast_path(m, calibration_batch(SIZE, dev))
+    scales = enable_int8_fast_path(m, calibration_batch(SIZE, dev), neck=neck)
     x = torch.from_numpy(np.random.default_rng(1).uniform(
         0, 1, (2, SIZE, SIZE, 3)).astype(np.float32)).to(dev)
     conf, iou, nl = 0.001, 0.45, m.cfg.nl
@@ -544,22 +721,17 @@ def phase_int8_e2e(torch, dev):
     with plain_q8():
         maps_p, seen_p = _region_outputs(m, x)
     plan = dict(m.net.region_plan)
-    want = {"conv3x3_q8": 25, "conv1x1_q8": 28, "max_pool2_q8": 1}
+    want = Q8_PER_FORWARD if neck else Q8_BACKBONE_PER_FORWARD
     if {k: counts[k] for k in want} != want:
         raise AssertionError(f"int8 forward launched {counts}, want {want}")
 
     region = {}
     for i in sorted(seen_k):
         a, b = seen_k[i], seen_p[i]
-        if isinstance(a, Q8Map):
-            err, off1, more = q8_diff(torch, a.data, b.data, a.scale)
-            n = a.data.numel()
-        else:
-            err, off1, more, n = float((a - b).abs().max()), 0, 0, a.numel()
+        err, off1, more, n, is_float = _region_diff(torch, a, b)
         region[f"l{i}"] = {"max_abs_err": err, "lsb_off_by_1": off1,
                            "lsb_off_by_more": more, "elements": n}
-        if more or off1 > 1e-4 * n or (not isinstance(a, Q8Map)
-                                       and err > 1e-3):
+        if more or off1 > 1e-4 * n or (is_float and err > 1e-3):
             raise AssertionError(f"int8 region l{i} differs: {region}")
     map_err = max(float((a - b).abs().max()) for a, b in zip(maps_k, maps_p))
     for a, b in zip(maps_k, maps_p):
@@ -575,29 +747,36 @@ def phase_int8_e2e(torch, dev):
     # report only: the int8 mode against the float mode, same weights; the
     # golden head squeezes the raw maps, so the backbone's exit (l7, the
     # region's float output) is compared too
+    float_layers = float_conv_layers(torch, m, x) if neck else None
     q8 = m.net.q8
     m.net.set_q8(None)
     exit_f = {}
-    hook = m.net.model[7].register_forward_hook(
-        lambda _m, _a, out: exit_f.setdefault(7, out))
+    feats = (7, 29, 45, 61) if neck else (7,)
+    hooks = [m.net.model[i].register_forward_hook(
+        lambda _m, _a, out, i=i: exit_f.setdefault(i, out)) for i in feats]
     try:
         maps_f = m.apply(x)
     finally:
-        hook.remove()
+        for h in hooks:
+            h.remove()
         m.net.set_q8(q8)
-    e8, ef = seen_k[7], exit_f[7]
+
+    def vs(e8, ef):
+        e8 = e8.to_float() if isinstance(e8, Q8Map) else e8
+        return {"max_abs_diff": float((e8 - ef).abs().max()),
+                "float_absmax": float(ef.abs().max()),
+                "rel_l2": float((e8 - ef).norm() / ef.norm()),
+                "cosine": float(torch.nn.functional.cosine_similarity(
+                    e8.flatten(), ef.flatten(), dim=0))}
+
     pred_f, top_f = decode(maps_f)
     det = {f"{mode}_conf{c}": non_max_suppression(
         t, c, iou, presorted=True).count.tolist()
         for mode, t in (("int8", top_k), ("float", top_f))
         for c in (conf, 0.25)}
     vs_float = {
-        "backbone_exit_l7": {
-            "max_abs_diff": float((e8 - ef).abs().max()),
-            "float_absmax": float(ef.abs().max()),
-            "rel_l2": float((e8 - ef).norm() / ef.norm()),
-            "cosine": float(torch.nn.functional.cosine_similarity(
-                e8.flatten(), ef.flatten(), dim=0))},
+        **{("backbone_exit_l7" if i == 7 else f"feature_l{i}"):
+           vs(seen_k[i], exit_f[i]) for i in feats},
         "raw_map_max_abs_diff": [float((a - b).abs().max())
                                  for a, b in zip(maps_k, maps_f)],
         "raw_map_mean_abs_diff": [float((a - b).abs().mean())
@@ -610,27 +789,42 @@ def phase_int8_e2e(torch, dev):
         "detections": det}
     expect = {0: "region entry", 2: "MP fused", 4: "MP fused",
               6: "in-region flat int8 pool"}
+    if neck:
+        expect.update({9: "neck entry quantize; in-region SPPCSPC -> int8",
+                       33: "in-region GSConv -> int8",
+                       34: "in-region concat (unmaterialized)",
+                       46: "in-region flat int8 pool (neck)",
+                       64: "in-region RepConv -> int8"})
     plan_ok = all(plan.get(i, "").startswith(v) for i, v in expect.items())
     plan_ok &= "NHWC bf16 out" in plan.get(7, "")
-    out = {"phase": "int8_e2e", "batch": 2, "size": SIZE,
-           "n_scales": len(scales), "region_plan": plan,
+    islands = sorted(sp.i for sp in m.cfg.layers
+                     if sp.name in ("CA", "CCVA", "ADD"))
+    out = {"phase": "int8_neck_e2e" if neck else "int8_e2e", "batch": 2,
+           "size": SIZE, "n_scales": len(scales), "region_plan": plan,
            "launches_per_forward": {k: counts[k] for k in want},
            "region_vs_plain": region, "raw_map_max_abs_err": map_err,
            "decoded_box_max_abs_err_px": box_err,
            "nms_keep_identical": keep_same, "int8_vs_float": vs_float}
-    out["ok"] = box_err <= 1e-2 and keep_same and plan_ok
+    ok = box_err <= 1e-2 and keep_same and plan_ok
+    if neck:
+        out["float_conv_layers"] = float_layers
+        out["attention_island_layers"] = islands
+        ok &= set(float_layers) <= set(islands)
+    out["ok"] = ok
     emit(out)
     if not out["ok"]:
         raise AssertionError(f"int8 end-to-end check failed: {out}")
 
 
-def phase_serving(torch, dev, fast=None):
-    """serve.py's HTTP server on the engine (float, or ``fast="int8"``):
-    3 requests, the launch counts of that run, responses equal to direct
+def phase_serving(torch, dev, fast=None, neck=True):
+    """serve.py's HTTP server on the engine (float, or ``fast="int8"``,
+    with the neck or, ``neck=False``, the backbone region alone): 3
+    requests, the launch counts of that run, responses equal to direct
     engine calls."""
     import numpy as np
 
     from rep_yolo_tpu_torch.data.letterbox import letterbox_batch
+    from rep_yolo_tpu_torch.models.region import Q8Region
     from rep_yolo_tpu_torch.ops.kernels import launch_counts, \
         reset_launch_counts
     from rep_yolo_tpu_torch.serve import build_engine, make_server
@@ -640,6 +834,10 @@ def phase_serving(torch, dev, fast=None):
     engine = build_engine(CFG, str(GOLDEN / "model_weights.npz"), size,
                           max_batch, conf=0.001, iou=0.45, device=dev,
                           fast=fast)
+    if fast == "int8" and not neck:
+        net = engine.model.net
+        net.set_q8(Q8Region(net.q8.scales, neck=False))
+        engine(np.zeros((max_batch, size, size, 3), np.float32))
     build_s = time.perf_counter() - t0
     rng = np.random.default_rng(2)
     requests = []
@@ -675,11 +873,11 @@ def phase_serving(torch, dev, fast=None):
         srv.server_close()
         th.join(timeout=30)
     n_fwd = len(requests)
-    q8 = 1 if fast == "int8" else 0
+    q8 = {} if fast != "int8" else \
+        Q8_PER_FORWARD if neck else Q8_BACKBONE_PER_FORWARD
     want = {"axial_project": 12 * n_fwd, "axial_attend_criss_cross": 6 * n_fwd,
             "axial_attend_vertical": 6 * n_fwd, "nms_keep": n_fwd,
-            "conv3x3_q8": 25 * n_fwd * q8, "conv1x1_q8": 28 * n_fwd * q8,
-            "max_pool2_q8": n_fwd * q8}
+            **{k: q8.get(k, 0) * n_fwd for k in Q8_KERNELS}}
     if counts != want:
         raise AssertionError(f"launch counts {counts} != {want}")
     dets = []
@@ -698,7 +896,8 @@ def phase_serving(torch, dev, fast=None):
     x = torch.from_numpy(batch4).to(dev)
     e2e_ms = served_ms(torch, engine, batch4)
     fwd_ms = cuda_ms(lambda: engine.infer(x), runs=10)
-    emit({"phase": "serving" if fast is None else f"serving_{fast}",
+    emit({"phase": "serving" if fast is None
+          else f"serving_{fast}" + ("" if neck else "_backbone"),
           "ok": True, "health": health,
           "build_engine_s": round(build_s, 3), "batches": [1, 2, 4],
           "detections_per_image": dets,
@@ -729,6 +928,10 @@ def _category(name: str) -> str:
         return "int8 conv kernels (K4, K5)"
     if "max_pool2_q8" in low:
         return "int8 pool kernel (K6)"
+    if "dwconv5x5_q8" in low:
+        return "int8 depthwise kernel (K7)"
+    if "spp_pools_q8" in low:
+        return "int8 SPP pyramid kernel (K8)"
     if "nms_mask" in low or "nms_scan" in low:
         return "nms kernel (K3)"
     if any(s in low for s in ("conv", "xmma", "cudnn", "fprop", "winograd",
@@ -961,13 +1164,15 @@ def phase_times(torch, dev, counts, errs):
     return kernels
 
 
-def phase_times_q8(torch, dev, counts, errs):
-    """K4-K6 per backbone shape (batch 4): kernel, plain version, bound and
-    the f32 cuDNN conv of the same shape; the kernels line's rows sum one
-    forward (each shape times its calls per forward)."""
+def phase_times_q8(torch, dev, counts, errs, calls):
+    """K4-K6 per backbone shape (batch 4, random weights and maps) and
+    K4-K8 per distinct int8 call of layers NECK_FIRST.. of one served
+    forward (``calls``, its real inputs): kernel, plain version, bound and
+    the PyTorch yardstick of the same shape. The kernels line's rows sum one
+    forward (each shape times its calls per forward), backbone and neck."""
     from rep_yolo_tpu_torch.ops.kernels import reset_launch_counts
 
-    agg = {n: {} for n in ("conv3x3_q8", "conv1x1_q8", "max_pool2_q8")}
+    agg = {n: {} for n in Q8_KERNELS}
     per_shape = []
     for i, row in enumerate(backbone_q8_shapes()):
         kfn, pfn, lib, _, nbytes, ops = q8_case(torch, row, 4, dev, 200 + i)
@@ -977,26 +1182,110 @@ def phase_times_q8(torch, dev, counts, errs):
         add_times(agg[row[1]], t, row[-1])
         per_shape.append({"shape": row[0], "kernel": row[1],
                           "calls_per_forward": row[-1], **t})
+    # the neck: each distinct call once, then summed per forward and layer
+    timed: dict = {}
+    by_layer: dict = {}
+    for layer, name, args in calls:
+        if layer < NECK_FIRST:
+            continue
+        kfn, pfn, lib, _, nbytes, ops, sig = call_case(torch, name, args)
+        if sig not in timed:
+            t = kernel_times(torch, kfn, pfn, lib)
+            t.update(zip(("bound_ms", "bound_by"),
+                         bound(nbytes, ops, INT8_PEAK)),
+                     bytes=nbytes, ops=ops)
+            timed[sig] = {"kernel": name, "signature": str(sig[1:]),
+                          "calls_per_forward": 0, **t}
+        row = timed[sig]
+        row["calls_per_forward"] += 1
+        add_times(agg[name], row)
+        add_times(by_layer.setdefault((layer, name), {}), row)
     reset_launch_counts()
     kernels = []
     for name, src, replaces in (
             ("conv3x3_q8", "conv_flat", "conv_flat.py:353"),
             ("conv1x1_q8", "conv_flat", "conv_flat.py:719"),
-            ("max_pool2_q8", "pool_flat", "pool_flat.py:80")):
-        kernels.append(kernel_row(
+            ("max_pool2_q8", "pool_flat", "pool_flat.py:80"),
+            ("dwconv5x5_q8", "neck_flat", "conv_flat.py:548"),
+            ("spp_pools_q8", "neck_flat", "neck_flat.py:429")):
+        row = kernel_row(
             name, f"rep_yolo_tpu_torch/csrc/{src}.cu",
             f"rep_yolo_tpu/ops/pallas/{replaces}", counts[name], errs[name],
-            agg[name], INT8_PEAK))
+            agg[name], INT8_PEAK)
+        if name == "spp_pools_q8":
+            row["library_call"] = ("a sequence: three F.max_pool2d and a "
+                                   "torch.cat on the f32 map")
+        kernels.append(row)
+    layers = [{"layer": layer, "kernel": name,
+               **{k: v for k, v in t.items() if k != "bound_by"}}
+              for (layer, name), t in sorted(by_layer.items())]
     emit({"phase": "times_q8", "ok": True, "batch": 4,
           "note": f"rows sum one {SIZE}-px forward (each shape times its "
-                  "calls per forward); library_ms = the f32 cuDNN conv (TF32 "
-                  "off) of the same shape, for the pool one amax over the "
-                  "(B, H/2, 2, W/2, 2, C) view; ms, plain_ms, library_ms: "
-                  "device time under the profiler from a cold L2, 10 calls "
-                  "after 3 warm-ups; event_ms: CUDA events, median of 20 "
-                  "runs of 10 back-to-back calls (L2-warm)",
-          "per_shape": per_shape})
+                  "calls per forward): the backbone's shapes on random "
+                  "weights and maps, the neck's calls on the served "
+                  "forward's own; library_ms = the f32 cuDNN conv (TF32 "
+                  "off) of the same shape, for K7 the f32 depthwise conv, "
+                  "for K6 one amax over the (B, H/2, 2, W/2, 2, C) view, for "
+                  "K8 three F.max_pool2d and a torch.cat (a sequence, not "
+                  "one call); ms, plain_ms, library_ms: device time under "
+                  "the profiler from a cold L2, 10 calls after 3 warm-ups; "
+                  "event_ms: CUDA events, median of 20 runs of 10 "
+                  "back-to-back calls (L2-warm)",
+          "per_shape": per_shape, "neck_calls": list(timed.values()),
+          "neck_by_layer": layers})
     return kernels
+
+
+def phase_kernels_neck(torch, engine, x, errs):
+    """Every int8 kernel call of layers NECK_FIRST.. in one served forward
+    (the engine's real maps and weights, batch 4) against its plain version
+    on the same inputs. Returns the recorded calls."""
+    _, calls = record_q8_calls(engine.model, x)
+    torch.cuda.synchronize()
+    rows, seen = [], set()
+    for layer, name, args in calls:
+        if layer < NECK_FIRST:
+            continue
+        kfn, pfn, _, out_s, _, _, sig = call_case(torch, name, args)
+        got, ref = kfn(), pfn()
+        torch.cuda.synchronize()
+        err, off1, off_more = q8_diff(torch, got, ref, out_s)
+        n = got.numel()
+        if got.dtype == torch.int8:
+            ok = off_more == 0 and off1 <= 1e-4 * n
+            if name in ("max_pool2_q8", "spp_pools_q8"):
+                ok = off1 == 0
+        else:
+            ok = bool(torch.allclose(got, ref, atol=1e-5, rtol=1e-5))
+        r = {"layer": layer, "kernel": name, "signature": str(sig[1:]),
+             "out": list(got.shape), "dtype": str(got.dtype),
+             "max_abs_err": err, "lsb_off_by_1": off1,
+             "lsb_off_by_more": off_more}
+        rows.append(r)
+        if not ok:
+            raise AssertionError(f"{name} differs from its plain version: "
+                                 f"{r}")
+        errs[name] = max(errs.get(name, 0.0), err)
+        seen.add(name)
+    # the cases this slice brings: stride 2 on int8, 3 sections, f32 out
+    need = {
+        "K4 stride 2 int8": any(n == "conv3x3_q8" and a["stride"] == 2
+                                and a["x"].dtype == torch.int8
+                                for i, n, a in calls if i >= NECK_FIRST),
+        "K5 3 sections": any(n == "conv1x1_q8" and isinstance(a["xs"], list)
+                             and len(a["xs"]) == 3
+                             for i, n, a in calls if i >= NECK_FIRST),
+        "K5 f32 out": any(n == "conv1x1_q8" and a["out_scale"] is None
+                          for i, n, a in calls if i >= NECK_FIRST),
+        "K7, K8": {"dwconv5x5_q8", "spp_pools_q8"} <= seen}
+    if not all(need.values()):
+        raise AssertionError(f"the neck's calls lack a case: {need}")
+    emit({"phase": "kernels_neck_vs_plain", "ok": True, "batch": 4,
+          "calls": len(rows), "cases": need,
+          "tolerance": "int8 identical but for +-1 LSB on <= 1e-4 of the "
+                       "elements; f32 out atol = rtol = 1e-5; pools (K6, "
+                       "K8) identical", "rows": rows})
+    return calls
 
 
 def phase_served_ab(torch, engines, batch):
@@ -1043,21 +1332,27 @@ def main(argv=None) -> int:
         phase_golden(torch, dev)
         phase_attention_e2e(torch, dev)
         phase_int8_e2e(torch, dev)
+        phase_int8_e2e(torch, dev, neck=True)
         counts, e2e_ms, engine, x = phase_serving(torch, dev)
+        _, e2e_bb_ms, engine_bb, _ = phase_serving(torch, dev, "int8",
+                                                   neck=False)
         counts_q8, e2e_q8_ms, engine_q8, _ = phase_serving(torch, dev,
                                                            "int8")
-        engines = {"float32": engine, "int8": engine_q8}
+        calls = phase_kernels_neck(torch, engine_q8, x, errs)
+        engines = {"float32": engine, "int8_backbone": engine_bb,
+                   "int8": engine_q8}
         phase_profile(torch, engines, x)
         ab = phase_served_ab(torch, engines, x.cpu().numpy())
-        engine.close()
-        engine_q8.close()
+        for e in engines.values():
+            e.close()
         kernels = phase_times(torch, dev, counts, errs)
-        kernels += phase_times_q8(torch, dev, counts_q8, errs)
+        kernels += phase_times_q8(torch, dev, counts_q8, errs, calls)
     missing = [k["name"] for k in kernels if k["launches"] <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "
                              f"{missing}")
     emit({"card": card, "served_batch4_ms": e2e_ms,
+          "served_batch4_int8_backbone_ms": e2e_bb_ms,
           "served_batch4_int8_ms": e2e_q8_ms, "served_ab_ms": ab,
           "total_s": round(time.perf_counter() - t0, 3)})
     kline = {"kernels": kernels}

@@ -24,12 +24,17 @@
 // odd word pitch, so both the staging writes and the lane reads are free of
 // bank conflicts.
 //
-// Epilogue, in the JAX package's operation order and rounding (the file is
-// compiled with --fmad=false, and the products and sums are written with
-// explicit round-to-nearest intrinsics): y = acc * (s_w * s_in) + bias,
-// SiLU as y * (1 / (1 + exp(-y))), then int8 at clip(rint(y * (1/out_scale)))
-// or float32. With the pool, the max of the window's four f32 values is
-// requantized: requant is monotone, so this equals conv, requant, then pool.
+// Epilogue (q8_common.cuh), in the JAX package's operation order and
+// rounding: y = acc * (s_w * s_in) + bias, SiLU, then int8 at
+// clip(rint(y * (1/out_scale))) or float32. With the pool, the max of the
+// window's four f32 values is requantized: requant is monotone, so this equals
+// conv, requant, then pool.
+//
+// K4 at stride 2 also runs on int8 input: the PAN downsamples of the neck
+// (neck_flat.py:conv3x3s2_flat_q8, which the TPU reached by space-to-depth
+// and a stride-1 kernel on a {-1, 0} tap lattice). Output pixel (i, j) reads
+// input rows 2i-1..2i+1 and columns 2j-1..2j+1: pad 1 on top and left, which
+// for even H, W is the lattice's SAME conv.
 //
 // Bound on this card: at the served shapes the int8 work is 2 * MACs ops over
 // the 1,979 TOP/s of the int8 tensor cores, and the bytes are the int8
@@ -38,6 +43,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "q8_common.cuh"
 
 namespace {
 
@@ -49,22 +56,6 @@ constexpr int TILE_H = 8;      // K4 output tile: 8 rows x 16 columns
 constexpr int TILE_W = 16;
 
 __device__ __forceinline__ int odd_pitch(int kp) { return kp | 1; }
-
-__device__ __forceinline__ int32_t quant1(float v, float inv_s) {
-    float q = rintf(__fmul_rn(v, inv_s));
-    q = fminf(fmaxf(q, -127.0f), 127.0f);
-    return (int32_t)q;
-}
-
-__device__ __forceinline__ float epi(int32_t acc, float sw, float s_in, float b,
-                                     int act) {
-    float y = __fadd_rn(__fmul_rn(__int2float_rn(acc), __fmul_rn(sw, s_in)), b);
-    if (act) {
-        const float sig = __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-y)));
-        y = __fmul_rn(y, sig);
-    }
-    return y;
-}
 
 // Writes the thread's 8 channels of one output pixel.
 template <bool F32_OUT>
@@ -311,13 +302,6 @@ conv1x1_q8_kernel(Sections secs, const int32_t* __restrict__ wpk,
             store8<F32_OUT>(y, pix, O, og0, v, inv_out);
         }
     }
-}
-
-template <typename K>
-cudaError_t set_smem(K kernel, size_t bytes) {
-    if (bytes <= 48 * 1024) return cudaSuccess;
-    return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                (int)bytes);
 }
 
 template <int S, bool F32_IN, bool F32_OUT>

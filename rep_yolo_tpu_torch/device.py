@@ -3,11 +3,11 @@
 Entry points run on ``cuda`` unless the caller asks for the CPU; without a
 CUDA device they raise instead of silently running elsewhere.
 
-Kernels live in ``csrc/*.cu`` with a plain C interface. ``load_kernel``
-compiles them with ``nvcc`` for ``sm_90a`` into ``_build/<hash>/`` (one
-``nvcc`` per source, all started together), keyed by a hash of the sources
-and flags, and loads the shared library with ctypes. Nothing is built at
-import time.
+Kernels live in ``csrc/*.cu`` with a plain C interface (shared device code
+in ``csrc/*.cuh``). ``load_kernel`` compiles them with ``nvcc`` for
+``sm_90a`` into ``_build/<hash>/`` (one ``nvcc`` per source, all started
+together), keyed by a hash of the sources, headers and flags, and loads the
+shared library with ctypes. Nothing is built at import time.
 """
 
 from __future__ import annotations
@@ -31,7 +31,8 @@ COMMON_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
 # Per-source extra flags. The NMS IoU and the int8 convolutions' epilogue
 # must round exactly like their plain versions (no fused multiply-add
 # contraction), or boxes at the threshold and int8 requants flip.
-EXTRA_FLAGS = {"nms.cu": ["--fmad=false"], "conv_flat.cu": ["--fmad=false"]}
+EXTRA_FLAGS = {"nms.cu": ["--fmad=false"], "conv_flat.cu": ["--fmad=false"],
+               "neck_flat.cu": ["--fmad=false"]}
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -71,7 +72,7 @@ def _flags(src: pathlib.Path) -> list[str]:
 
 def _build_key() -> str:
     h = hashlib.sha256()
-    for src in sorted(CSRC_DIR.glob("*.cu")):
+    for src in sorted(CSRC_DIR.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
         h.update(" ".join(_flags(src)).encode())

@@ -1,9 +1,10 @@
 """Routed network executor: ModelConfig plan -> ``nn.Module``.
 
 Port of ``rep_yolo_tpu/models/network.py`` (``DetectionNet.__call__``):
-the float graph, and with ``set_q8`` the int8 backbone region planned by
-``models/region.py``. Layer ``i`` lives at ``model.{i}``, so state keys
-match the reference's.
+the float graph, and with ``set_q8`` the int8 region planned by
+``models/region.py`` (the backbone, and with ``Q8Region.neck`` the neck and
+head too). Layer ``i`` lives at ``model.{i}``, so state keys match the
+reference's.
 """
 
 from __future__ import annotations
@@ -12,9 +13,10 @@ import torch
 from torch import nn
 
 from rep_yolo_tpu_torch.models.config import LayerSpec, ModelConfig
-from rep_yolo_tpu_torch.models.region import (Q8Map, Q8Region, RegionPlan,
-                                              Step, plan_region)
+from rep_yolo_tpu_torch.models.region import (Q8Region, RegionPlan, Step,
+                                              plan_region)
 from rep_yolo_tpu_torch.nn import blocks as B
+from rep_yolo_tpu_torch.ops import neck_flat as NF
 from rep_yolo_tpu_torch.ops.kernels import pool_flat as K_pool
 
 
@@ -59,9 +61,11 @@ class DetectionNet(nn.Module):
     """Input NHWC float images in [0, 1]; output the raw head maps
     (B, H_l, W_l, na, no) per level. Only the deploy form runs.
 
-    ``set_q8(Q8Region(scales))`` switches on the int8 backbone region; the
-    plan is computed once per input size (``region_plan`` holds the last
-    one's decisions) and the region's weights are quantized once."""
+    ``set_q8(Q8Region(scales))`` switches on the int8 region; the plan is
+    computed once per input size (``region_plan`` holds the last one's
+    decisions) and the region's weights are quantized once: the stem's and
+    the DERs' with the plan, the neck's at the plan's first forward (their
+    folds need the input maps' scales and permutations)."""
 
     def __init__(self, cfg: ModelConfig, deploy: bool = False):
         super().__init__()
@@ -82,15 +86,20 @@ class DetectionNet(nn.Module):
 
     def plan_for(self, h: int, w: int) -> RegionPlan:
         """The region plan for (h, w) inputs, made once per size; the
-        weights of the layers it runs in int8 are quantized once."""
+        weights of the stem and DERs it runs in int8 are quantized once, and
+        each neck layer gets the cache its ``forward_flat`` fills."""
         if (h, w) not in self._plans:
             plan = plan_region(self.cfg, self.q8, h, w)
             for i, step in plan.steps.items():
-                if i in self._q8w or step.kind not in ("stem", "der"):
+                if i in self._q8w:
                     continue
                 mod = self.model[i]
-                self._q8w[i] = (mod.q8_weights() if step.kind == "stem"
-                                else mod.q8_weights(step.scales))
+                if step.kind == "stem":
+                    self._q8w[i] = mod.q8_weights()
+                elif step.kind == "der":
+                    self._q8w[i] = mod.q8_weights(step.scales)
+                elif step.kind in ("flat", "head"):
+                    self._q8w[i] = {}
             self._plans[(h, w)] = plan
         plan = self._plans[(h, w)]
         self.region_plan = dict(plan.strings)
@@ -107,19 +116,19 @@ class DetectionNet(nn.Module):
         # stem reads the NHWC images as they are
         y = x if first is not None and first.kind == "stem" else \
             x.permute(0, 3, 1, 2).contiguous()
-        saved: dict[int, torch.Tensor | Q8Map] = {}
+        saved: dict[int, object] = {}
         floats: dict[int, torch.Tensor] = {}   # dequantized region maps
         for spec, mod in zip(self.cfg.layers, self.model):
             step = steps.get(spec.i)
-            raw = step is not None and (step.kind.startswith("mp")
-                                        or step.cm_in)
+            raw = step.raw if step is not None else ()
 
             def fetch(j):
+                jj = spec.i - 1 if j == -1 else j
                 t = y if j in (spec.i - 1, -1) else saved[j]
-                if isinstance(t, Q8Map) and not raw:
-                    if j not in floats:
-                        floats[j] = t.to_float()
-                    return floats[j]
+                if NF.is_flat(t) and jj not in raw:
+                    if jj not in floats:
+                        floats[jj] = NF.flat_to_float(t)
+                    return floats[jj]
                 return t
 
             inp = fetch(spec.f[0]) if len(spec.f) == 1 else \
@@ -136,7 +145,25 @@ class DetectionNet(nn.Module):
         if step.kind == "mp_fused":
             return inp
         if step.kind == "mp_pool":
-            return Q8Map(K_pool.max_pool2_q8(inp.data), inp.scale)
+            return NF.Q8Map(K_pool.max_pool2_q8(inp.data), inp.scale,
+                            inp.perm)
+        if step.kind == "upsample":
+            return NF.upsample2x(inp)
+        if step.kind == "concat":
+            return [t for x in inp
+                    for t in (x if isinstance(x, list) else [x])]
+        if step.kind == "head":
+            return mod.forward_flat(inp, self._q8w[spec.i])
+        if step.kind == "flat":
+            x = inp if step.s_in is None else NF.quantize_to_flat(inp,
+                                                                  step.s_in)
+            region = self.q8
+            y = mod.forward_flat(x, step.out_scale,
+                                 lambda k: region.scale(f"l{spec.i}/{k}"),
+                                 self._q8w[spec.i])
+            if step.out_scale is None:
+                return y.permute(0, 3, 1, 2).contiguous()   # the float exit
+            return y
         if step.cm_in:
             x = inp.data
         elif spec.f == (-1,) and step.kind == "stem":
@@ -150,4 +177,4 @@ class DetectionNet(nn.Module):
             y = mod.forward_q8(x, qw, step.scales, step.out_scale, step.pool)
         if step.out_scale is None:
             return y.permute(0, 3, 1, 2).contiguous()   # the float exit
-        return Q8Map(y, step.out_scale)
+        return NF.Q8Map(y, step.out_scale)

@@ -1,14 +1,26 @@
-"""The int8 backbone region: its configuration and its planner.
+"""The int8 region: its configuration and its planner.
 
-Port of the backbone part of the q8 region planner of
-``rep_yolo_tpu/models/network.py`` (``DetectionNet.__call__``: ``st1_scale``,
-``der_cm_ok``, ``cm_out_scale``, the stem entry, the in-region MP and the
-DER branch) with the JAX package's neck region off (``set_neck_q8(False)``).
-Consecutive stem -> DER -> MP -> DER spans exchange channels-last int8
-maps: each producer emits int8 at the input (st1) scale of the DER that
-consumes it, a sole-consumer trailing MP is fused into the DER's cv1, any
-other in-region MP runs the int8 pool, and every other consumer reads a
-float32 NCHW copy, dequantized once.
+Port of the q8 region planner of ``rep_yolo_tpu/models/network.py``
+(``DetectionNet.__call__``).
+
+The backbone part (``st1_scale``, ``der_cm_ok``, ``cm_out_scale``, the stem
+entry, the in-region MP and the DER branch): consecutive stem -> DER -> MP
+-> DER spans exchange channels-last int8 maps; each producer emits int8 at
+the input (st1) scale of the DER that consumes it, a sole-consumer trailing
+MP is fused into the DER's cv1, any other in-region MP runs the int8 pool.
+
+The neck part (``_FLAT_ENTRY``, ``_FLAT_PASS``, ``_req_keys``, ``flat_ok``,
+``chase_scale``), on when ``Q8Region.neck`` is (the JAX package's
+``NECK_Q8``, on by default): SPPCSPC, GSConv, VoVGSCSP, Conv and RepConv
+layers with every scale they read run on int8 ``Q8Map``s (quantized at the
+layer's entry scale where the input is float), each emitting int8 at the
+entry scale of its first int8 consumer (chased through MP, upsample and
+concat, which stay int8; a concat stays a list of sections), or float32
+where it has none; the IDetect levels fed by int8 maps run their 1x1 in
+int8. The CA / CCVA / ADD attention sandwiches stay float islands.
+
+Every consumer outside the region reads a float32 NCHW copy, dequantized
+once.
 
 The planner is a pure function of the config, the scales and the input
 size; ``DetectionNet`` runs it once per input size and publishes its
@@ -24,22 +36,31 @@ import dataclasses
 import logging
 from typing import Mapping
 
-import torch
-
 from rep_yolo_tpu_torch.models.config import ModelConfig
 from rep_yolo_tpu_torch.nn.blocks import DERBlock
-from rep_yolo_tpu_torch.ops.quant import f32
+from rep_yolo_tpu_torch.ops.neck_flat import Q8Map
+
+__all__ = ["Q8Region", "Q8Map", "Step", "RegionPlan", "plan_region"]
 
 _LOG = logging.getLogger(__name__)
+
+# the neck layers that may run in int8, with the conv whose input scale is
+# their entry scale, and the int8 pass-through ops
+_FLAT_ENTRY = {"Conv": "conv", "GSConv": "cv1/conv", "VoVGSCSP": "cv1/conv",
+               "SPPCSPC": "cv1/conv", "RepConv": "rbr_reparam"}
+_FLAT_PASS = {"MP", "Upsample", "nn.Upsample", "Concat"}
 
 
 @dataclasses.dataclass(frozen=True)
 class Q8Region:
     """The int8 region's configuration, held by the network: the
-    calibration scales ({JAX scope path: scale}, ``ops.quant.calibrate``)
-    and the DER gate."""
+    calibration scales ({JAX scope path: scale}, ``ops.quant.calibrate``),
+    the DER gate, and ``neck``: whether the neck and head run in int8 too
+    (the JAX package's ``set_neck_q8``; False keeps the backbone region
+    alone)."""
 
     scales: Mapping[str, float]
+    neck: bool = True
 
     def select(self, c1: int) -> bool:
         # the JAX package's ``_CMAJOR_SELECT`` (c1 <= 512): the whole backbone
@@ -54,9 +75,13 @@ class Q8Region:
 class Step:
     """How one layer runs in the region. ``kind``: "stem" (int8 stem at
     input scale ``s_in``), "der" (the 13 int8 convs at ``scales``; int8
-    input when ``cm_in``), "mp_fused" (pooled by the producer's cv1) or
-    "mp_pool" (the int8 pool kernel). ``out_scale``: int8 output at the st1
-    scale of the DER that consumes it, or None for a float32 exit."""
+    input when ``cm_in``), "mp_fused" (pooled by the producer's cv1),
+    "mp_pool" (the int8 pool kernel), "upsample", "concat" (a list of int8
+    sections), "flat" (a neck block's ``forward_flat``; float input is
+    quantized at ``s_in``) or "head" (IDetect's ``forward_flat``).
+    ``out_scale``: int8 output at that scale, or None for a float32 exit.
+    ``raw``: the source layers read as int8 maps; the layer reads every
+    other source as float32."""
 
     kind: str
     s_in: float | None = None
@@ -64,26 +89,13 @@ class Step:
     cm_in: bool = False
     out_scale: float | None = None
     pool: bool = False
+    raw: frozenset = frozenset()
 
 
 @dataclasses.dataclass(frozen=True)
 class RegionPlan:
     steps: dict[int, Step]
     strings: dict[int, str]
-
-
-@dataclasses.dataclass
-class Q8Map:
-    """A region map: ``data`` (B, h, w, C) int8 at ``scale``, the st1
-    input scale of the DER that consumes it."""
-
-    data: torch.Tensor
-    scale: float
-
-    def to_float(self) -> torch.Tensor:
-        """Dequantized float32 NCHW, for a consumer outside the region."""
-        y = self.data.float() * f32(self.scale).to(self.data.device)
-        return y.permute(0, 3, 1, 2).contiguous()
 
 
 # -- the reference's TPU tiling gates (ops/pallas/pool_flat.py, conv_flat.py)
@@ -142,21 +154,81 @@ def _sizes(cfg: ModelConfig, h: int, w: int) -> dict[int, tuple[int, int]]:
     return size
 
 
+def _req_keys(sp) -> list[str]:
+    """The scales a neck layer reads (all must be calibrated)."""
+    pfx, n, a = f"l{sp.i}", sp.name, sp.args
+    if n == "Conv":
+        return [f"{pfx}/conv"]
+    if n == "GSConv":
+        return [f"{pfx}/cv1/conv", f"{pfx}/cv2/conv"]
+    if n == "VoVGSCSP":
+        ks = [f"{pfx}/cv1/conv", f"{pfx}/cv2/conv", f"{pfx}/cv3/conv"]
+        for r in range(a[1] if len(a) > 1 else 1):
+            g = f"{pfx}/gsb_{r}"
+            ks += [f"{g}/gs1/cv1/conv", f"{g}/gs1/cv2/conv",
+                   f"{g}/gs2/cv1/conv", f"{g}/gs2/cv2/conv",
+                   f"{g}/shortcut/conv"]
+        return ks
+    if n == "SPPCSPC":
+        return [f"{pfx}/cv{j}/conv" for j in range(1, 8)]
+    if n == "RepConv":
+        return [f"{pfx}/rbr_reparam"]
+    return []
+
+
 def plan_region(cfg: ModelConfig, region: Q8Region, h: int,
                 w: int) -> RegionPlan:
     """The region's steps and decision strings for (h, w) input images."""
     layers = cfg.layers
     size = _sizes(cfg, h, w)
+    neck = region.neck
     cons: dict[int, list[int]] = {}
     for sp in layers:
         for j in sp.f:
             cons.setdefault(sp.i - 1 if j == -1 else j, []).append(sp.i)
 
+    def srcs(sp) -> list[int]:
+        return [sp.i - 1 if j == -1 else j for j in sp.f]
+
     def src(sp) -> int:
-        return sp.i - 1 if sp.f[0] == -1 else sp.f[0]
+        return srcs(sp)[0]
 
     def st1_scale(i: int) -> float | None:
         return region.scale(f"l{i}/stage1/reparam_conv")
+
+    def flat_ok(sp) -> bool:
+        n, a = sp.name, sp.args
+        if not neck or n not in _FLAT_ENTRY:
+            return False
+        k = a[1] if len(a) > 1 else (3 if n == "RepConv" else 1)
+        st = a[2] if len(a) > 2 else 1
+        if n == "Conv" and (k not in (1, 3) or st != 1):
+            return False
+        if n == "GSConv" and (k, st) not in ((1, 1), (3, 1), (3, 2)):
+            return False
+        if n == "RepConv" and (k != 3 or st != 1):
+            return False
+        return all(region.scale(key) is not None for key in _req_keys(sp))
+
+    def chase_scale(i: int, depth: int = 0) -> float | None:
+        """The scale to emit layer i's int8 output at: the entry scale of
+        its first int8 consumer, chased through the pass-through ops."""
+        if depth > 8:
+            return None
+        for k in cons.get(i, []):
+            sp2 = layers[k]
+            n2 = sp2.name
+            if n2 in _FLAT_PASS:
+                s = chase_scale(sp2.i, depth + 1)
+            elif n2 == "IDetect":
+                s = region.scale(f"l{sp2.i}/m_{srcs(sp2).index(i)}")
+            elif flat_ok(sp2):
+                s = region.scale(f"l{sp2.i}/{_FLAT_ENTRY[n2]}")
+            else:
+                continue
+            if s is not None:
+                return s
+        return None
 
     def der_cm_ok(sp, hh: int, ww: int) -> bool:
         if sp.name != "DER_Block" or not isinstance(sp.c1, int):
@@ -188,23 +260,41 @@ def plan_region(cfg: ModelConfig, region: Q8Region, h: int,
         return None
 
     cm: dict[int, tuple[float, int, int, int]] = {}   # i -> (s, h, w, tgt)
+    flat: dict[int, str] = {}      # neck outputs: "map" (a Q8Map) or "list"
     pooled: set[int] = set()
     steps: dict[int, Step] = {}
     plan: dict[int, str] = {}
     for sp in layers:
         i, n, a = sp.i, sp.name, sp.args
         in_h, in_w = size[sp.f[0]]
-        if n == "MP":
+        flat_keep = neck and (n in _FLAT_PASS or n == "IDetect"
+                              or flat_ok(sp))
+        # what this layer reads of each source: its int8 map, or float
+        seen = {j: flat[j] if j in flat and flat_keep else "float"
+                for j in srcs(sp)}
+        if n == "Concat" and neck and all(v != "float"
+                                          for v in seen.values()):
+            steps[i] = Step("concat", raw=frozenset(seen))
+            flat[i] = "list"
+            plan[i] = "in-region concat (unmaterialized)"
+        elif n == "MP" and neck and seen[src(sp)] == "map":
+            j = src(sp)
+            steps[i] = Step("mp_pool", raw=frozenset((j,)))
+            flat[i] = "map"
+            plan[i] = ("in-region flat int8 pool (neck)"
+                       if pool_supports(layers[j].c2, *size[j])
+                       else "in-region pool via max_pool_cm (neck)")
+        elif n == "MP":
             j = src(sp)
             if j in pooled:
-                steps[i] = Step("mp_fused")
+                steps[i] = Step("mp_fused", raw=frozenset((j,)))
                 cm[i] = cm[j]
                 plan[i] = "MP fused into producer cv1 epilogue"
             elif j in cm:
                 s, hh, ww, tgt = cm[j]
                 c = layers[j].c2
                 # K6 pools any even map; the TPU gate only picks the string
-                steps[i] = Step("mp_pool")
+                steps[i] = Step("mp_pool", raw=frozenset((j,)))
                 if pool_supports(c, hh, ww):
                     plan[i] = "in-region flat int8 pool"
                 else:
@@ -212,6 +302,11 @@ def plan_region(cfg: ModelConfig, region: Q8Region, h: int,
                                f"unsupported for C={c} {hh}x{ww}: relayout "
                                "cost)")
                 cm[i] = (s, hh // 2, ww // 2, tgt)
+        elif n in ("nn.Upsample", "Upsample") and neck \
+                and seen[src(sp)] == "map":
+            steps[i] = Step("upsample", raw=frozenset((src(sp),)))
+            flat[i] = "map"
+            plan[i] = "in-region flat upsample"
         elif (n == "RepS_Block" and isinstance(sp.c1, int) and sp.c1 <= 4
               and (a[1] if len(a) > 1 else 3) == 3
               and (a[2] if len(a) > 2 else 1) == 2):
@@ -254,7 +349,8 @@ def plan_region(cfg: ModelConfig, region: Q8Region, h: int,
             if sc is not None:
                 steps[i] = Step("der", scales=sc, cm_in=use_cm,
                                 out_scale=out_s,
-                                pool=fuse_pool and out_s is not None)
+                                pool=fuse_pool and out_s is not None,
+                                raw=frozenset((j,) if use_cm else ()))
             src_s = "int8 in" if use_cm else "NHWC in"
             if out_s is not None and sc is not None:
                 if fuse_pool:
@@ -276,4 +372,21 @@ def plan_region(cfg: ModelConfig, region: Q8Region, h: int,
                            + ("NHWC bf16 out (no cm successor)" if ok
                               else "NHWC out (select gate or calibration "
                                    "declined)"))
+        elif flat_ok(sp):
+            out_s = chase_scale(i)
+            if seen[src(sp)] != "float":
+                s_in, entry = None, ""
+            else:
+                s_in = region.scale(f"l{i}/{_FLAT_ENTRY[n]}")
+                entry = "neck entry quantize; "
+            steps[i] = Step("flat", s_in=s_in, out_scale=out_s,
+                            raw=frozenset(j for j, v in seen.items()
+                                          if v != "float"))
+            if out_s is not None:
+                flat[i] = "map"
+            plan[i] = (entry + f"in-region {n} -> "
+                       + ("int8" if out_s is not None else "NHWC exit"))
+        elif n == "IDetect" and any(v == "map" for v in seen.values()):
+            steps[i] = Step("head", raw=frozenset(
+                j for j, v in seen.items() if v == "map"))
     return RegionPlan(steps, plan)

@@ -16,7 +16,13 @@ centre pixel counts in both criss-cross branches.
 
 The int8 region (``models/region.py``) runs the stem and the DER blocks
 through the int8 kernels instead: ``RepSBlock.forward_stem_q8`` and
-``DERBlock.forward_q8`` take and give channels-last (B, H, W, C) maps.
+``DERBlock.forward_q8`` take and give channels-last (B, H, W, C) maps. The
+neck's blocks and the head run there through ``forward_flat`` (port of the
+JAX blocks' flat paths): int8 ``Q8Map`` in (or an unmaterialized concat of
+them), a ``Q8Map`` at ``out_scale`` out, or float32 channels-last where
+``out_scale`` is None (the region's exit). ``scale(key)`` gives the
+calibrated input scale of the block's conv ``key`` (e.g. ``"cv2/conv"``),
+``cache`` keeps the block's folded, quantized weights.
 """
 
 from __future__ import annotations
@@ -27,8 +33,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from rep_yolo_tpu_torch.ops import neck_flat as NF
 from rep_yolo_tpu_torch.ops.kernels import axial_attention as K_axial
 from rep_yolo_tpu_torch.ops.kernels import conv_flat as K_conv
+from rep_yolo_tpu_torch.ops.kernels import neck_flat as K_neck
+from rep_yolo_tpu_torch.ops.quant import f32
 
 BN_EPS = 1e-3
 
@@ -75,6 +84,15 @@ class ConvBnAct(nn.Module):
 
     def forward(self, x):
         return _act(self.act, self.conv(x))
+
+    def forward_flat(self, x, out_scale, scale=None, cache=None,
+                     name="conv"):
+        return NF.flat_conv(x, self.conv, cache, name, self.act, out_scale)
+
+
+def _sub(scale, cache, prefix):
+    """The scale lookup and weight cache of a sub-block."""
+    return (lambda k: scale(f"{prefix}/{k}")), cache.setdefault(prefix, {})
 
 
 class MP(nn.Module):
@@ -264,6 +282,26 @@ class SPPCSPC(nn.Module):
         y1 = self.cv6(self.cv5(torch.cat(pooled, 1)))
         return self.cv7(torch.cat([y1, self.cv2(x)], 1))
 
+    def forward_flat(self, x, out_scale, scale, cache):
+        """Seven int8 convs around K8, the [x1, mp5, mp9, mp13] pyramid that
+        cv5 reads as one section at x1's scale, tiled."""
+        if tuple(self.k) != K_neck.SPP_K:
+            raise ValueError(f"SPPCSPC flat path needs k={K_neck.SPP_K}")
+        s = {n: scale(f"{n}/conv") for n in ("cv3", "cv4", "cv5", "cv6",
+                                              "cv7")}
+
+        def cv(name, h, out):
+            return getattr(self, name).forward_flat(h, out, cache=cache,
+                                                    name=name)
+
+        x1 = cv("cv4", cv("cv3", cv("cv1", x, s["cv3"]), s["cv4"]), s["cv5"])
+        sc = x1.scale.repeat(4) if isinstance(x1.scale, torch.Tensor) \
+            else x1.scale
+        pooled = NF.Q8Map(K_neck.spp_pools_q8(x1.data), sc)
+        y1 = cv("cv6", cv("cv5", pooled, s["cv6"]), s["cv7"])
+        y2 = cv("cv2", x, s["cv7"])
+        return cv("cv7", [y1, y2], out_scale)
+
 
 class GSConv(nn.Module):
     """Half-width conv + 5x5 depthwise conv, concat, channel shuffle (even
@@ -281,6 +319,25 @@ class GSConv(nn.Module):
         y = torch.cat([x1, self.cv2(x1)], 1)
         return torch.cat([y[:, 0::2], y[:, 1::2]], 1)
 
+    def forward_flat(self, x, out_scale, scale, cache):
+        """cv1 emits int8 at cv2's input scale, cv2 is the depthwise 5x5
+        (K7). With ``out_scale`` the shuffle rides as the map's permutation
+        (its per-channel scales shuffle with it); on the float exit it is a
+        gather of the dequantized concat."""
+        s_cv2 = scale("cv2/conv")
+        x1 = self.cv1.forward_flat(x, s_cv2, cache=cache, name="cv1")
+        x2 = self.cv2.forward_flat(x1, out_scale, cache=cache, name="cv2")
+        if "perm" not in cache:
+            c_ = x1.c
+            cache["perm"] = NF.gs_shuffle_perm(2 * c_, x1.data.device)
+            if out_scale is not None:
+                cache["scale"] = torch.cat([x1.scale_vec(), x2.scale_vec()])
+        if out_scale is not None:
+            return NF.Q8Map(torch.cat([x1.data, x2.data], -1), cache["scale"],
+                            cache["perm"])
+        x1f = x1.data.float() * f32(s_cv2).to(x2.device)
+        return torch.cat([x1f, x2], -1)[..., cache["perm"]]
+
 
 class GSBottleneck(nn.Module):
     """reference models/common.py:3827-3838."""
@@ -295,6 +352,17 @@ class GSBottleneck(nn.Module):
 
     def forward(self, x):
         return self.conv_lighting(x) + self.shortcut(x)
+
+    def forward_flat(self, x, out_scale, scale, cache):
+        """Both branches exit in float32, add, then requant at
+        ``out_scale`` (the JAX package adds in bf16)."""
+        gs1, gs2 = self.conv_lighting
+        y = gs1.forward_flat(x, scale("gs2/cv1/conv"),
+                             *_sub(scale, cache, "gs1"))
+        y = gs2.forward_flat(y, None, *_sub(scale, cache, "gs2"))
+        out = y + self.shortcut.forward_flat(x, None, cache=cache,
+                                             name="shortcut")
+        return out if out_scale is None else NF.quantize_flat(out, out_scale)
 
 
 class VoVGSCSP(nn.Module):
@@ -312,6 +380,18 @@ class VoVGSCSP(nn.Module):
 
     def forward(self, x):
         return self.cv3(torch.cat([self.cv2(x), self.gsb(self.cv1(x))], 1))
+
+    def forward_flat(self, x, out_scale, scale, cache):
+        s_cv3 = scale("cv3/conv")
+        x1 = self.cv1.forward_flat(x, scale("gsb_0/gs1/cv1/conv"),
+                                   cache=cache, name="cv1")
+        n = len(self.gsb)
+        for i, g in enumerate(self.gsb):
+            nxt = scale(f"gsb_{i + 1}/gs1/cv1/conv") if i + 1 < n else s_cv3
+            x1 = g.forward_flat(x1, nxt, *_sub(scale, cache, f"gsb_{i}"))
+        y = self.cv2.forward_flat(x, s_cv3, cache=cache, name="cv2")
+        return self.cv3.forward_flat([y, x1], out_scale, cache=cache,
+                                     name="cv3")
 
 
 class CA(nn.Module):
@@ -409,6 +489,10 @@ class RepConv(nn.Module):
     def forward(self, x):
         return _act(self.act, self.rbr_reparam(x))
 
+    def forward_flat(self, x, out_scale, scale=None, cache=None):
+        return NF.flat_conv(x, self.rbr_reparam, cache, "rbr_reparam",
+                            self.act, out_scale)
+
 
 class Implicit(nn.Module):
     """ImplicitA / ImplicitM state: ``implicit`` (1, C, 1, 1)."""
@@ -441,4 +525,17 @@ class IDetect(nn.Module):
             b, _, h, w = y.shape
             outs.append(y.permute(0, 2, 3, 1).reshape(b, h, w, self.na,
                                                      self.no))
+        return outs
+
+    def forward_flat(self, xs, cache):
+        """Levels whose input is an int8 map run their 1x1 on K5 with a
+        float32 output and no activation (``_flat_head_level``)."""
+        outs = []
+        for i, (conv, x) in enumerate(zip(self.m, xs)):
+            if isinstance(x, NF.Q8Map):
+                y = NF.flat_conv(x, conv, cache, f"m_{i}", None, None)
+            else:
+                y = conv(x).permute(0, 2, 3, 1)
+            b, h, w, _ = y.shape
+            outs.append(y.reshape(b, h, w, self.na, self.no))
         return outs

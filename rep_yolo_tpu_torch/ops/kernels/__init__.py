@@ -6,11 +6,11 @@ launch counters, so a run can show which kernels the main path went through.
 
 from __future__ import annotations
 
-from rep_yolo_tpu_torch.ops.kernels import (axial_attention, conv_flat, nms,
-                                            pool_flat)
+from rep_yolo_tpu_torch.ops.kernels import (axial_attention, conv_flat,
+                                            neck_flat, nms, pool_flat)
 
 _COUNTERS = (axial_attention.LAUNCHES, nms.LAUNCHES, conv_flat.LAUNCHES,
-             pool_flat.LAUNCHES)
+             pool_flat.LAUNCHES, neck_flat.LAUNCHES)
 
 
 def launch_counts() -> dict[str, int]:

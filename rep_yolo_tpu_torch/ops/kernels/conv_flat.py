@@ -44,21 +44,40 @@ def _lib():
     return lib
 
 
+def fold_weight(weight: torch.Tensor, in_scale: torch.Tensor | None = None,
+                perm: torch.Tensor | None = None) -> torch.Tensor:
+    """Fold an int8 input's per-channel scales and pending channel
+    permutation into float (O, C, k, k) weights (port of ``neck_flat._fold``):
+    logical input channel c lives at physical channel ``perm[c]``, and
+    ``in_scale`` is in physical order, so the conv runs at s_in = 1 on the
+    raw physical data."""
+    w = weight.detach().float()
+    if perm is not None:
+        inv = torch.empty_like(perm)
+        inv[perm] = torch.arange(len(perm), device=perm.device)
+        w = w[:, inv.to(w.device)]
+    if in_scale is not None:
+        w = w * in_scale.to(w.device)[None, :, None, None]
+    return w
+
+
 class QConv:
     """One conv's weights, quantized once when the int8 plan is built.
 
     ``w_q`` (O, k, k, Cp) int8, per output channel at ``s_w`` (O,) f32, with
     the input channels zero-padded to Cp, a multiple of 4 (exact); ``bias``
-    (O,) f32. ``in_scale`` (C,) folds a per-input-channel factor into the
-    float weights before they are quantized (the DER concat's section
-    scales). The kernels' packed copy is made at the first launch and
-    kept."""
+    (O,) f32. ``in_scale`` (C,) and ``perm`` (C,) fold an int8 input's
+    per-channel scales (the concat's section scales) and pending channel
+    permutation (GSConv's shuffle) into the float weights before they are
+    quantized (``fold_weight``). The kernels' packed copy is made at the
+    first launch and kept."""
 
-    def __init__(self, weight: torch.Tensor, bias: torch.Tensor,
-                 in_scale: torch.Tensor | None = None):
-        w = weight.detach().float()
-        if in_scale is not None:
-            w = w * in_scale.to(w.device)[None, :, None, None]
+    def __init__(self, weight: torch.Tensor, bias: torch.Tensor | None,
+                 in_scale: torch.Tensor | None = None,
+                 perm: torch.Tensor | None = None):
+        w = fold_weight(weight, in_scale, perm)
+        if bias is None:
+            bias = torch.zeros(w.shape[0], device=w.device)
         w_q, self.s_w = quantize_weights(w)
         O, C, k, _ = w.shape
         cp = -(-C // 4) * 4

@@ -1,8 +1,9 @@
 """Model-serving HTTP server on the card (port of ``deploy/server.py``).
 
 The engine is the fused float32 deploy forward, the top-k decode and the
-CUDA NMS kernel; with ``--fast int8`` the backbone runs as the calibrated
-int8 region (``models/region.py``) on the int8 kernels. Requests are
+CUDA NMS kernel; with ``--fast int8`` the backbone, neck and head run as the
+calibrated int8 region (``models/region.py``) on the int8 kernels, with
+float islands at the attention blocks. Requests are
 padded to ``max_batch`` so every call runs the same shapes.
 
 Protocol (stdlib only):
@@ -103,10 +104,11 @@ def build_engine(cfg: str, weights: str | None, img_size: int,
     matmuls, as the JAX server runs its convs at full f32 precision; cuDNN
     keeps to deterministic algorithms, so a request repeated gives the same
     detections. ``fast="int8"`` calibrates on ``calib`` (NHWC images in
-    [0, 1]; default ``calibration_batch``) and serves the int8 backbone
-    region only: the JAX package's ``--fast int8`` with
-    ``set_neck_q8(False)``. That package's default ``--fast int8`` also runs
-    the neck in int8, which the port does not yet."""
+    [0, 1]; default ``calibration_batch``) and serves the int8 region as
+    the JAX package's ``--fast int8`` does: the backbone, the neck and the
+    IDetect convs in int8, the CA / CCVA / ADD attention blocks in float
+    (``models/region.py``). ``Q8Region(scales, neck=False)`` set on the
+    engine's network keeps the backbone region alone."""
     if fast not in (None, "int8"):
         raise ValueError(f"unknown fast path {fast!r}")
     dev = resolve_device(device)
@@ -190,9 +192,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--device", default=None)
     p.add_argument("--fast", default=None, choices=["int8"],
                    help="'int8': calibrate on seeded uniform images and run "
-                        "the backbone as the int8 region on the int8 kernels "
-                        "(the JAX package's --fast int8 with its neck left in "
-                        "float, set_neck_q8(False))")
+                        "the backbone, neck and head as the int8 region on "
+                        "the int8 kernels, the attention blocks in float "
+                        "(the JAX package's --fast int8)")
     return p.parse_args(argv)
 
 

@@ -1,6 +1,8 @@
 """Port parity for the int8 backbone region (the calibrated int8 mode with
-the JAX package's neck region off, ``set_neck_q8(False)``), on the CPU,
-where the port's kernel wrappers take their plain versions.
+the JAX package's neck region off, ``set_neck_q8(False)``, and the port's
+``Q8Region(scales, neck=False)``), on the CPU, where the port's kernel
+wrappers take their plain versions. The neck region is held against the JAX
+package in tests/test_torch_int8_neck_slice.py.
 
 - ``calibrate``: the tiny config at 64 px through both packages on the same
   weights: the same keys (JAX scope paths), values at rtol 1e-5.
@@ -139,8 +141,8 @@ def flagship_jax():
 
 
 def _port_plan(scales):
-    return plan_region(parse_config(FLAGSHIP), Q8Region(scales), 640,
-                       640).strings
+    return plan_region(parse_config(FLAGSHIP), Q8Region(scales, neck=False),
+                       640, 640).strings
 
 
 def test_flagship_plan_matches_jax(flagship_jax):
@@ -201,7 +203,7 @@ def test_int8_network_matches_jax(monkeypatch):
         return seen[spec.i]
 
     monkeypatch.setattr(DetectionNet, "_run_q8", record)
-    port.net.set_q8(Q8Region(scales))
+    port.net.set_q8(Q8Region(scales, neck=False))
     reset_launch_counts()
     got = port.apply(torch.from_numpy(x))
     assert sum(launch_counts().values()) == 0          # plain versions
@@ -222,13 +224,13 @@ def test_int8_network_matches_jax(monkeypatch):
 
 def test_region_maps_and_float_consumers():
     """Region tensors that a float layer reads are dequantized once; the
-    int8 path runs again from the cached plan."""
+    int8 path runs again from the cached plan (the backbone region)."""
     model = RepYOLO.from_config(DER_MP_DER, device="cpu").init(
         torch.Generator().manual_seed(0)).fuse()
     x = torch.rand((1, 64, 64, 3), generator=torch.Generator().manual_seed(1))
     from rep_yolo_tpu_torch.ops.quant import enable_int8_fast_path
 
-    scales = enable_int8_fast_path(model, x)
+    scales = enable_int8_fast_path(model, x, neck=False)
     assert "l2/stage1/reparam_conv" in scales and "l6/m_0" in scales
     a = model.apply(x)
     plan = model.net.plan_for(64, 64)
@@ -241,6 +243,28 @@ def test_region_maps_and_float_consumers():
     assert torch.equal(m.to_float(), torch.full((1, 4, 2, 2), 1.5))
     model.net.set_q8(None)
     assert model.net.region_plan == {}
+
+
+def test_region_maps_and_float_consumers_neck_on():
+    """With the neck on (the default), the same graph's l5 Conv enters the
+    region on its own scale and emits int8 for the head, whose 1x1 runs in
+    int8 with a float32 output; the plan is cached as before."""
+    model = RepYOLO.from_config(DER_MP_DER, device="cpu").init(
+        torch.Generator().manual_seed(0)).fuse()
+    x = torch.rand((1, 64, 64, 3), generator=torch.Generator().manual_seed(1))
+    from rep_yolo_tpu_torch.ops.quant import enable_int8_fast_path
+
+    enable_int8_fast_path(model, x)
+    a = model.apply(x)
+    plan = model.net.plan_for(64, 64)
+    assert plan.steps[4].out_scale is None                 # DER exits float
+    assert plan.steps[5].kind == "flat" and plan.steps[5].s_in is not None
+    assert plan.steps[6].kind == "head" and plan.steps[6].raw == {5}
+    assert model.net.region_plan[5] == ("neck entry quantize; in-region Conv"
+                                        " -> int8")
+    b = model.apply(x)
+    for u, v in zip(a, b):
+        assert torch.equal(u, v)
 
 
 def test_pool_gate_changes_only_the_plan_string(monkeypatch):

@@ -9,7 +9,7 @@ installed (``tests/conftest.py`` imports JAX, hence ``--noconftest``):
 Tolerances: attention f32 atol = rtol = 1e-4 (summation order differs);
 NMS keep sets identical; the int8 kernels: int8 outputs identical but for
 +-1 LSB on at most 1e-4 of the elements (CUDA's expf against torch's
-sigmoid), float32 outputs atol = rtol = 1e-5, pools identical.
+sigmoid), float32 outputs atol = rtol = 1e-5, pools (K6, K8) identical.
 """
 
 import numpy as np
@@ -22,6 +22,7 @@ from rep_yolo_tpu_torch.ops import nms as TN
 from rep_yolo_tpu_torch.ops.kernels import axial_attention as KA
 from rep_yolo_tpu_torch.ops.kernels import conv_flat as KC
 from rep_yolo_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+from rep_yolo_tpu_torch.ops.kernels import neck_flat as KNF
 from rep_yolo_tpu_torch.ops.kernels import nms as KN
 from rep_yolo_tpu_torch.ops.kernels import pool_flat as KP
 
@@ -122,6 +123,9 @@ def _qconv(rng, c_in, c_out, k, device):
     (1, 24, 24, 16, 20, False, 0.05),      # O = 24 < one block of 32
     (1, 256, 256, 13, 21, False, None),    # 4 chunks, ragged tiles, f32 out
     (1, 128, 64, 16, 16, True, 0.02),      # f32 in, several chunks
+    (2, 128, 64, 80, 80, False, 0.05),     # l33: int8 in, stride 2
+    (2, 256, 128, 40, 40, False, None),    # l49's shape, f32 out
+    (2, 24, 16, 13, 21, False, 0.05),      # odd sizes, stride 2
 ])
 def test_conv3x3_q8_matches_plain(cuda, stride, c_in, c_out, h, w, f32_in,
                                   out_scale):
@@ -144,6 +148,8 @@ def test_conv3x3_q8_matches_plain(cuda, stride, c_in, c_out, h, w, f32_in,
     ((48,), 24, 12, 20, False, 0.04),           # cv0_1
     ((24,), 48, 12, 20, False, 0.04),           # cv0_2: one 24 chunk
     ((128, 128, 128), 256, 10, 14, True, None),
+    ((128, 128, 256), 256, 20, 20, False, 0.04),  # l50 cv: 3 sections
+    ((128,), 18, 20, 20, False, None),            # the head: O = 18, f32
 ])
 def test_conv1x1_q8_matches_plain(cuda, secs, c_out, h, w, pool, out_scale):
     rng = np.random.default_rng(sum(secs) + h)
@@ -167,6 +173,33 @@ def test_max_pool2_q8_matches_plain(cuda, shape):
     assert torch.equal(KP.max_pool2_q8(x), KP.max_pool2_q8_plain(x))
 
 
+@pytest.mark.parametrize("c,h,w,act,out_scale", [
+    (64, 80, 80, "silu", 0.03),     # l17's GSConv depthwise
+    (128, 20, 20, None, 0.05),      # a GSBottleneck gs2, no activation
+    (32, 40, 40, "silu", None),     # float exit
+    (8, 13, 21, "silu", 0.02),      # fewer channels than a block, ragged
+])
+def test_dwconv5x5_q8_matches_plain(cuda, c, h, w, act, out_scale):
+    rng = np.random.default_rng(c + h)
+    wt = torch.from_numpy(rng.normal(0, 0.1, (c, 1, 5, 5)).astype(np.float32))
+    b = torch.from_numpy(rng.normal(0, 0.5, (c,)).astype(np.float32))
+    qd = KNF.QDepthwise(wt.to(cuda), b.to(cuda),
+                        torch.full((c,), 0.02, device=cuda))
+    x = torch.from_numpy(rng.integers(-127, 128, (2, h, w, c)).astype(
+        np.int8)).to(cuda)
+    args = (qd, 1.0, act, out_scale)
+    _assert_q8_close(KNF.dwconv5x5_q8(x, *args),
+                     KNF.dwconv5x5_q8_plain(x, *args))
+
+
+@pytest.mark.parametrize("shape", [(4, 20, 20, 512), (2, 7, 9, 8),
+                                   (1, 40, 40, 64)])
+def test_spp_pools_q8_matches_plain(cuda, shape):
+    x = torch.from_numpy(np.random.default_rng(1).integers(
+        -128, 128, shape).astype(np.int8)).to(cuda)
+    assert torch.equal(KNF.spp_pools_q8(x), KNF.spp_pools_q8_plain(x))
+
+
 def test_q8_wrappers_count_launches_and_refuse_bad_input(cuda):
     rng = np.random.default_rng(3)
     qw = _qconv(rng, 8, 8, 3, cuda)
@@ -175,9 +208,13 @@ def test_q8_wrappers_count_launches_and_refuse_bad_input(cuda):
     y = KC.conv3x3_q8(x, qw, 0.01, out_scale=0.02)
     KP.max_pool2_q8(y)
     KC.conv1x1_q8([y], _qconv(rng, 8, 16, 1, cuda), 0.02)
+    qd = KNF.QDepthwise(torch.zeros((8, 1, 5, 5), device=cuda),
+                        torch.zeros(8, device=cuda))
+    KNF.spp_pools_q8(KNF.dwconv5x5_q8(y, qd, out_scale=0.02))
     counts = launch_counts()
     assert (counts["conv3x3_q8"], counts["conv1x1_q8"],
-            counts["max_pool2_q8"]) == (1, 1, 1)
+            counts["max_pool2_q8"], counts["dwconv5x5_q8"],
+            counts["spp_pools_q8"]) == (1, 1, 1, 1, 1)
     with pytest.raises(ValueError):                  # int8 C not 4k
         KC.conv3x3_q8(torch.zeros((1, 8, 8, 3), dtype=torch.int8,
                                   device=cuda), _qconv(rng, 3, 8, 3, cuda),
