@@ -4,8 +4,9 @@
 Drives the port's paths, fused float serving of cfg/rep_yolo.yaml at 640 px
 and the same with the calibrated int8 region (``--fast int8``: the backbone,
 neck and head in int8, the attention blocks in float; and the backbone
-region alone, ``Q8Region(neck=False)``), and holds every CUDA kernel of those
-paths against its plain PyTorch version on the card. Phases, one JSON line
+region alone, ``Q8Region(neck=False)``), and training it (phases 9-14), and
+holds every CUDA kernel of those paths against its plain PyTorch version on
+the card. Phases, one JSON line
 each:
 
   1. device and build: the card, then nvcc of every csrc/*.cu (parallel)
@@ -60,6 +61,30 @@ and for the int8 path:
      for K8 the sequence of three F.max_pool2d and a torch.cat); summed per
      forward and, for the neck, per layer
   8. served_ab: one served batch of 4, the three engines in turns
+
+and, outside inference_mode, training cfg/rep_yolo.yaml at 640 px, batch 8
+as cli.train builds it (build_training: seeded init, synthetic batches from
+seed 0, scratch.p5, simOTA, SGD, EMA; --no-accumulate), with the wgrad route
+on with select-all: 9 convs a step on K9; cuDNN's default algorithm choice,
+as cli.train runs:
+
+  9. kernels_wgrad_vs_plain: K9 wgrad3x3 at the nine routed shapes, seeded
+     x and dY, rtol 1e-4 / atol 1e-4 x max|dW| against the plain version;
+     the error against cuDNN's wgrad as a report
+  10. times_wgrad: K9 per shape and summed per step (profiler device time,
+     CUDA events around a cold call as a check) beside the plain version,
+     conv2d_weight and the bound (the least operation count)
+  11. train_step: 3 warm-up and 10 timed steps, finite losses, 9 K9
+     launches a step (counts zeroed before the timed steps, read after);
+     one step's grads with K9 against the plain autograd path (cuDNN
+     wgrad), per parameter rtol 1e-3 / atol 1e-3 x max|g|; host ms,
+     device ms by category and busy share under torch.profiler, peak memory
+  12. train_overfit: 20 steps on one batch, warmup off: the loss falls
+  13. train_cli: python -m rep_yolo_tpu_torch.cli.train --data synthetic:16
+     --epochs 1 (batch 8, 640 px, no augment, no autoanchor, no eval) exits
+     0 with finite step lines
+  14. profiler_after_training: the device events the profiler records in
+     windows of K9 calls after the training phases (a report)
 
 Then the kernels line {"kernels": [...]} and, last, {"ok": true, "device":
 {...}}. Any failure raises and exits non-zero without the last line.
@@ -877,7 +902,8 @@ def phase_serving(torch, dev, fast=None, neck=True):
         Q8_PER_FORWARD if neck else Q8_BACKBONE_PER_FORWARD
     want = {"axial_project": 12 * n_fwd, "axial_attend_criss_cross": 6 * n_fwd,
             "axial_attend_vertical": 6 * n_fwd, "nms_keep": n_fwd,
-            **{k: q8.get(k, 0) * n_fwd for k in Q8_KERNELS}}
+            **{k: q8.get(k, 0) * n_fwd for k in Q8_KERNELS},
+            "wgrad3x3": 0}
     if counts != want:
         raise AssertionError(f"launch counts {counts} != {want}")
     dets = []
@@ -944,9 +970,10 @@ def _category(name: str) -> str:
     return "elementwise / other"
 
 
-def profiled(torch, fn, reps: int):
+def profiled(torch, fn, reps: int, counts: bool = False):
     """Run ``fn`` ``reps`` times under torch.profiler: (host wall ms per
-    run, {kernel name: device ms per run}, device events recorded)."""
+    run, {kernel name: device ms per run}, device events recorded; with
+    ``counts``, {kernel name: events recorded})."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -958,7 +985,7 @@ def profiled(torch, fn, reps: int):
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t) * 1e3 / reps
     names: dict[str, float] = {}
-    events = 0
+    events, per_name = 0, {}
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
@@ -968,18 +995,23 @@ def profiled(torch, fn, reps: int):
         if us > 0:
             names[e.key] = names.get(e.key, 0.0) + us / 1e3 / reps
             events += e.count
-    return wall, names, events
+            per_name[e.key] = per_name.get(e.key, 0) + e.count
+    return wall, names, per_name if counts else events
 
 
-def profiled_whole(torch, fn, reps: int, tries: int = 5):
+def profiled_whole(torch, fn, reps: int, tries: int = 5,
+                   per_name: bool = False):
     """``profiled`` until a window holds a non-zero whole multiple of
-    ``reps`` device events (``fn`` launches the same kernels each call).
-    The profiler now and then drops some or all of a window's events
-    (about one window in a hundred on the card, a one-call window among
-    them), so such a window is measured again."""
+    ``reps`` device events (``fn`` launches the same kernels each call);
+    with ``per_name``, of each kernel name's events. The profiler now and
+    then drops some or all of a window's events (about one window in a
+    hundred on the card, a one-call window among them), so such a window is
+    measured again."""
     for _ in range(tries):
-        wall, names, events = profiled(torch, fn, reps)
-        if events and events % reps == 0:
+        wall, names, events = profiled(torch, fn, reps, counts=per_name)
+        whole = (all(n % reps == 0 for n in events.values()) if per_name
+                 else events % reps == 0)
+        if events and whole:
             return wall, names, events
     raise AssertionError(f"the profiler recorded {events} device events "
                          f"for {reps} calls in each of {tries} tries")
@@ -1002,11 +1034,17 @@ def l2_flush(torch):
     return _FLUSH["fn"], _FLUSH["names"]
 
 
-def device_ms(torch, fn, reps: int = 10, warmup: int = 3) -> float:
+def device_ms(torch, fn, reps: int = 10, warmup: int = 3,
+              whole: bool = True) -> float:
     """Device ms per call of ``fn`` from a cold L2 (each call follows an
     ``l2_flush``, so its inputs come from HBM as in a served forward): the
     sum of its kernels' device times under the profiler, without the
-    host's launch gaps between them or the flush."""
+    host's launch gaps between them or the flush, in a window where every
+    kernel's events (the flush's too) are whole for all ``reps`` calls: a
+    window that lost as many flush events as kernel events would still hold
+    a whole multiple in all. ``whole=False`` is for a ``fn`` whose library
+    calls launch a varying number of kernels: the median of three windows,
+    none of them checked for dropped events."""
     flush, skip = l2_flush(torch)
 
     def call():
@@ -1015,7 +1053,11 @@ def device_ms(torch, fn, reps: int = 10, warmup: int = 3) -> float:
 
     for _ in range(warmup):
         call()
-    _, names, _ = profiled_whole(torch, call, reps)
+    if not whole:
+        return statistics.median(
+            sum(ms for k, ms in profiled(torch, call, reps)[1].items()
+                if k not in skip) for _ in range(3))
+    _, names, _ = profiled_whole(torch, call, reps, per_name=True)
     return sum(ms for k, ms in names.items() if k not in skip)
 
 
@@ -1300,6 +1342,403 @@ def phase_served_ab(torch, engines, batch):
     return out
 
 
+# ---------------------------------------------------------------------------
+# training: K9 and the train step (outside inference_mode)
+# ---------------------------------------------------------------------------
+
+# (B, H, W, C, O, convs per step) of the 3x3 convs the select-all wgrad
+# route sends to K9 in one train step of the flagship at 640 px, batch 8:
+# l9 SPPCSPC cv3 and cv6, the GSBottleneck 3x3 GSConv cv1 of the four
+# VoVGSCSP (l14, l24 at 40x40, l40 at 80x80, l56 at 20x20), the RepConv
+# rbr_dense of l62-l64
+WGRAD_SHAPES = [(8, 20, 20, 512, 512, 2), (8, 40, 40, 128, 64, 2),
+                (8, 80, 80, 64, 32, 1), (8, 20, 20, 256, 128, 1),
+                (8, 80, 80, 128, 256, 1), (8, 40, 40, 256, 512, 1),
+                (8, 20, 20, 512, 1024, 1)]
+WGRAD_PER_STEP = sum(s[-1] for s in WGRAD_SHAPES)
+TRAIN_BATCH = 8
+
+
+def wgrad_ops(B, H, W, C, O) -> tuple[float, float]:
+    """(least, direct) f32 operations of the 3x3 weight gradient. Direct:
+    the sum as written, 2 * O * 9C * B*H*W. Least: the multiply-adds of
+    Winograd's minimal algorithm for the correlation of each (H+2, W+2)
+    padded map with each (H, W) gradient map, (H+2)(W+2) products per image
+    and channel pair, 2 * O * C * B * (H+2)(W+2): no algorithm of products
+    of linear forms (direct, Winograd, FFT) needs fewer multiplications, and
+    the transforms' additions are left out."""
+    return 2.0 * O * C * B * (H + 2) * (W + 2), 2.0 * O * 9 * C * B * H * W
+
+
+def wgrad_case(torch, shape, dev, seed):
+    """(kernel fn, plain fn, library fn, bytes, ops) of K9 at one shape, on
+    seeded x (B, C, H, W) and dY (B, O, H, W); ops: ``wgrad_ops``' least."""
+    from rep_yolo_tpu_torch.ops.kernels import wgrad as KW
+
+    B, H, W, C, O = shape[:5]
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((B, C, H, W), generator=g).to(dev)
+    dy = torch.randn((B, O, H, W), generator=g).to(dev)
+    nbytes = 4 * (x.numel() + dy.numel() + O * C * 9)
+    ops = wgrad_ops(B, H, W, C, O)[0]
+    return (lambda: KW.wgrad3x3(x, dy), lambda: KW.wgrad3x3_plain(x, dy),
+            lambda: torch.nn.grad.conv2d_weight(x, (O, C, 3, 3), dy,
+                                                padding=1), nbytes, ops)
+
+
+def phase_kernels_wgrad(torch, dev, errs):
+    """K9 against its plain version at the nine flagship shapes: |got - ref|
+    <= 1e-4 |ref| + 1e-4 max|ref|; the error against cuDNN's wgrad
+    (conv2d_weight, TF32 off) as a report."""
+    rows = []
+    for i, shape in enumerate(WGRAD_SHAPES):
+        kfn, pfn, lib, _, _ = wgrad_case(torch, shape, dev, 300 + i)
+        got, ref, cud = kfn(), pfn(), lib()
+        torch.cuda.synchronize()
+        scale = float(ref.abs().max())
+        err = float((got - ref).abs().max())
+        ok = bool(((got - ref).abs() <= 1e-4 * ref.abs()
+                   + 1e-4 * scale).all())
+        r = {"shape": list(shape[:5]), "convs_per_step": shape[5],
+             "max_abs_err": err, "ref_absmax": scale,
+             "err_vs_cudnn": float((got - cud).abs().max())}
+        rows.append(r)
+        if not ok:
+            raise AssertionError(f"wgrad3x3 differs from its plain version: "
+                                 f"{r}")
+        errs["wgrad3x3"] = max(errs.get("wgrad3x3", 0.0), err)
+    emit({"phase": "kernels_wgrad_vs_plain", "ok": True,
+          "tolerance": "rtol 1e-4, atol 1e-4 x max|dW|", "shapes": rows})
+
+
+def train_setup(torch, dev, cfg=CFG, size=SIZE, batch=TRAIN_BATCH, n=16,
+                warmup=True):
+    """The flagship's training as ``cli.train`` builds it
+    (``build_training``: seeded init, scratch.p5, simOTA, nesterov SGD, EMA)
+    with ``--no-accumulate`` (the CLI's accumulation also applies the
+    optimizer at every call for its first 72 iterations at batch 8), the
+    select-all wgrad route, and the synthetic batches (seed 0) on
+    the card."""
+    from rep_yolo_tpu_torch.cli import train as cli
+
+    args = cli.parse_args([
+        "--cfg", cfg, "--data", f"synthetic:{n}", "--batch-size", str(batch),
+        "--img-size", str(size), "--no-augment", "--no-autoanchor",
+        "--eval-every", "0", "--no-accumulate", "--device", str(dev)])
+    t = cli.build_training(args, warmup=warmup)
+    t.model.net.set_wgrad(True, select=lambda c1, c2: True)
+    batches = [[torch.from_numpy(b[k]).to(dev)
+                for k in ("images", "hw", "labels", "mask")]
+               for b in t.loader.epoch(0)]
+    return t.model, t.state, t.step, batches
+
+
+def _grad_check(torch, model, state, step, batch):
+    """One step's grads with K9 against the same step on the plain autograd
+    path (cuDNN's wgrad): the same state, batch and dropout masks, and
+    cuDNN held to deterministic algorithms for both, so that the routed
+    weight gradients are the only sums that differ (a non-deterministic
+    cuDNN wgrad moves the near-zero grads of other tensors by ~1e-7)."""
+    from rep_yolo_tpu_torch.ops.kernels import launch_counts
+
+    net = model.net
+    routed = [k for k, m in net.named_modules() if getattr(m, "wgrad", False)]
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        state.generator.manual_seed(7)
+        n0 = launch_counts()["wgrad3x3"]
+        g9, c9 = step.grads(state, *batch)
+        torch.cuda.synchronize()
+        launched = launch_counts()["wgrad3x3"] - n0
+        net.set_wgrad(False)
+        state.generator.manual_seed(7)
+        gp, cp = step.grads(state, *batch)
+    finally:
+        torch.backends.cudnn.deterministic = was
+        net.set_wgrad(True, select=lambda c1, c2: True)
+    worst, worst_key = 0.0, None
+    for k, b in gp.items():
+        a = g9[k]
+        tol = 1e-3 * b.abs() + 1e-3 * float(b.abs().max())
+        excess = float(((a - b).abs() - tol).max())
+        if excess > worst or worst_key is None:
+            worst, worst_key = excess, k
+        if excess > 0:
+            raise AssertionError(f"grad of {k} with K9 differs from the "
+                                 f"plain path by {float((a - b).abs().max())}")
+    if launched != WGRAD_PER_STEP:
+        raise AssertionError(f"the checked step launched K9 {launched} "
+                             f"times, want {WGRAD_PER_STEP}")
+    wk = [k + ".weight" for k in routed]
+    return {"params": len(gp), "k9_launches": launched,
+            "loss_k9": float(c9["total"]), "loss_plain": float(cp["total"]),
+            "routed_max_abs_diff": max(float((g9[k] - gp[k]).abs().max())
+                                       for k in wk),
+            "all_max_abs_diff": max(float((g9[k] - gp[k]).abs().max())
+                                    for k in gp),
+            "worst_param": worst_key}
+
+
+def _train_category(name: str) -> str:
+    low = name.lower()
+    if "wgrad3x3" in low or "wgrad_reduce" in low:
+        return "K9 wgrad3x3"
+    if "wgrad" in low:
+        return "cuDNN wgrad"
+    if "dgrad" in low:
+        return "cuDNN dgrad"
+    if "bn_fw" in low or "bn_bw" in low or "batch_norm" in low \
+            or "welford" in low:
+        return "batch norm (cuDNN)"
+    if "fprop" in low or "convolve" in low or "winograd" in low \
+            or "fft" in low or "conv2d" in low or "implicit_gemm" in low:
+        return "cuDNN fwd"
+    if "gemm" in low or "gemv" in low:
+        return "GEMM (einsum, FFT convs)"
+    if "foreach" in low or "multi_tensor" in low:
+        return "optimizer and EMA (foreach)"
+    c = _category(name)
+    return "other conv" if c == "convolutions (cuDNN)" else c
+
+
+TRAIN_RANGES = ("train/forward", "train/loss", "train/backward",
+                "train/optimizer")
+
+
+def profiled_train(torch, fn, reps: int):
+    """``fn`` (one train step) ``reps`` times under torch.profiler: host
+    wall ms per step, device ms per step by kernel name, and the device ms
+    of the kernels launched inside each of the step's ranges (the
+    backward's kernels run on autograd's thread and fall outside it), and
+    the K9 launches per step the profiler saw."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3 / reps
+    names, ranges, k9_seen = {}, {}, 0
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        if e.key in TRAIN_RANGES and \
+                e.device_type == torch.autograd.DeviceType.CUDA:
+            continue            # the ranges' own spans on the device
+        if e.device_type == torch.autograd.DeviceType.CUDA and us > 0:
+            names[e.key] = names.get(e.key, 0.0) + us / 1e3 / reps
+            k9_seen += e.count if "wgrad3x3_kernel" in e.key else 0
+        elif e.key in TRAIN_RANGES:
+            tot = getattr(e, "device_time_total", None)
+            if tot is None:
+                tot = e.cuda_time_total
+            ranges[e.key] = tot / 1e3 / reps
+    return wall, names, ranges, k9_seen / reps
+
+
+def phase_train_step(torch, dev, size=SIZE, cfg=CFG, batch=TRAIN_BATCH,
+                     warm=3, timed=10):
+    """The flagship's train step on the card: warm-ups, then the timed
+    steps with the launch counts zeroed just before them and read just
+    after; one step's grads with K9 against the plain path; the step's time
+    by category under the profiler; peak memory."""
+    import numpy as np
+
+    from rep_yolo_tpu_torch.ops.kernels import launch_counts, \
+        reset_launch_counts
+
+    model, state, step, batches = train_setup(torch, dev, cfg, size, batch)
+    comps = []
+    for i in range(warm):
+        comps.append(step(state, *batches[i % len(batches)]))
+    check = _grad_check(torch, model, state, step, batches[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    host = []
+    reset_launch_counts()
+    for i in range(timed):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        comps.append(step(state, *batches[i % len(batches)]))
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t) * 1e3)
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    vals = [{k: float(v) for k, v in c.items()} for c in comps]
+    if not all(np.isfinite(v[k]) for v in vals for k in v):
+        raise AssertionError(f"a loss component is not finite: {vals}")
+    per_step = counts["wgrad3x3"] / timed
+    if counts["wgrad3x3"] != WGRAD_PER_STEP * timed:
+        raise AssertionError(f"K9 launched {counts['wgrad3x3']} times in "
+                             f"{timed} steps, want {WGRAD_PER_STEP} a step")
+    wall, names, ranges, k9_seen = profiled_train(
+        torch, lambda: step(state, *batches[0]), 3)
+    cats: dict[str, float] = {}
+    for n, ms in names.items():
+        c = _train_category(n)
+        cats[c] = cats.get(c, 0.0) + ms
+    dev_ms = sum(names.values())
+    emit({"phase": "train_step", "ok": True, "batch": batch, "size": size,
+          "warmups": warm, "timed_steps": timed,
+          "launch_counts": counts, "k9_launches_per_step": per_step,
+          "k9_launches_per_step_profiler_saw": k9_seen,
+          "losses": vals, "grad_check": check,
+          "grad_tolerance": "rtol 1e-3, atol 1e-3 x max|g| per parameter",
+          "step_host_ms": host,
+          "step_host_ms_median": statistics.median(host),
+          "profiled_wall_ms_per_step": wall,
+          "device_ms_per_step": dev_ms if dev_ms > 0 else "not measured",
+          "device_busy_share": dev_ms / wall if dev_ms > 0
+          else "not measured",
+          "by_category_ms": dict(sorted(cats.items(), key=lambda kv: -kv[1])),
+          "range_device_ms": ranges,
+          "top_kernels_ms": [[k[:90], v] for k, v in sorted(
+              names.items(), key=lambda kv: -kv[1])[:12]],
+          "max_memory_allocated_bytes": peak})
+    return counts
+
+
+def phase_train_overfit(torch, dev, size=SIZE, cfg=CFG, batch=TRAIN_BATCH,
+                        steps=20):
+    """20 optimizer steps on one repeated batch, warmup off: the loss must
+    fall."""
+    import numpy as np
+
+    model, state, step, batches = train_setup(torch, dev, cfg, size, batch,
+                                              n=batch, warmup=False)
+    totals = [float(step(state, *batches[0])["total"]) for _ in range(steps)]
+    if not (np.isfinite(totals).all() and totals[-1] < totals[0]):
+        raise AssertionError(f"the loss did not fall: {totals}")
+    emit({"phase": "train_overfit", "ok": True, "steps": steps,
+          "total": totals})
+
+
+def phase_train_cli(torch, timeout=900):
+    """``python -m rep_yolo_tpu_torch.cli.train`` as a user runs it."""
+    import numpy as np
+
+    cmd = [sys.executable, "-m", "rep_yolo_tpu_torch.cli.train",
+           "--data", "synthetic:16", "--epochs", "1", "--batch-size",
+           str(TRAIN_BATCH), "--img-size", str(SIZE), "--no-augment",
+           "--no-autoanchor", "--eval-every", "0"]
+    t = time.perf_counter()
+    p = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                       timeout=timeout)
+    secs = time.perf_counter() - t
+    lines = [json.loads(s) for s in p.stdout.splitlines()
+             if s.startswith("{")]
+    steps = [r for r in lines if "total" in r]
+    ok = (p.returncode == 0 and len(steps) == 2 and all(
+        np.isfinite([r[k] for k in ("box", "obj", "cls", "total")]).all()
+        for r in steps))
+    if not ok:
+        raise AssertionError(f"cli.train failed (exit {p.returncode}):\n"
+                             f"{p.stdout[-3000:]}\n{p.stderr[-3000:]}")
+    emit({"phase": "train_cli", "ok": True, "cmd": " ".join(cmd[1:]),
+          "exit": p.returncode, "seconds": secs, "steps": steps})
+
+
+def cold_event_ms(torch, fn, reps: int = 10, warmup: int = 3) -> float:
+    """Device ms of one call of ``fn`` from a cold L2, by CUDA events around
+    the call, each call after an ``l2_flush``; median of ``reps``. The host
+    enqueues the call while the flush still runs, so no launch gap falls
+    between the events. A check on the profiler's time of a kernel of one
+    or two launches."""
+    flush, _ = l2_flush(torch)
+    for _ in range(warmup):
+        flush()
+        fn()
+    ms = []
+    for _ in range(reps):
+        flush()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        ms.append(a.elapsed_time(b))
+    return statistics.median(ms)
+
+
+def phase_times_wgrad(torch, dev):
+    """K9 per flagship shape: device ms under the profiler from a cold L2
+    (windows in which every kernel's events are whole), CUDA-event ms around
+    one cold call as a check, event ms back to back, plain and library
+    (conv2d_weight) ms, and the bound; summed per train step. Measured
+    before the training phases: after them the profiler loses device
+    events (``phase_profiler_after_training``)."""
+    agg: dict = {}
+    per_shape = []
+    for i, shape in enumerate(WGRAD_SHAPES):
+        kfn, pfn, lib, nbytes, ops = wgrad_case(torch, shape, dev, 300 + i)
+        t = {"ms": device_ms(torch, kfn),
+             "cold_event_ms": cold_event_ms(torch, kfn),
+             "event_ms": cuda_ms(kfn),
+             "plain_ms": device_ms(torch, pfn, whole=False),
+             "library_ms": device_ms(torch, lib, whole=False)}
+        t.update(zip(("bound_ms", "bound_by"), bound(nbytes, ops)),
+                 bytes=nbytes, ops=ops,
+                 bound_direct_ms=bound(nbytes, wgrad_ops(*shape[:5])[1])[0])
+        add_times(agg, t, shape[5])
+        per_shape.append({"shape": list(shape[:5]),
+                          "convs_per_step": shape[5], **t})
+    for k in ("cold_event_ms", "bound_direct_ms"):
+        agg[k] = sum(r[k] * r["convs_per_step"] for r in per_shape)
+    emit({"phase": "times_wgrad", "ok": True, "batch": TRAIN_BATCH,
+          "note": "per step: each shape times its convs per step; ms: "
+                  "device time under the profiler from a cold L2, 10 calls "
+                  "after 3 warm-ups, in a window that holds every kernel's "
+                  "events for all 10; cold_event_ms: CUDA events around one "
+                  "call from a cold L2, median of 10; plain_ms, library_ms: "
+                  "device time of all kernels of the call under the "
+                  "profiler from a cold L2, median of 3 windows of 10 calls "
+                  "(their library calls launch a varying number of "
+                  "kernels); event_ms: CUDA events, median of 20 runs of 10 "
+                  "back-to-back calls (L2-warm); bound_ms: the least "
+                  "operations (wgrad_ops), bound_direct_ms: the direct sum",
+          "per_shape": per_shape,
+          "per_step": {k: agg[k] for k in agg if k not in ("bytes", "ops")}})
+    return agg
+
+
+def wgrad_row(counts, errs, agg) -> dict:
+    row = kernel_row("wgrad3x3", "rep_yolo_tpu_torch/csrc/wgrad.cu",
+                     "rep_yolo_tpu/ops/pallas/wgrad_kernel.py:85",
+                     counts["wgrad3x3"], errs["wgrad3x3"], agg, F32_PEAK)
+    row["launches_per_step"] = WGRAD_PER_STEP
+    row["library_call"] = "torch.nn.grad.conv2d_weight (cuDNN, TF32 off)"
+    return row
+
+
+def phase_profiler_after_training(torch, dev, reps: int = 10,
+                                  windows: int = 3):
+    """Profiler windows of K9 (with the L2 flush's PyTorch kernel before
+    each call) after the training phases: the device events recorded per
+    kernel name against the launches made. A report: in such windows the
+    profiler has lost the first events of a window, of every kernel alike."""
+    kfn = wgrad_case(torch, WGRAD_SHAPES[0], dev, 300)[0]
+    flush, _ = l2_flush(torch)
+
+    def call():
+        flush()
+        kfn()
+
+    for _ in range(3):
+        call()
+    seen = [profiled(torch, call, reps, counts=True)[2]
+            for _ in range(windows)]
+    emit({"phase": "profiler_after_training", "ok": True,
+          "calls_per_window": reps, "shape": list(WGRAD_SHAPES[0][:5]),
+          "events_per_window": [{k[:48]: n for k, n in w.items()}
+                                for w in seen]})
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--out", default=None,
@@ -1347,6 +1786,18 @@ def main(argv=None) -> int:
             e.close()
         kernels = phase_times(torch, dev, counts, errs)
         kernels += phase_times_q8(torch, dev, counts_q8, errs, calls)
+    # training needs autograd: outside inference_mode; cuDNN picks its
+    # algorithms as under cli.train (TF32 stays off)
+    torch.backends.cudnn.deterministic = False
+    phase_kernels_wgrad(torch, dev, errs)
+    with torch.inference_mode():
+        wgrad_times = phase_times_wgrad(torch, dev)
+    counts_train = phase_train_step(torch, dev)
+    phase_train_overfit(torch, dev)
+    phase_train_cli(torch)
+    with torch.inference_mode():
+        phase_profiler_after_training(torch, dev)
+    kernels.append(wgrad_row(counts_train, errs, wgrad_times))
     missing = [k["name"] for k in kernels if k["launches"] <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "

@@ -1,10 +1,11 @@
 """Routed network executor: ModelConfig plan -> ``nn.Module``.
 
 Port of ``rep_yolo_tpu/models/network.py`` (``DetectionNet.__call__``):
-the float graph, and with ``set_q8`` the int8 region planned by
-``models/region.py`` (the backbone, and with ``Q8Region.neck`` the neck and
-head too). Layer ``i`` lives at ``model.{i}``, so state keys match the
-reference's.
+the float graph, train form (``train()`` / ``eval()``, the JAX ``train``
+argument) or deploy form, and for a deploy net with ``set_q8`` the int8
+region planned by ``models/region.py`` (the backbone, and with
+``Q8Region.neck`` the neck and head too). Layer ``i`` lives at
+``model.{i}``, so state keys match the reference's.
 """
 
 from __future__ import annotations
@@ -59,7 +60,11 @@ def build_module(spec: LayerSpec, deploy: bool) -> nn.Module:
 
 class DetectionNet(nn.Module):
     """Input NHWC float images in [0, 1]; output the raw head maps
-    (B, H_l, W_l, na, no) per level. Only the deploy form runs.
+    (B, H_l, W_l, na, no) per level.
+
+    The train form trains: ``set_wgrad`` routes its 3x3 convs' weight
+    gradients to K9 and ``set_generator`` gives its dropout masks their
+    generator; both are held here, per network.
 
     ``set_q8(Q8Region(scales))`` switches on the int8 region; the plan is
     computed once per input size (``region_plan`` holds the last one's
@@ -77,8 +82,30 @@ class DetectionNet(nn.Module):
         self._plans: dict[tuple[int, int], RegionPlan] = {}
         self._q8w: dict[int, object] = {}
 
+    def set_wgrad(self, enable: bool, select=None) -> None:
+        """Port of the JAX ``set_pallas_wgrad(enable, select)``: with
+        ``enable``, every 3x3 stride-1 pad-1 ungrouped bias-free conv of the
+        train form that passes ``select(c1, c2)`` (default: the JAX
+        package's off-TPU select, ``B.wgrad_default_select``) takes its
+        weight gradient from K9. Off by default."""
+        select = select or B.wgrad_default_select
+        for m in self.modules():
+            if isinstance(m, nn.Conv2d):
+                m.wgrad = (enable and B.wgrad_eligible(m)
+                           and bool(select(m.in_channels, m.out_channels)))
+
+    def set_generator(self, generator: torch.Generator | None) -> None:
+        """The generator every dropout mask of the train form is drawn
+        from (on the device of the activations)."""
+        for m in self.modules():
+            if isinstance(m, B.Dropout):
+                m.generator = generator
+
     def set_q8(self, region: Q8Region | None) -> None:
         """Turn the int8 region on (calibrated scales) or off (None)."""
+        if region is not None and not self.deploy:
+            raise RuntimeError("the int8 region runs the deploy form; fuse "
+                               "first")
         self.q8 = region
         self.region_plan = {}
         self._plans.clear()
@@ -106,8 +133,6 @@ class DetectionNet(nn.Module):
         return plan
 
     def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
-        if not self.deploy:
-            raise RuntimeError("only the fused deploy graph runs; fuse first")
         steps = ({} if self.q8 is None
                  else self.plan_for(x.shape[1], x.shape[2]).steps)
         first = steps.get(self.cfg.layers[0].i)

@@ -1,18 +1,25 @@
-"""The Rep-YOLO block set in PyTorch: train-form parameter holders and
-deploy-form forwards.
+"""The Rep-YOLO block set in PyTorch: train-form and deploy-form forwards.
 
 Port of the flagship's blocks in ``rep_yolo_tpu/nn/blocks.py``. Every
 module is named after the reference torch keys (``cv1.conv.weight``,
 ``stage1.0.rbr_conv.0.bn.running_mean``, ``m.query_conv.conv.weight``,
-...), so a reference state dict loads with ``load_state_dict``. With
-``deploy=False`` a block only holds the unfused parameters; ``nn.fuse``
-turns them into the ``deploy=True`` block's state, and only deploy blocks
-run forward. Activations inside the network are NCHW tensors; the
-attention blocks hand their kernels NHWC views.
+...), so a reference state dict loads with ``load_state_dict``. A block
+built with ``deploy=False`` holds the unfused train form and computes what
+the JAX block computes with ``train=True`` under ``module.train()`` (batch
+statistics, running averages updated, dropout) and with ``train=False``
+under ``eval()``; ``nn.fuse`` turns its state into the ``deploy=True``
+block's. Activations inside the network are NCHW tensors; the attention
+blocks hand their kernels NHWC views.
 
 Reference quirks kept as they are: CA returns the pooled (B,C,1,1)
-tensor; q and k share one BN; VerticalAttention uses raw energies; the
-centre pixel counts in both criss-cross branches.
+tensor; q and k share one BN (in training its running statistics are
+updated twice, q first); dropout in CrissCrossAttention falls on the row
+attention only; VerticalAttention uses raw energies; the centre pixel
+counts in both criss-cross branches.
+
+The train form's 3x3 stride-1 pad-1 ungrouped bias-free convs go through
+``conv``: the ones ``DetectionNet.set_wgrad`` routes (the JAX package's
+``set_pallas_wgrad``) take their weight gradient from K9 (``wgrad3x3``).
 
 The int8 region (``models/region.py``) runs the stem and the DER blocks
 through the int8 kernels instead: ``RepSBlock.forward_stem_q8`` and
@@ -37,8 +44,12 @@ from rep_yolo_tpu_torch.ops import neck_flat as NF
 from rep_yolo_tpu_torch.ops.kernels import axial_attention as K_axial
 from rep_yolo_tpu_torch.ops.kernels import conv_flat as K_conv
 from rep_yolo_tpu_torch.ops.kernels import neck_flat as K_neck
+from rep_yolo_tpu_torch.ops.kernels import wgrad as K_wgrad
 from rep_yolo_tpu_torch.ops.quant import f32
 
+# The reference's BatchNorm hyperparameters in flax's terms: running average
+# momentum 0.97 (torch momentum 0.03), eps 1e-3.
+BN_MOMENTUM = 0.97
 BN_EPS = 1e-3
 
 
@@ -55,9 +66,16 @@ def _act(name: str | None, x: torch.Tensor) -> torch.Tensor:
 
 
 class BN(nn.Module):
-    """Reference ``BatchNorm2d`` state (weight, bias, running stats). Only
-    the train form holds it: ``nn.fuse`` folds every BN into a conv or into
-    the attention blocks' packed constants."""
+    """Reference ``BatchNorm2d`` state (weight, bias, running stats) with
+    flax's ``nn.BatchNorm`` semantics (JAX ``BN``). Only the train form holds
+    it: ``nn.fuse`` folds every BN into a conv or into the attention blocks'
+    packed constants.
+
+    Training normalizes with the batch mean and the biased batch variance,
+    and moves the running averages by ``m * running + (1 - m) * batch`` with
+    that same biased variance (``F.batch_norm`` would move ``running_var``
+    with the unbiased one). ``eval()`` normalizes with the running
+    statistics."""
 
     def __init__(self, c: int):
         super().__init__()
@@ -66,9 +84,66 @@ class BN(nn.Module):
         self.register_buffer("running_mean", torch.zeros(c))
         self.register_buffer("running_var", torch.ones(c))
 
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, False, 0.0, BN_EPS)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, (0, 2, 3), correction=0)
+            m = BN_MOMENTUM
+            self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+            self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
+                            BN_EPS)
+
+
+class Dropout(nn.Module):
+    """flax ``nn.Dropout``: in training, keep each element with probability
+    ``1 - p`` and scale what is kept by ``1 / (1 - p)``. The masks come from
+    ``generator`` (``DetectionNet.set_generator``; None: torch's default
+    generator of the tensor's device)."""
+
+    def __init__(self, p: float):
+        super().__init__()
+        self.p = p
+        self.generator: torch.Generator | None = None
+
+    def keep_mask(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.rand(x.shape, generator=self.generator,
+                          device=x.device) >= self.p
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        return torch.where(self.keep_mask(x), x / (1.0 - self.p),
+                           torch.zeros((), dtype=x.dtype, device=x.device))
+
 
 def _conv(c1, c2, k, s, p, g=1, bias=False) -> nn.Conv2d:
     return nn.Conv2d(c1, c2, k, s, p, groups=g, bias=bias)
+
+
+def wgrad_eligible(m: nn.Module) -> bool:
+    """A 3x3 stride-1 pad-1 ungrouped conv without bias: the convs the JAX
+    ``ConvUnit`` can route to its wgrad kernel (``nn/blocks.py:466``)."""
+    return (isinstance(m, nn.Conv2d) and m.kernel_size == (3, 3)
+            and m.stride == (1, 1) and m.padding == (1, 1)
+            and m.dilation == (1, 1) and m.groups == 1 and m.bias is None)
+
+
+def wgrad_default_select(c1: int, c2: int) -> bool:
+    """The JAX package's default select off the TPU (``c1 <= 64 and c2 <=
+    64``, ``_wgrad_default_select``)."""
+    return c1 <= 64 and c2 <= 64
+
+
+def conv(m: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """Run the train form's conv ``m``: a conv routed by
+    ``DetectionNet.set_wgrad`` (attribute ``wgrad``) as ``Conv3x3WGrad``,
+    whose weight gradient is K9; any other as itself."""
+    if getattr(m, "wgrad", False):
+        return K_wgrad.conv3x3_wgrad(x, m.weight)
+    return m(x)
 
 
 class ConvBnAct(nn.Module):
@@ -83,7 +158,10 @@ class ConvBnAct(nn.Module):
             self.bn = BN(c2)
 
     def forward(self, x):
-        return _act(self.act, self.conv(x))
+        y = conv(self.conv, x)
+        if hasattr(self, "bn"):
+            y = self.bn(y)
+        return _act(self.act, y)
 
     def forward_flat(self, x, out_scale, scale=None, cache=None,
                      name="conv"):
@@ -135,7 +213,29 @@ class RepSBlock(nn.Module):
             for _ in range(num_conv_branches))
 
     def forward(self, x):
-        return F.silu(self.reparam_conv(x))
+        if hasattr(self, "reparam_conv"):
+            return F.silu(self.reparam_conv(x))
+        # the branches' BN outputs summed in the JAX order: skip, scale,
+        # conv_0..N; N >= 2 identical branches run as one conv over the
+        # output-concatenated kernels, as in the JAX train form (not routed)
+        parts = []
+        if hasattr(self, "rbr_skip"):
+            parts.append(self.rbr_skip(x))
+        if hasattr(self, "rbr_scale"):
+            parts.append(self.rbr_scale(x))
+        if len(self.rbr_conv) > 1:
+            c = self.rbr_conv[0].conv
+            y = F.conv2d(x, torch.cat([b.conv.weight for b in self.rbr_conv]),
+                         None, c.stride, c.padding)
+            n = c.out_channels
+            parts += [b.bn(y[:, i * n:(i + 1) * n])
+                      for i, b in enumerate(self.rbr_conv)]
+        else:
+            parts += [b(x) for b in self.rbr_conv]
+        out = parts[0]
+        for t in parts[1:]:
+            out = out + t
+        return F.silu(out)
 
     def q8_weights(self) -> K_conv.QConv:
         return K_conv.QConv(self.reparam_conv.weight, self.reparam_conv.bias)
@@ -179,7 +279,8 @@ DER_NEXT = {"st1": "st2", "st2": "st3", "st3": "cv0_1", "cv0_1": "st4",
 class DERBlock(nn.Module):
     """Three full-width RepS stages, three half-width stages between 1x1
     convs, concat [stage1, mid1, mid3] -> 1x1 (reference
-    models/common.py:3644-3654; dropout is identity at inference)."""
+    models/common.py:3644-3654); Dropout(0.2) after every stage, in stage
+    order (identity at inference)."""
 
     def __init__(self, c1, c2, num_blocks_per_stage=1, num_conv_branches=1,
                  deploy=False):
@@ -198,13 +299,17 @@ class DERBlock(nn.Module):
             setattr(self, f"cv{i}_1", ConvBnAct(c1, half, deploy=deploy))
             setattr(self, f"cv{i}_2", ConvBnAct(half, c1, deploy=deploy))
         self.cv1 = ConvBnAct(3 * c1, c2, deploy=deploy)
+        self.dropout = Dropout(0.2)
 
     def forward(self, x):
-        x1 = self.stage1[0](x)
-        x3 = self.stage3[0](self.stage2[0](x1))
-        x4_1 = self.cv0_2(self.stage4[0](self.cv0_1(x3)))
-        x4_2 = self.cv1_2(self.stage5[0](self.cv1_1(x4_1)))
-        x4_3 = self.cv2_2(self.stage6[0](self.cv2_1(x4_2)))
+        def stage(i, h):
+            return self.dropout(getattr(self, f"stage{i}")[0](h))
+
+        x1 = stage(1, x)
+        x3 = stage(3, stage(2, x1))
+        x4_1 = self.cv0_2(stage(4, self.cv0_1(x3)))
+        x4_2 = self.cv1_2(stage(5, self.cv1_1(x4_1)))
+        x4_3 = self.cv2_2(stage(6, self.cv2_1(x4_2)))
         return self.cv1(torch.cat([x1, x4_1, x4_3], 1))
 
     @staticmethod
@@ -416,7 +521,9 @@ class AxialAttention(nn.Module):
     ``bn``), depthwise conv -> SiLU -> ``bn1`` -> ReLU6 for v (reference
     models/common.py:3675-3779). The deploy block holds those constants
     packed as the kernels take them (``wqk`` (2*c8, C), ``pq`` (3, 2*c8),
-    ``pv`` (4, C); packed by ``nn.fuse``) and runs the fused kernels."""
+    ``pv`` (4, C); packed by ``nn.fuse``) and runs the fused kernels. The
+    train form runs the JAX block's einsum formulation (``train=True``:
+    Dropout(0.2) on the row attention ``att_w``)."""
 
     def __init__(self, c1, criss_cross: bool, deploy=False):
         super().__init__()
@@ -433,12 +540,39 @@ class AxialAttention(nn.Module):
             self.value_conv = ConvBnAct(c1, c1, 1, 1, g=c1)
             self.bn = BN(c8)
             self.bn1 = BN(c1)
+            if criss_cross:
+                self.dropout = Dropout(0.2)
         self.gamma = nn.Parameter(torch.zeros(1))
 
     def forward(self, x):
-        y = K_axial.axial_attention(x.permute(0, 2, 3, 1), self.wqk, self.pq,
-                                    self.pv, self.gamma, self.criss_cross)
-        return y.permute(0, 3, 1, 2)
+        if hasattr(self, "wqk"):
+            y = K_axial.axial_attention(x.permute(0, 2, 3, 1), self.wqk,
+                                        self.pq, self.pv, self.gamma,
+                                        self.criss_cross)
+            return y.permute(0, 3, 1, 2)
+        # q then k through the shared bn: two updates of its statistics
+        q = F.relu6(self.bn(self.query_conv(x))).permute(0, 2, 3, 1)
+        k = F.relu6(self.bn(self.key_conv(x))).permute(0, 2, 3, 1)
+        v = F.relu6(self.bn1(self.value_conv(x))).permute(0, 2, 3, 1)
+        qT, kT, vT = (t.transpose(1, 2) for t in (q, k, v))   # (B, W, H, C)
+        e_hT = torch.einsum("bwhc,bwgc->bwhg", qT, kT)
+        if not self.criss_cross:
+            out = torch.einsum("bwgc,bwhg->bwhc", vT, e_hT).transpose(1, 2)
+        else:
+            # joint softmax over the column and row energies, one max and
+            # one denominator (JAX CrissCrossAttention)
+            e_w = torch.einsum("bhwc,bhgc->bhwg", q, k)
+            m = torch.maximum(e_hT.amax(-1).transpose(1, 2),
+                              e_w.amax(-1))[..., None]        # (B, H, W, 1)
+            # exp in float32, as the JAX block takes it for any map dtype
+            x_h = torch.exp((e_hT - m.transpose(1, 2)).float()).to(e_hT.dtype)
+            x_w = torch.exp((e_w - m).float()).to(e_w.dtype)
+            s = x_h.sum(-1).transpose(1, 2) + x_w.sum(-1)     # (B, H, W)
+            att_hT = x_h / s[..., None].transpose(1, 2)
+            att_w = self.dropout(x_w / s[..., None])
+            out = (torch.einsum("bwgc,bwhg->bwhc", vT, att_hT).transpose(1, 2)
+                   + torch.einsum("bhgc,bhwg->bhwc", v, att_w))
+        return (self.gamma * out).permute(0, 3, 1, 2) + x
 
 
 class CrissCrossAttention(AxialAttention):
@@ -487,7 +621,13 @@ class RepConv(nn.Module):
             self.rbr_identity = BN(c1)
 
     def forward(self, x):
-        return _act(self.act, self.rbr_reparam(x))
+        if hasattr(self, "rbr_reparam"):
+            return _act(self.act, self.rbr_reparam(x))
+        out = (self.rbr_dense[1](conv(self.rbr_dense[0], x))
+               + self.rbr_1x1[1](self.rbr_1x1[0](x)))
+        if hasattr(self, "rbr_identity"):
+            out = out + self.rbr_identity(x)
+        return _act(self.act, out)
 
     def forward_flat(self, x, out_scale, scale=None, cache=None):
         return NF.flat_conv(x, self.rbr_reparam, cache, "rbr_reparam",
@@ -520,8 +660,11 @@ class IDetect(nn.Module):
 
     def forward(self, xs):
         outs = []
-        for conv, x in zip(self.m, xs):
-            y = conv(x)
+        for i, (conv1x1, x) in enumerate(zip(self.m, xs)):
+            if hasattr(self, "ia"):     # train form: im(conv(x + ia))
+                y = conv1x1(x + self.ia[i].implicit) * self.im[i].implicit
+            else:
+                y = conv1x1(x)
             b, _, h, w = y.shape
             outs.append(y.permute(0, 2, 3, 1).reshape(b, h, w, self.na,
                                                      self.no))

@@ -35,16 +35,16 @@ def _lib():
 
 
 def box_iou(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """(B, D, 4) x (B, K, 4) xyxy -> (B, D, K) IoU, iou[d, k] = inter /
+    """(..., D, 4) x (..., K, 4) xyxy -> (..., D, K) IoU, iou[d, k] = inter /
     (area_d + area_k - inter) (the operation order the kernel
     reproduces)."""
     area_a = (a[..., 2] - a[..., 0]) * (a[..., 3] - a[..., 1])
     area_b = (b[..., 2] - b[..., 0]) * (b[..., 3] - b[..., 1])
-    lt = torch.maximum(a[:, :, None, :2], b[:, None, :, :2])
-    rb = torch.minimum(a[:, :, None, 2:], b[:, None, :, 2:])
+    lt = torch.maximum(a[..., :, None, :2], b[..., None, :, :2])
+    rb = torch.minimum(a[..., :, None, 2:], b[..., None, :, 2:])
     wh = torch.clamp(rb - lt, min=0.0)
     inter = wh[..., 0] * wh[..., 1]
-    return inter / (area_a[:, :, None] + area_b[:, None, :] - inter)
+    return inter / (area_a[..., :, None] + area_b[..., None, :] - inter)
 
 
 def nms_keep_plain(boxes: torch.Tensor, valid: torch.Tensor,

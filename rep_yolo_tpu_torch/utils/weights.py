@@ -5,7 +5,9 @@
 - ``state_dict_from_jax``: the JAX package's variables, given as nested
   dicts of numpy arrays, -> the same reference keys. Its own copy of the
   key mapping of ``rep_yolo_tpu/utils/torch_import.py`` (HWIO -> OIHW,
-  ``ia_``/``im_`` reshapes).
+  ``ia_``/``im_`` reshapes). ``train_state_from_jax`` carries a JAX
+  ``TrainState`` (weights, SGD momentum, EMA, counters) and any
+  params-shaped tree (grads) through the same map.
 - ``load_weights``: strict load that ignores only the reference's dead
   entries (parameters no forward reads).
 """
@@ -86,7 +88,8 @@ _LEAF = {"kernel": "weight", "scale": "weight", "mean": "running_mean",
 
 def state_dict_from_jax(variables: Mapping) -> dict[str, np.ndarray]:
     """JAX variables {'params', 'batch_stats'} (nested dicts of arrays) ->
-    the port's unfused, reference-keyed state dict (numpy, f32)."""
+    the port's unfused, reference-keyed state dict (numpy, f32; a float64
+    tree stays float64)."""
     out: dict[str, np.ndarray] = {}
 
     def walk(tree, path):
@@ -95,7 +98,8 @@ def state_dict_from_jax(variables: Mapping) -> dict[str, np.ndarray]:
                 walk(val, path + [name])
                 continue
             comps = _map_components(path)
-            a = np.asarray(val, np.float32)
+            a = np.asarray(val)
+            a = a if a.dtype == np.float64 else a.astype(np.float32)
             if name.startswith(("ia_", "im_")):
                 comps += [name[:2], name[3:], "implicit"]
                 a = a.transpose(0, 3, 1, 2)          # (1,1,1,C)->(1,C,1,1)
@@ -108,3 +112,19 @@ def state_dict_from_jax(variables: Mapping) -> dict[str, np.ndarray]:
     for collection in ("params", "batch_stats"):
         walk(variables.get(collection, {}), [])
     return out
+
+
+def train_state_from_jax(state) -> dict:
+    """A JAX ``TrainState`` (``params``, ``batch_stats``, ``opt``, ``ema``)
+    -> {"state": weights and BN statistics, "momentum": SGD buffer (Adam m),
+    "second": Adam v, "ema": the EMA's weights and statistics, "step",
+    "ema_updates"}, each tree keyed like the port's state dict. A bare
+    params-shaped tree (e.g. grads) goes through
+    ``state_dict_from_jax({"params": tree})``."""
+    return {"state": state_dict_from_jax({"params": state.params,
+                                          "batch_stats": state.batch_stats}),
+            "momentum": state_dict_from_jax({"params": state.opt.momentum}),
+            "second": state_dict_from_jax({"params": state.opt.second}),
+            "ema": state_dict_from_jax(state.ema.variables),
+            "step": int(state.opt.step),
+            "ema_updates": int(state.ema.updates)}

@@ -9,7 +9,9 @@ installed (``tests/conftest.py`` imports JAX, hence ``--noconftest``):
 Tolerances: attention f32 atol = rtol = 1e-4 (summation order differs);
 NMS keep sets identical; the int8 kernels: int8 outputs identical but for
 +-1 LSB on at most 1e-4 of the elements (CUDA's expf against torch's
-sigmoid), float32 outputs atol = rtol = 1e-5, pools (K6, K8) identical.
+sigmoid), float32 outputs atol = rtol = 1e-5, pools (K6, K8) identical;
+K9 wgrad3x3: |dW - plain| <= 1e-4 |plain| + 1e-4 max|plain| (sums of up to
+51,200 products in another order).
 """
 
 import numpy as np
@@ -25,6 +27,7 @@ from rep_yolo_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
 from rep_yolo_tpu_torch.ops.kernels import neck_flat as KNF
 from rep_yolo_tpu_torch.ops.kernels import nms as KN
 from rep_yolo_tpu_torch.ops.kernels import pool_flat as KP
+from rep_yolo_tpu_torch.ops.kernels import wgrad as KW
 
 pytestmark = pytest.mark.cuda
 TOL = dict(atol=1e-4, rtol=1e-4)
@@ -222,3 +225,54 @@ def test_q8_wrappers_count_launches_and_refuse_bad_input(cuda):
     with pytest.raises(ValueError):                  # odd map for the pool
         KP.max_pool2_q8(torch.zeros((1, 5, 4, 4), dtype=torch.int8,
                                     device=cuda))
+
+
+# (B, H, W, C, O): the nine convs of a flagship train step at 640 px, batch
+# 8, that the select-all route sends to K9, and an odd shape (H, W not a
+# multiple of anything, C = 24)
+WGRAD_SHAPES = [(8, 20, 20, 512, 512), (8, 40, 40, 128, 64),
+                (8, 80, 80, 64, 32), (8, 20, 20, 256, 128),
+                (8, 80, 80, 128, 256), (8, 40, 40, 256, 512),
+                (8, 20, 20, 512, 1024), (3, 13, 21, 24, 40)]
+
+
+def _wgrad_close(got, ref):
+    tol = 1e-4 * ref.abs() + 1e-4 * ref.abs().max()
+    assert bool(((got - ref).abs() <= tol).all()), \
+        float((got - ref).abs().max())
+
+
+@pytest.mark.parametrize("shape", WGRAD_SHAPES)
+def test_wgrad3x3_matches_plain(cuda, shape):
+    B, H, W, C, O = shape
+    g = torch.Generator().manual_seed(sum(shape))
+    x = torch.randn((B, C, H, W), generator=g).to(cuda)
+    dy = torch.randn((B, O, H, W), generator=g).to(cuda)
+    _wgrad_close(KW.wgrad3x3(x, dy), KW.wgrad3x3_plain(x, dy))
+
+
+def test_conv3x3_wgrad_grads_match_autograd(cuda):
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator().manual_seed(4)
+    x = torch.randn((2, 24, 13, 21), generator=g).to(cuda)
+    w = (0.1 * torch.randn((40, 24, 3, 3), generator=g)).to(cuda)
+    t = torch.randn((2, 40, 13, 21), generator=g).to(cuda)
+    grads = []
+    for fn in (KW.conv3x3_wgrad,
+               lambda a, b: torch.nn.functional.conv2d(a, b, None, 1, 1)):
+        xa, wa = x.clone().requires_grad_(), w.clone().requires_grad_()
+        (fn(xa, wa) * t).sum().backward()
+        grads.append((xa.grad, wa.grad))
+    torch.testing.assert_close(grads[0][0], grads[1][0], **TOL)
+    _wgrad_close(grads[0][1], grads[1][1])
+
+
+def test_wgrad3x3_counts_launches_and_refuses_bad_input(cuda):
+    reset_launch_counts()
+    x = torch.zeros((1, 8, 6, 6), device=cuda)
+    KW.wgrad3x3(x, torch.zeros((1, 4, 6, 6), device=cuda))
+    assert launch_counts()["wgrad3x3"] == 1
+    with pytest.raises(ValueError):                  # spatial mismatch
+        KW.wgrad3x3(x, torch.zeros((1, 4, 5, 6), device=cuda))
+    with pytest.raises(ValueError):                  # not float32
+        KW.wgrad3x3(x.half(), torch.zeros((1, 4, 6, 6), device=cuda))
