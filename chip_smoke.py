@@ -4,10 +4,11 @@
 Drives the port's paths, fused float serving of cfg/rep_yolo.yaml at 640 px
 and the same with the calibrated int8 region (``--fast int8``: the backbone,
 neck and head in int8, the attention blocks in float; and the backbone
-region alone, ``Q8Region(neck=False)``), and training it (phases 9-14), and
-holds every CUDA kernel of those paths against its plain PyTorch version on
-the card. Phases, one JSON line
-each:
+region alone, ``Q8Region(neck=False)``), bfloat16 serving with the DER
+blocks on the channel-major kernels (``build_engine(dtype=torch.bfloat16,
+der_fast="bf16")``), and training it (phases 9-14), and holds every CUDA
+kernel of those paths against its plain PyTorch version on the card.
+Phases, one JSON line each:
 
   1. device and build: the card, then nvcc of every csrc/*.cu (parallel)
   2. kernels vs plain: axial attention (K1 projection, K2 both modes) at the
@@ -60,7 +61,35 @@ and for the int8 path:
      (the f32 cuDNN conv of the same shape; for K7 the f32 depthwise conv;
      for K8 the sequence of three F.max_pool2d and a torch.cat); summed per
      forward and, for the neck, per layer
-  8. served_ab: one served batch of 4, the three engines in turns
+  8. served_ab: one served batch of 4, the four engines in turns (the
+     three above and the bfloat16 one of 5d)
+
+and for bfloat16 serving (the JAX bench.py's mode, with the DER blocks'
+"bf16" fast path; golden weights fused, then cast, the attention islands in
+float32):
+
+  2c. kernels_cm: K10 conv3x3_cmajor and K11 conv1x1_cmajor against their
+     plain versions at the 20 distinct DER conv shapes of 640 px, batch 2,
+     in bfloat16 and float32 (K11 over three sections at the cv1 shapes):
+     float32 atol = rtol = 1e-4, bfloat16 within one bfloat16 ulp or 1e-3
+     max|plain| near zero
+  4d. bf16_e2e: batch 4, der_fast against the DER blocks on cuDNN bf16: raw
+     maps per level within 2e-2 max|ref| and a correlation above 0.999; 24
+     K10, 28 K11, 12 K1, 6 + 6 K2 launches per forward and 1 K3; K3 against
+     its plain version on the candidates; as a report, against the float32
+     model and the two paths' detections
+  5d. serving_bf16: as 5, the bfloat16 der_fast engine; launches per
+     forward 24 K10, 28 K11 beside 12 / 6 / 6 / 1
+  15. throughput_bf16 (last, after training: after its batch-128 profiler
+     windows every later window loses a device event): batch 128 first
+     checked (K1 / K2 against plain at the CCVA shapes, 32 copies of 4
+     images against the first, K3 against plain on the engine's
+     candidates); then img/s, device ms by category, busy share and peak
+     memory at batch 128 and 32, bfloat16 with and without der_fast, in
+     turns
+  7d. times_cm: K10 / K11 per DER shape at batch 4 and 128 (profiler ms from
+     a cold L2, event ms, plain, cuDNN bf16 conv + bias + SiLU, bound),
+     summed per forward
 
 and, outside inference_mode, training cfg/rep_yolo.yaml at 640 px, batch 8
 as cli.train builds it (build_training: seeded init, synthetic batches from
@@ -114,6 +143,7 @@ T0 = time.perf_counter()
 MEM_BW = 3.35e12       # H100 SXM HBM3 bytes/s (data sheet)
 F32_PEAK = 67e12       # H100 SXM f32 non-tensor FLOP/s (data sheet)
 INT8_PEAK = 1979e12    # H100 SXM dense int8 tensor-core OP/s (data sheet)
+BF16_PEAK = 989e12     # H100 SXM dense bf16 tensor-core FLOP/s (data sheet)
 # (c_, H, W) of the six CCVA attention blocks at 640 px (layers 21, 27, 37,
 # 43, 53, 59)
 ATTN_SHAPES = [(64, 80, 80), (32, 80, 80), (128, 40, 40), (64, 40, 40),
@@ -841,11 +871,12 @@ def phase_int8_e2e(torch, dev, neck=False):
         raise AssertionError(f"int8 end-to-end check failed: {out}")
 
 
-def phase_serving(torch, dev, fast=None, neck=True):
+def phase_serving(torch, dev, fast=None, neck=True, der_fast=None):
     """serve.py's HTTP server on the engine (float, or ``fast="int8"``,
-    with the neck or, ``neck=False``, the backbone region alone): 3
-    requests, the launch counts of that run, responses equal to direct
-    engine calls."""
+    with the neck or, ``neck=False``, the backbone region alone; or, with
+    ``der_fast="bf16"``, the bfloat16 model with the DER blocks on K10 /
+    K11): 3 requests, the launch counts of that run, responses equal to
+    direct engine calls."""
     import numpy as np
 
     from rep_yolo_tpu_torch.data.letterbox import letterbox_batch
@@ -858,7 +889,8 @@ def phase_serving(torch, dev, fast=None, neck=True):
     t0 = time.perf_counter()
     engine = build_engine(CFG, str(GOLDEN / "model_weights.npz"), size,
                           max_batch, conf=0.001, iou=0.45, device=dev,
-                          fast=fast)
+                          fast=fast, der_fast=der_fast,
+                          dtype=torch.bfloat16 if der_fast else torch.float32)
     if fast == "int8" and not neck:
         net = engine.model.net
         net.set_q8(Q8Region(net.q8.scales, neck=False))
@@ -900,9 +932,11 @@ def phase_serving(torch, dev, fast=None, neck=True):
     n_fwd = len(requests)
     q8 = {} if fast != "int8" else \
         Q8_PER_FORWARD if neck else Q8_BACKBONE_PER_FORWARD
+    cm = CM_PER_FORWARD if der_fast else {}
     want = {"axial_project": 12 * n_fwd, "axial_attend_criss_cross": 6 * n_fwd,
             "axial_attend_vertical": 6 * n_fwd, "nms_keep": n_fwd,
             **{k: q8.get(k, 0) * n_fwd for k in Q8_KERNELS},
+            **{k: cm.get(k, 0) * n_fwd for k in CM_PER_FORWARD},
             "wgrad3x3": 0}
     if counts != want:
         raise AssertionError(f"launch counts {counts} != {want}")
@@ -921,8 +955,9 @@ def phase_serving(torch, dev, fast=None, neck=True):
     batch4 = requests[2]
     x = torch.from_numpy(batch4).to(dev)
     e2e_ms = served_ms(torch, engine, batch4)
-    fwd_ms = cuda_ms(lambda: engine.infer(x), runs=10)
-    emit({"phase": "serving" if fast is None
+    fwd_x = x.to(engine.dtype)
+    fwd_ms = cuda_ms(lambda: engine.infer(fwd_x), runs=10)
+    emit({"phase": "serving_bf16" if der_fast else "serving" if fast is None
           else f"serving_{fast}" + ("" if neck else "_backbone"),
           "ok": True, "health": health,
           "build_engine_s": round(build_s, 3), "batches": [1, 2, 4],
@@ -958,6 +993,9 @@ def _category(name: str) -> str:
         return "int8 depthwise kernel (K7)"
     if "spp_pools_q8" in low:
         return "int8 SPP pyramid kernel (K8)"
+    if any(s in low for s in ("conv3x3_bf16", "conv1x1_bf16",
+                              "conv3x3_f32_kernel", "conv1x1_f32_kernel")):
+        return "channel-major conv kernels (K10, K11)"
     if "nms_mask" in low or "nms_scan" in low:
         return "nms kernel (K3)"
     if any(s in low for s in ("conv", "xmma", "cudnn", "fprop", "winograd",
@@ -1061,9 +1099,16 @@ def device_ms(torch, fn, reps: int = 10, warmup: int = 3,
     return sum(ms for k, ms in names.items() if k not in skip)
 
 
-def _profile_once(torch, engine, x, reps):
+def _profile_once(torch, engine, x, reps, whole=True):
+    """(wall ms, device ms by category, device ms by kernel) per served
+    batch; ``whole=False`` takes the first window as it comes (at batch
+    128 the windows hold a few device events more than a whole multiple of
+    the calls)."""
+    x = x.to(engine.dtype)
     engine.infer(x)
-    wall, names, _ = profiled_whole(torch, lambda: engine.infer(x), reps)
+    wall, names, _ = (profiled_whole(torch, lambda: engine.infer(x), reps)
+                      if whole else profiled(torch, lambda: engine.infer(x),
+                                             reps))
     cats: dict[str, float] = {}
     for name, ms in names.items():
         c = _category(name)
@@ -1340,6 +1385,336 @@ def phase_served_ab(torch, engines, batch):
     emit({"phase": "served_ab", "ok": True, "turns": modes + modes[::-1],
           "served_batch4_host_ms": out})
     return out
+
+
+# ---------------------------------------------------------------------------
+# bfloat16 serving: K10 / K11 (the DER blocks' "bf16" path)
+# ---------------------------------------------------------------------------
+
+# launches of one bfloat16 forward with der_fast, at any size: the four DER
+# blocks' six 3x3 stages and seven 1x1 convs each
+CM_PER_FORWARD = {"conv3x3_cmajor": 24, "conv1x1_cmajor": 28}
+CM_TOL = ("float32 atol = rtol = 1e-4; bfloat16 at most one bfloat16 ulp "
+          "(of the larger magnitude) from the plain version, or within "
+          "1e-3 max|plain| near zero")
+# per head level of the bfloat16 network: max |a - b| / max |b| and the
+# correlation (the JAX package's bound for its bf16 DER chain, with the
+# tiny network's correlation; tests/test_torch_bf16_slice.py)
+E2E_REL, E2E_CORR = 2e-2, 0.999
+THROUGHPUT_BATCHES = (128, 32)     # bench.py's operating points
+
+
+def der_cm_shapes():
+    """The DER convs of one SIZE-px forward, one row per distinct shape:
+    (name, k, input channels per section, output channels, size, calls
+    per forward). DER l1 (48 -> 48 at 320), l3 (48 -> 128 at 160), l5
+    (128 -> 256 at 80), l7 (256 -> 512 at 40)."""
+    rows = []
+    for layer, c1, c2, hw in ((1, 48, 48, SIZE // 2), (3, 48, 128, SIZE // 4),
+                              (5, 128, 256, SIZE // 8),
+                              (7, 256, 512, SIZE // 16)):
+        half = c1 // 2
+        rows += [(f"l{layer} st1-st3", 3, (c1,), c1, hw, 3),
+                 (f"l{layer} st4-st6", 3, (half,), half, hw, 3),
+                 (f"l{layer} cv*_1", 1, (c1,), half, hw, 3),
+                 (f"l{layer} cv*_2", 1, (half,), c1, hw, 3),
+                 (f"l{layer} cv1", 1, (c1, c1, c1), c2, hw, 1)]
+    return rows
+
+
+def cm_case(torch, row, batch, dev, seed, dtype):
+    """One DER conv shape in ``dtype``: (kernel name, kernel fn, plain fn,
+    library fn, bytes, FLOPs). Random weights at 1/sqrt(fan_in) and inputs
+    N(0, 1); the library call is the cuDNN conv of the same dtype with the
+    bias, then SiLU (for K11 after a torch.cat of the sections)."""
+    import torch.nn.functional as F
+
+    from rep_yolo_tpu_torch.ops.kernels import conv_kernel as KCM
+
+    _, k, cins, cout, hw, _ = row
+    g = torch.Generator(device=dev).manual_seed(seed)
+    cin = sum(cins)
+    w = (torch.randn((cout, cin, k, k), generator=g, device=dev)
+         / (cin * k * k) ** 0.5).to(dtype)
+    b = (0.1 * torch.randn((cout,), generator=g, device=dev)).to(dtype)
+    cw = KCM.CMConv(w, b)
+    xs = [torch.randn((batch, c, hw, hw), generator=g, device=dev).to(dtype)
+          for c in cins]
+    if k == 3:
+        name, x = "conv3x3_cmajor", xs[0]
+        kfn = lambda: KCM.conv3x3_cmajor(x, cw)                 # noqa: E731
+        pfn = lambda: KCM.conv3x3_cmajor_plain(x, cw)           # noqa: E731
+        lib = lambda: F.silu(F.conv2d(x, w, b, padding=1))      # noqa: E731
+    else:
+        name = "conv1x1_cmajor"
+        kfn = lambda: KCM.conv1x1_cmajor(xs, cw)                # noqa: E731
+        pfn = lambda: KCM.conv1x1_cmajor_plain(xs, cw)          # noqa: E731
+        lib = lambda: F.silu(F.conv2d(                          # noqa: E731
+            torch.cat(xs, 1) if len(xs) > 1 else xs[0], w, b))
+    es = 2 if dtype == torch.bfloat16 else 4
+    npix = batch * hw * hw
+    nbytes = es * (npix * (cin + cout) + cout * cin * k * k) + 4 * cout
+    return name, kfn, pfn, lib, nbytes, 2.0 * npix * cout * cin * k * k
+
+
+def cm_diff(torch, got, ref):
+    """(max abs err, elements beyond CM_TOL) of a K10 / K11 output."""
+    g, r = got.float(), ref.float()
+    d = (g - r).abs()
+    if got.dtype == torch.bfloat16:
+        _, e = torch.frexp(torch.maximum(g.abs(), r.abs()))
+        ulp = torch.ldexp(torch.ones_like(g), e - 8)       # 8 significant bits
+        bad = (d > ulp) & (d > 1e-3 * r.abs().max())
+    else:
+        bad = d > 1e-4 + 1e-4 * r.abs()
+    return float(d.max()), int(bad.sum())
+
+
+def phase_kernels_cm(torch, dev, errs):
+    """K10 and K11 against their plain versions at the 20 distinct DER conv
+    shapes of a SIZE-px forward, batch 2, in bfloat16 and float32 (the cv1
+    rows are K11 calls over three sections)."""
+    rows = []
+    for i, row in enumerate(der_cm_shapes()):
+        for dtype in (torch.bfloat16, torch.float32):
+            name, kfn, pfn, *_ = cm_case(torch, row, 2, dev, 400 + i, dtype)
+            got, ref = kfn(), pfn()
+            torch.cuda.synchronize()
+            err, bad = cm_diff(torch, got, ref)
+            r = {"shape": row[0], "kernel": name, "sections": len(row[2]),
+                 "out": list(got.shape), "dtype": str(dtype),
+                 "max_abs_err": err, "plain_absmax": float(ref.abs().max()),
+                 "beyond_tolerance": bad}
+            rows.append(r)
+            if bad or got.dtype != dtype:
+                raise AssertionError(f"{name} differs from its plain "
+                                     f"version: {r}")
+            if dtype == torch.bfloat16:
+                errs[name] = max(errs.get(name, 0.0), err)
+    emit({"phase": "kernels_cm", "ok": True, "batch": 2, "tolerance": CM_TOL,
+          "shapes": rows})
+
+
+def rel_corr(a, b):
+    """(max |a - b| / max |b|, correlation) of two maps, in float32."""
+    import numpy as np
+
+    u, v = a.float().flatten().cpu().numpy(), b.float().flatten().cpu().numpy()
+    return (float(np.abs(u - v).max() / np.abs(v).max()),
+            float(np.corrcoef(u, v)[0, 1]))
+
+
+def phase_bf16_e2e(torch, dev, batch=4):
+    """Golden weights, fused and cast to bfloat16, at SIZE px: the network
+    with der_fast (K10 / K11) against the same with the DER blocks on
+    cuDNN bfloat16 (raw maps per level within E2E_REL / E2E_CORR), the
+    launches of one forward and its NMS, K3 against its plain version on the
+    der_fast path's candidates, and, as a report, the bfloat16 model against
+    the float32 one and the two paths' detections."""
+    import numpy as np
+
+    from rep_yolo_tpu_torch.models import heads
+    from rep_yolo_tpu_torch.models.model import RepYOLO
+    from rep_yolo_tpu_torch.ops.boxes import xywh2xyxy
+    from rep_yolo_tpu_torch.ops.kernels import launch_counts, \
+        reset_launch_counts
+    from rep_yolo_tpu_torch.ops.kernels import nms as KN
+    from rep_yolo_tpu_torch.ops.nms import non_max_suppression
+    from rep_yolo_tpu_torch.utils.weights import load_reference_npz
+
+    m = RepYOLO.from_config(CFG, device=dev).load_state(
+        load_reference_npz(GOLDEN / "model_weights.npz")).fuse()
+    x = torch.from_numpy(np.random.default_rng(1).uniform(
+        0, 1, (batch, SIZE, SIZE, 3)).astype(np.float32)).to(dev)
+    maps_f32 = m.apply(x)
+    m.cast(torch.bfloat16)
+    xb = x.bfloat16()
+    conf, iou, nl = 0.001, 0.45, m.cfg.nl
+
+    def run():
+        maps = m.apply(xb)
+        top = heads.decode_topk(maps[:nl], m.anchors_px, m.strides, k=1024,
+                                conf_thres=conf)
+        return maps, top, non_max_suppression(top, conf, iou, presorted=True)
+
+    m.net.set_der_fast("bf16")
+    run()                                       # packs the DER weights
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    maps_k, top_k, det_k = run()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    m.net.set_der_fast(None)
+    maps_c, top_c, det_c = run()
+    want = {**CM_PER_FORWARD, "axial_project": 12,
+            "axial_attend_criss_cross": 6, "axial_attend_vertical": 6,
+            "nms_keep": 1}
+    seen = {k: counts[k] for k in want}
+    levels = [rel_corr(a, b) for a, b in zip(maps_k, maps_c)]
+    boxes = xywh2xyxy(top_k[..., :4])
+    valid = top_k[..., 4] > conf
+    keep_same = bool(torch.equal(KN.nms_keep(boxes, valid, iou),
+                                 KN.nms_keep_plain(boxes, valid, iou)))
+    same_dets = [bool(torch.equal(det_k.boxes[i][det_k.valid[i]],
+                                  det_c.boxes[i][det_c.valid[i]]))
+                 for i in range(batch)]
+    out = {"phase": "bf16_e2e", "batch": batch, "size": SIZE,
+           "launches_per_forward": seen,
+           "der_fast_vs_cudnn_bf16": {
+               "rel_max_err_per_level": [r for r, _ in levels],
+               "corr_per_level": [c for _, c in levels],
+               "tolerance": {"rel": E2E_REL, "corr": E2E_CORR},
+               "detections_der_fast": det_k.count.tolist(),
+               "detections_cudnn": det_c.count.tolist(),
+               "detections_identical_per_image": same_dets},
+           "nms_keep_identical": keep_same,
+           "valid_candidates": valid.sum(1).tolist(),
+           "bf16_vs_f32_rel_max_err_per_level": [
+               rel_corr(a, b)[0] for a, b in zip(maps_k, maps_f32)],
+           "raw_map_dtype": str(maps_k[0].dtype)}
+    ok = (seen == want and keep_same and maps_k[0].dtype == torch.bfloat16
+          and all(r < E2E_REL and c > E2E_CORR for r, c in levels))
+    out["ok"] = ok
+    emit(out)
+    if not ok:
+        raise AssertionError(f"bf16 end-to-end check failed: {out}")
+
+
+def phase_throughput_bf16(torch, dev, reps: int = 5):
+    """The bfloat16 engine at bench.py's operating points (batch 128 and
+    32, SIZE px), with and without der_fast, in turns (each mode, then the
+    same in reverse): img/s over ``reps`` host-timed batches, device ms by
+    category and busy share under the profiler, peak memory. First, at
+    batch 128 (no other phase runs it): K1 / K2 against their plain
+    versions at the six CCVA shapes, the engine's raw maps on 32 copies of
+    4 images (each copy against the first, E2E_REL / E2E_CORR), and K3
+    against its plain version on the engine's own candidates."""
+    from rep_yolo_tpu_torch.models import heads
+    from rep_yolo_tpu_torch.ops.boxes import xywh2xyxy
+    from rep_yolo_tpu_torch.ops.kernels import axial_attention as KA
+    from rep_yolo_tpu_torch.ops.kernels import nms as KN
+    from rep_yolo_tpu_torch.serve import build_engine
+
+    big = max(THROUGHPUT_BATCHES)
+    attn = []
+    for i, (c, h, w) in enumerate(ATTN_SHAPES):
+        x, wqk, pq, pv, gamma = attention_inputs(c, h, w, big, 20 + i, 0.7,
+                                                 dev)
+        for cc in (True, False):
+            y = KA.axial_attention(x, wqk, pq, pv, gamma, cc)
+            yp = KA.axial_attention_plain(x, wqk, pq, pv, gamma, cc)
+            torch.testing.assert_close(y, yp, atol=1e-4, rtol=1e-4)
+            attn.append({"shape": [big, h, w, c], "criss_cross": cc,
+                         "max_abs_err": float((y - yp).abs().max())})
+        del x, y, yp
+    engine = build_engine(CFG, str(GOLDEN / "model_weights.npz"), SIZE, big,
+                          conf=0.001, iou=0.45, device=dev,
+                          dtype=torch.bfloat16, der_fast="bf16")
+    m = engine.model
+    g = torch.Generator(device=dev).manual_seed(7)
+    x = torch.rand((4, SIZE, SIZE, 3), generator=g, device=dev).to(
+        torch.bfloat16).repeat(big // 4, 1, 1, 1)
+    maps = m.apply(x)
+    copies = []
+    for mp in maps:
+        v = mp.reshape(big // 4, 4, *mp.shape[1:])
+        copies.append([rel_corr(v[j], v[0]) for j in range(1, big // 4)])
+    exact = all(torch.equal(mp.reshape(big // 4, 4, -1)[j],
+                            mp.reshape(big // 4, 4, -1)[0])
+                for mp in maps for j in range(1, big // 4))
+    top = heads.decode_topk(maps[:m.cfg.nl], m.anchors_px, m.strides,
+                            k=1024, conf_thres=engine.conf)
+    boxes, valid = xywh2xyxy(top[..., :4]), top[..., 4] > engine.conf
+    keep_same = bool(torch.equal(KN.nms_keep(boxes, valid, engine.iou),
+                                 KN.nms_keep_plain(boxes, valid, engine.iou)))
+    worst = max((r for lv in copies for r, _ in lv), default=0.0)
+    low_corr = min((c for lv in copies for _, c in lv), default=1.0)
+    check = {"attention_vs_plain": attn, "copies_rel_max_err": worst,
+             "copies_min_corr": low_corr, "copies_bit_identical": exact,
+             "nms_keep_identical": keep_same}
+    if not (keep_same and worst < E2E_REL and low_corr > E2E_CORR):
+        raise AssertionError(f"batch {big} check failed: {check}")
+    del maps, top, boxes, valid
+
+    runs: dict = {}
+    modes = ("bf16", "bf16_der_fast")
+    for mode in modes + modes[::-1]:
+        m.net.set_der_fast("bf16" if mode == "bf16_der_fast" else None)
+        for b in THROUGHPUT_BATCHES:
+            xb = x[:b]
+            for _ in range(2):
+                engine.infer(xb)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            for _ in range(reps):
+                engine.infer(xb)
+            torch.cuda.synchronize()
+            host = (time.perf_counter() - t) * 1e3 / reps
+            peak = torch.cuda.max_memory_allocated()
+            wall, cats, _ = _profile_once(torch, engine, xb, 3, whole=False)
+            dev_ms = sum(cats.values())
+            runs.setdefault(mode, {}).setdefault(str(b), []).append({
+                "img_per_s": b / host * 1e3, "host_ms_per_batch": host,
+                "device_ms_per_batch": dev_ms,
+                "device_busy_share": dev_ms / wall,
+                "peak_memory_allocated_gb": peak / 1e9,
+                "by_category_ms": dict(sorted(cats.items(),
+                                              key=lambda kv: -kv[1]))})
+    engine.close()
+    emit({"phase": "throughput_bf16", "ok": True, "size": SIZE,
+          "turns": list(modes + modes[::-1]), "reps": reps,
+          "check_batch": big, "checks": check, "runs": runs})
+    return runs
+
+
+def phase_times_cm(torch, dev, counts, errs, batches=(4, 128)):
+    """K10 / K11 per distinct DER conv shape in bfloat16, at batch 4 (the
+    served batch) and 128: device ms under the profiler from a cold L2, the
+    CUDA-event ms, the plain version, the library call (the cuDNN bfloat16
+    conv with the bias, then SiLU; for K11 after a torch.cat) and the bound
+    over the bfloat16 tensor-core peak; summed per forward (each shape times
+    its calls per forward). The kernels line's rows are batch 4's."""
+    from rep_yolo_tpu_torch.ops.kernels import reset_launch_counts
+
+    agg = {b: {n: {} for n in CM_PER_FORWARD} for b in batches}
+    per_shape = []
+    for b in batches:
+        for i, row in enumerate(der_cm_shapes()):
+            name, kfn, pfn, lib, nbytes, ops = cm_case(
+                torch, row, b, dev, 500 + i, torch.bfloat16)
+            t = {"ms": device_ms(torch, kfn), "event_ms": cuda_ms(kfn, runs=10),
+                 "plain_ms": device_ms(torch, pfn, whole=False),
+                 "library_ms": device_ms(torch, lib, whole=False)}
+            t.update(zip(("bound_ms", "bound_by"),
+                         bound(nbytes, ops, BF16_PEAK)), bytes=nbytes, ops=ops)
+            add_times(agg[b][name], t, row[-1])
+            per_shape.append({"batch": b, "shape": row[0], "kernel": name,
+                              "calls_per_forward": row[-1], **t})
+            del kfn, pfn, lib
+    reset_launch_counts()
+    kernels = []
+    for name, line in (("conv3x3_cmajor", 100), ("conv1x1_cmajor", 340)):
+        row = kernel_row(name, "rep_yolo_tpu_torch/csrc/conv_kernel.cu",
+                         f"rep_yolo_tpu/ops/pallas/conv_kernel.py:{line}",
+                         counts[name], errs[name], agg[batches[0]][name],
+                         BF16_PEAK)
+        row["library_call"] = ("F.conv2d (cuDNN, bf16, with the bias) then "
+                               "F.silu" + (", after a torch.cat of the "
+                                           "sections" if "1x1" in name else ""))
+        kernels.append(row)
+    emit({"phase": "times_cm", "ok": True, "dtype": "bfloat16",
+          "note": f"per forward at {SIZE} px: each shape times its calls per "
+                  "forward; ms, plain_ms, library_ms: device time under the "
+                  "profiler from a cold L2, 10 calls after 3 warm-ups (plain "
+                  "and library: median of 3 windows); event_ms: CUDA events, "
+                  "median of 10 runs of 10 back-to-back calls (L2-warm); "
+                  "bound_ms: bytes over 3.35 TB/s or FLOPs over 989 TFLOP/s",
+          "per_forward": {str(b): {n: {k: v for k, v in agg[b][n].items()}
+                                   for n in CM_PER_FORWARD}
+                          for b in batches},
+          "launches_per_forward": CM_PER_FORWARD, "per_shape": per_shape})
+    return kernels
 
 
 # ---------------------------------------------------------------------------
@@ -1768,24 +2143,29 @@ def main(argv=None) -> int:
         card = phase_device_build(torch)
         phase_kernels(torch, dev, errs)
         phase_kernels_q8(torch, dev, errs)
+        phase_kernels_cm(torch, dev, errs)
         phase_golden(torch, dev)
         phase_attention_e2e(torch, dev)
         phase_int8_e2e(torch, dev)
         phase_int8_e2e(torch, dev, neck=True)
+        phase_bf16_e2e(torch, dev)
         counts, e2e_ms, engine, x = phase_serving(torch, dev)
         _, e2e_bb_ms, engine_bb, _ = phase_serving(torch, dev, "int8",
                                                    neck=False)
         counts_q8, e2e_q8_ms, engine_q8, _ = phase_serving(torch, dev,
                                                            "int8")
+        counts_bf16, e2e_bf16_ms, engine_bf16, _ = phase_serving(
+            torch, dev, der_fast="bf16")
         calls = phase_kernels_neck(torch, engine_q8, x, errs)
         engines = {"float32": engine, "int8_backbone": engine_bb,
-                   "int8": engine_q8}
+                   "int8": engine_q8, "bf16_der_fast": engine_bf16}
         phase_profile(torch, engines, x)
         ab = phase_served_ab(torch, engines, x.cpu().numpy())
         for e in engines.values():
             e.close()
         kernels = phase_times(torch, dev, counts, errs)
         kernels += phase_times_q8(torch, dev, counts_q8, errs, calls)
+        kernels += phase_times_cm(torch, dev, counts_bf16, errs)
     # training needs autograd: outside inference_mode; cuDNN picks its
     # algorithms as under cli.train (TF32 stays off)
     torch.backends.cudnn.deterministic = False
@@ -1797,6 +2177,9 @@ def main(argv=None) -> int:
     phase_train_cli(torch)
     with torch.inference_mode():
         phase_profiler_after_training(torch, dev)
+        # last: after its batch-128 profiler windows the profiler loses a
+        # device event in every later window, of every kernel alike
+        phase_throughput_bf16(torch, dev)
     kernels.append(wgrad_row(counts_train, errs, wgrad_times))
     missing = [k["name"] for k in kernels if k["launches"] <= 0]
     if missing:
@@ -1804,7 +2187,8 @@ def main(argv=None) -> int:
                              f"{missing}")
     emit({"card": card, "served_batch4_ms": e2e_ms,
           "served_batch4_int8_backbone_ms": e2e_bb_ms,
-          "served_batch4_int8_ms": e2e_q8_ms, "served_ab_ms": ab,
+          "served_batch4_int8_ms": e2e_q8_ms,
+          "served_batch4_bf16_der_fast_ms": e2e_bf16_ms, "served_ab_ms": ab,
           "total_s": round(time.perf_counter() - t0, 3)})
     kline = {"kernels": kernels}
     print(json.dumps(kline), flush=True)

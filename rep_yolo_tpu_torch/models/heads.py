@@ -29,9 +29,11 @@ def make_grid(ny: int, nx: int, device=None) -> torch.Tensor:
 
 def decode_level(p: torch.Tensor, anchors_px, stride: float) -> torch.Tensor:
     """One raw map (B,H,W,na,no) -> (B, na*H*W, no), rows in the
-    reference's (na, H, W) order."""
+    reference's (na, H, W) order. A bfloat16 map decodes in float32, as the
+    top-k decode does (the pixel anchors and grid are not bfloat16
+    values)."""
     b, h, w, na, no = p.shape
-    y = torch.sigmoid(p)
+    y = torch.sigmoid(p.float() if p.element_size() < 4 else p)
     grid = make_grid(h, w, p.device)[None, :, :, None, :]
     anchors = torch.as_tensor(anchors_px, dtype=y.dtype, device=p.device)
     xy = (y[..., 0:2] * 2.0 - 0.5 + grid) * stride

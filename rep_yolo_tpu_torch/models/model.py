@@ -102,6 +102,16 @@ class RepYOLO:
         load_weights(net, fused)
         return RepYOLO(self.cfg, net, self.strides, self.anchors_px)
 
+    def cast(self, dtype: torch.dtype) -> "RepYOLO":
+        """Cast the fused model to ``dtype`` in place (the JAX ``bench.py``
+        casts every float leaf of the fused tree to bfloat16), but for the
+        CA / CCVA / ADD attention islands, which stay float32 on the
+        float32 attention kernels (``DetectionNet.cast``). The forward then
+        takes images in ``dtype`` (others are cast at the stem) and returns
+        raw maps in it; the decodes work in float32."""
+        self.net.cast(dtype)
+        return self
+
     @torch.no_grad()
     def apply(self, x: torch.Tensor) -> list[torch.Tensor]:
         """Raw head maps (B, H, W, na, no) for NHWC images in [0, 1]."""

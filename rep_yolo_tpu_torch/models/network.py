@@ -4,7 +4,9 @@ Port of ``rep_yolo_tpu/models/network.py`` (``DetectionNet.__call__``):
 the float graph, train form (``train()`` / ``eval()``, the JAX ``train``
 argument) or deploy form, and for a deploy net with ``set_q8`` the int8
 region planned by ``models/region.py`` (the backbone, and with
-``Q8Region.neck`` the neck and head too). Layer ``i`` lives at
+``Q8Region.neck`` the neck and head too), or with ``set_der_fast("bf16")``
+the DER blocks on the channel-major float kernels. ``cast`` runs a deploy net
+in bfloat16 with float32 attention islands. Layer ``i`` lives at
 ``model.{i}``, so state keys match the reference's.
 """
 
@@ -58,6 +60,24 @@ def build_module(spec: LayerSpec, deploy: bool) -> nn.Module:
     raise ValueError(f"unsupported module {n!r}")
 
 
+# The CA / CCVA / ADD attention sandwiches: a net cast to another dtype keeps
+# their weights and activations in ``island_dtype`` (float32: the attention
+# kernels K1 / K2 are float32).
+ISLANDS = (B.CA, B.CCVA, B.Add)
+
+
+def der_fast_default_select(c1: int, h: int, w: int) -> bool:
+    """The JAX ``set_cmajor_deploy`` default: every DER block with c1 <=
+    512, the flagship's four."""
+    return c1 <= 512
+
+
+def _to(t, dtype: torch.dtype):
+    if isinstance(t, list):
+        return [_to(v, dtype) for v in t]
+    return t.to(dtype) if torch.is_tensor(t) and t.is_floating_point() else t
+
+
 class DetectionNet(nn.Module):
     """Input NHWC float images in [0, 1]; output the raw head maps
     (B, H_l, W_l, na, no) per level.
@@ -70,7 +90,10 @@ class DetectionNet(nn.Module):
     computed once per input size (``region_plan`` holds the last one's
     decisions) and the region's weights are quantized once: the stem's and
     the DERs' with the plan, the neck's at the plan's first forward (their
-    folds need the input maps' scales and permutations)."""
+    folds need the input maps' scales and permutations).
+
+    ``cast(dtype)`` runs the deploy net in ``dtype`` (bfloat16 serving);
+    ``set_der_fast("bf16")`` routes its DER blocks to K10 / K11."""
 
     def __init__(self, cfg: ModelConfig, deploy: bool = False):
         super().__init__()
@@ -81,6 +104,11 @@ class DetectionNet(nn.Module):
         self.region_plan: dict[int, str] = {}
         self._plans: dict[tuple[int, int], RegionPlan] = {}
         self._q8w: dict[int, object] = {}
+        self.dtype: torch.dtype | None = None     # None: as loaded, no casts
+        self.island_dtype = torch.float32
+        self.der_fast: str | None = None
+        self._der_select = der_fast_default_select
+        self._cmw: dict[int, dict] = {}
 
     def set_wgrad(self, enable: bool, select=None) -> None:
         """Port of the JAX ``set_pallas_wgrad(enable, select)``: with
@@ -106,10 +134,58 @@ class DetectionNet(nn.Module):
         if region is not None and not self.deploy:
             raise RuntimeError("the int8 region runs the deploy form; fuse "
                                "first")
+        if region is not None and (self.der_fast is not None
+                                   or self.dtype not in (None, torch.float32)):
+            raise RuntimeError("the int8 region runs a float32 net without "
+                               "der_fast (one mode switch in the JAX package)")
         self.q8 = region
         self.region_plan = {}
         self._plans.clear()
         self._q8w.clear()
+
+    def set_der_fast(self, mode: str | None, select=None) -> None:
+        """Port of the JAX ``set_cmajor_deploy(mode, select=)`` for mode
+        ``"bf16"`` (or None: off): every deploy DER block that passes
+        ``select(c1, h, w)`` (default ``der_fast_default_select``) runs
+        ``DERBlock.forward_cm`` on K10 / K11, in the net's activation
+        dtype."""
+        if mode not in (None, "bf16"):
+            raise ValueError(f"unknown DER fast mode {mode!r}")
+        if mode is not None and not self.deploy:
+            raise RuntimeError("der_fast runs the deploy form; fuse first")
+        if mode is not None and self.q8 is not None:
+            raise RuntimeError("der_fast and the int8 region are one mode "
+                               "switch in the JAX package; set_q8(None) "
+                               "first")
+        self.der_fast = mode
+        self._der_select = select or der_fast_default_select
+        self._cmw.clear()
+
+    def cast(self, dtype: torch.dtype,
+             island_dtype: torch.dtype = torch.float32) -> None:
+        """Cast every floating parameter and buffer to ``dtype`` (the JAX
+        ``bench.py`` casts its fused tree so) but the attention islands'
+        (``ISLANDS``), which go to ``island_dtype``. The forward then hands
+        each layer its inputs in its own dtype: the islands upcast at their
+        edges and the next layer rounds back."""
+        if not self.deploy:
+            raise RuntimeError("cast runs the deploy form; fuse first")
+        if self.q8 is not None and dtype != torch.float32:
+            raise RuntimeError("the int8 region runs a float32 net")
+        for mod in self.model:
+            mod.to(island_dtype if isinstance(mod, ISLANDS) else dtype)
+        self.dtype, self.island_dtype = dtype, island_dtype
+        self._cmw.clear()
+
+    def _der_cm(self, spec: LayerSpec, mod: nn.Module, x):
+        """The DER block on K10 / K11 when ``set_der_fast`` selects it, else
+        None."""
+        if self.der_fast is None or not isinstance(mod, B.DERBlock) \
+                or not self._der_select(x.shape[1], x.shape[2], x.shape[3]):
+            return None
+        if spec.i not in self._cmw:
+            self._cmw[spec.i] = mod.cm_weights()
+        return mod.forward_cm(x.contiguous(), self._cmw[spec.i])
 
     def plan_for(self, h: int, w: int) -> RegionPlan:
         """The region plan for (h, w) inputs, made once per size; the
@@ -160,8 +236,15 @@ class DetectionNet(nn.Module):
                 [fetch(j) for j in spec.f]
             if spec.name == "IDetect" and not isinstance(inp, list):
                 inp = [inp]
-            y = mod(inp) if step is None else self._run_q8(spec, mod, step,
-                                                           inp)
+            if self.dtype is not None:
+                inp = _to(inp, self.island_dtype if isinstance(mod, ISLANDS)
+                          else self.dtype)
+            if step is not None:
+                y = self._run_q8(spec, mod, step, inp)
+            else:
+                y = self._der_cm(spec, mod, inp)
+                if y is None:
+                    y = mod(inp)
             if spec.save:
                 saved[spec.i] = y
         return y

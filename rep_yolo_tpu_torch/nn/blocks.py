@@ -30,6 +30,10 @@ them), a ``Q8Map`` at ``out_scale`` out, or float32 channels-last where
 ``out_scale`` is None (the region's exit). ``scale(key)`` gives the
 calibrated input scale of the block's conv ``key`` (e.g. ``"cv2/conv"``),
 ``cache`` keeps the block's folded, quantized weights.
+
+``DetectionNet.set_der_fast("bf16")`` runs the deploy DER blocks through
+``DERBlock.forward_cm`` on the channel-major float kernels (K10, K11), NCHW
+in the activation dtype.
 """
 
 from __future__ import annotations
@@ -43,6 +47,7 @@ from torch import nn
 from rep_yolo_tpu_torch.ops import neck_flat as NF
 from rep_yolo_tpu_torch.ops.kernels import axial_attention as K_axial
 from rep_yolo_tpu_torch.ops.kernels import conv_flat as K_conv
+from rep_yolo_tpu_torch.ops.kernels import conv_kernel as K_cm
 from rep_yolo_tpu_torch.ops.kernels import neck_flat as K_neck
 from rep_yolo_tpu_torch.ops.kernels import wgrad as K_wgrad
 from rep_yolo_tpu_torch.ops.quant import f32
@@ -363,6 +368,33 @@ class DERBlock(nn.Module):
         x4_3 = conv("cv2_2", conv("st6", conv("cv2_1", x4_2)))
         return K_conv.conv1x1_q8([x1, x4_1, x4_3], qw["cv1"], 1.0, "silu",
                                  out_scale, pool)
+
+    def cm_weights(self) -> dict[str, K_cm.CMConv]:
+        """The 13 deploy convs as K10 / K11 take them (packed at their first
+        launch)."""
+        mods = dict(self.named_modules())
+        return {name: K_cm.CMConv(mods[path].weight, mods[path].bias)
+                for name, path, _ in DER_CONVS}
+
+    def forward_cm(self, x: torch.Tensor,
+                   cw: dict[str, K_cm.CMConv]) -> torch.Tensor:
+        """The deploy block on the channel-major kernels (port of
+        ``_fast_deploy``, "bf16"): x (B, c1, H, W) NCHW in the activation
+        dtype -> (B, c2, H, W) in it. The six RepS stages run K10, the six
+        1x1 convs and cv1 (over the three sections, no concat) K11; every
+        conv's output is rounded to the activation dtype."""
+        def conv(name, h):
+            q = cw[name]
+            if q.k == 3:
+                return K_cm.conv3x3_cmajor(h, q, "silu")
+            return K_cm.conv1x1_cmajor(h, q, "silu")
+
+        x1 = conv("st1", x)
+        x3 = conv("st3", conv("st2", x1))
+        x4_1 = conv("cv0_2", conv("st4", conv("cv0_1", x3)))
+        x4_2 = conv("cv1_2", conv("st5", conv("cv1_1", x4_1)))
+        x4_3 = conv("cv2_2", conv("st6", conv("cv2_1", x4_2)))
+        return K_cm.conv1x1_cmajor([x1, x4_1, x4_3], cw["cv1"], "silu")
 
 
 class SPPCSPC(nn.Module):

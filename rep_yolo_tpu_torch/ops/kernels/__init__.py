@@ -7,10 +7,12 @@ launch counters, so a run can show which kernels the main path went through.
 from __future__ import annotations
 
 from rep_yolo_tpu_torch.ops.kernels import (axial_attention, conv_flat,
-                                            neck_flat, nms, pool_flat, wgrad)
+                                            conv_kernel, neck_flat, nms,
+                                            pool_flat, wgrad)
 
 _COUNTERS = (axial_attention.LAUNCHES, nms.LAUNCHES, conv_flat.LAUNCHES,
-             pool_flat.LAUNCHES, neck_flat.LAUNCHES, wgrad.LAUNCHES)
+             pool_flat.LAUNCHES, neck_flat.LAUNCHES, wgrad.LAUNCHES,
+             conv_kernel.LAUNCHES)
 
 
 def launch_counts() -> dict[str, int]:

@@ -3,8 +3,11 @@
 The engine is the fused float32 deploy forward, the top-k decode and the
 CUDA NMS kernel; with ``--fast int8`` the backbone, neck and head run as the
 calibrated int8 region (``models/region.py``) on the int8 kernels, with
-float islands at the attention blocks. Requests are
-padded to ``max_batch`` so every call runs the same shapes.
+float islands at the attention blocks. ``build_engine(dtype=torch.bfloat16,
+der_fast="bf16")`` serves the bfloat16 model of the JAX ``bench.py``, with
+the DER blocks on the channel-major kernels (no CLI flag, as in the JAX
+server). Requests are padded to ``max_batch`` so every call runs the same
+shapes.
 
 Protocol (stdlib only):
   POST /v1/infer  body: raw float32 NHWC letterboxed images in [0, 1];
@@ -46,11 +49,13 @@ class Engine:
         self.model, self.img_size, self.max_batch = model, img_size, max_batch
         self.conf, self.iou = conf, iou
         self.device = model.device
+        self.dtype = model.net.dtype or torch.float32
         self._worker = ThreadPoolExecutor(1, thread_name_prefix="engine")
 
     @torch.inference_mode()
     def infer(self, x: torch.Tensor) -> Detections:
-        """x (max_batch, size, size, 3) f32 on the engine's device."""
+        """x (max_batch, size, size, 3) on the engine's device, in its
+        dtype."""
         if self.model.cfg.nc == 1:
             # exact for nc == 1: logit-level gate + top-k decode, NMS
             # takes the rows presorted
@@ -77,9 +82,10 @@ class Engine:
         if images.shape[1:] != (self.img_size, self.img_size, 3):
             raise ValueError(f"served shape is ({self.img_size}, "
                              f"{self.img_size}, 3), got {images.shape[1:]}")
-        x = torch.zeros((self.max_batch, *images.shape[1:]),
-                        dtype=torch.float32, device=self.device)
-        x[:b] = torch.tensor(images, dtype=torch.float32)
+        # copied in as float32, cast on the device
+        x = torch.zeros((self.max_batch, *images.shape[1:]), dtype=self.dtype,
+                        device=self.device)
+        x[:b] = torch.tensor(images, dtype=torch.float32).to(self.device)
         det = self.infer(x)
         rows = torch.cat([det.boxes, det.scores[..., None],
                           det.classes[..., None].float()], -1).cpu().numpy()
@@ -98,9 +104,11 @@ def calibration_batch(img_size: int, device) -> torch.Tensor:
 def build_engine(cfg: str, weights: str | None, img_size: int,
                  max_batch: int, conf: float, iou: float,
                  device=None, fast: str | None = None,
-                 calib: torch.Tensor | None = None) -> Engine:
+                 calib: torch.Tensor | None = None,
+                 dtype: torch.dtype = torch.float32,
+                 der_fast: str | None = None) -> Engine:
     """Build, load (a reference-keyed .npz, else a seeded init), fuse and
-    warm the engine. float32 throughout: TF32 is turned off for cuDNN and
+    warm the engine. float32 by default: TF32 is turned off for cuDNN and
     matmuls, as the JAX server runs its convs at full f32 precision; cuDNN
     keeps to deterministic algorithms, so a request repeated gives the same
     detections. ``fast="int8"`` calibrates on ``calib`` (NHWC images in
@@ -108,9 +116,19 @@ def build_engine(cfg: str, weights: str | None, img_size: int,
     the JAX package's ``--fast int8`` does: the backbone, the neck and the
     IDetect convs in int8, the CA / CCVA / ADD attention blocks in float
     (``models/region.py``). ``Q8Region(scales, neck=False)`` set on the
-    engine's network keeps the backbone region alone."""
+    engine's network keeps the backbone region alone.
+
+    ``dtype=torch.bfloat16`` casts the fused model (``RepYOLO.cast``: the
+    attention islands stay float32) and serves bfloat16 images;
+    ``der_fast="bf16"`` also runs the DER blocks on K10 / K11
+    (``DetectionNet.set_der_fast``)."""
     if fast not in (None, "int8"):
         raise ValueError(f"unknown fast path {fast!r}")
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"unknown serving dtype {dtype}")
+    if fast == "int8" and (dtype != torch.float32 or der_fast is not None):
+        raise ValueError("fast='int8' serves the float32 model without "
+                         "der_fast")
     dev = resolve_device(device)
     if dev.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -122,6 +140,9 @@ def build_engine(cfg: str, weights: str | None, img_size: int,
     else:
         model.init(torch.Generator().manual_seed(0))
     model = model.fuse()
+    if dtype != torch.float32:
+        model.cast(dtype)
+    model.net.set_der_fast(der_fast)
     if fast == "int8":
         enable_int8_fast_path(model, calib if calib is not None
                               else calibration_batch(img_size, dev))
@@ -151,7 +172,9 @@ def make_handler(engine: Engine):
             self._json(200, {"status": "ok", "device": str(engine.device),
                              "img_size": engine.img_size,
                              "max_batch": engine.max_batch,
-                             "int8": engine.model.net.q8 is not None})
+                             "int8": engine.model.net.q8 is not None,
+                             "dtype": str(engine.dtype).split(".")[-1],
+                             "der_fast": engine.model.net.der_fast})
 
         def do_POST(self):
             if self.path != "/v1/infer":

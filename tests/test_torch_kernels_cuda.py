@@ -11,7 +11,10 @@ NMS keep sets identical; the int8 kernels: int8 outputs identical but for
 +-1 LSB on at most 1e-4 of the elements (CUDA's expf against torch's
 sigmoid), float32 outputs atol = rtol = 1e-5, pools (K6, K8) identical;
 K9 wgrad3x3: |dW - plain| <= 1e-4 |plain| + 1e-4 max|plain| (sums of up to
-51,200 products in another order).
+51,200 products in another order); K10 / K11 (conv3x3_cmajor,
+conv1x1_cmajor): float32 atol = rtol = 1e-4, bfloat16 at most one bfloat16
+ulp from the plain version or within 1e-3 max|plain| where the value is near
+zero (both sum in float32 in another order, then round once).
 """
 
 import numpy as np
@@ -23,6 +26,7 @@ from rep_yolo_tpu_torch.nn.fuse import fuse_state_dict
 from rep_yolo_tpu_torch.ops import nms as TN
 from rep_yolo_tpu_torch.ops.kernels import axial_attention as KA
 from rep_yolo_tpu_torch.ops.kernels import conv_flat as KC
+from rep_yolo_tpu_torch.ops.kernels import conv_kernel as KCM
 from rep_yolo_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
 from rep_yolo_tpu_torch.ops.kernels import neck_flat as KNF
 from rep_yolo_tpu_torch.ops.kernels import nms as KN
@@ -276,3 +280,84 @@ def test_wgrad3x3_counts_launches_and_refuses_bad_input(cuda):
         KW.wgrad3x3(x, torch.zeros((1, 4, 5, 6), device=cuda))
     with pytest.raises(ValueError):                  # not float32
         KW.wgrad3x3(x.half(), torch.zeros((1, 4, 6, 6), device=cuda))
+
+
+def bf16_close(got, ref, floor=1e-3):
+    """Every element of a bfloat16 result at most one bfloat16 ulp (of the
+    larger magnitude) from ``ref``, or within ``floor`` max|ref| of it."""
+    g, r = got.float(), ref.float()
+    _, e = torch.frexp(torch.maximum(g.abs(), r.abs()))
+    ulp = torch.ldexp(torch.ones_like(g), e - 8)      # 8 significant bits
+    d = (g - r).abs()
+    bad = (d > ulp) & (d > floor * r.abs().max())
+    assert not bool(bad.any()), \
+        f"{int(bad.sum())} of {d.numel()} elements off; max {float(d.max())}"
+
+
+def _cm_conv(c_in, c_out, k, seed, device):
+    g = torch.Generator().manual_seed(seed)
+    w = torch.randn((c_out, c_in, k, k), generator=g) / (c_in * k * k) ** 0.5
+    return KCM.CMConv(w.to(device), (0.1 * torch.randn(c_out, generator=g))
+                      .to(device))
+
+
+def _cm_close(got, ref):
+    assert got.dtype == ref.dtype and got.shape == ref.shape
+    if got.dtype == torch.bfloat16:
+        bf16_close(got, ref)
+    else:
+        torch.testing.assert_close(got, ref, **TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("c_in,c_out,h,w,act", [
+    (48, 48, 40, 40, "silu"), (24, 24, 13, 21, "silu"),
+    (16, 40, 8, 16, None), (3, 8, 9, 7, "silu")])
+def test_conv3x3_cmajor_matches_plain(cuda, dtype, c_in, c_out, h, w, act):
+    torch.backends.cudnn.allow_tf32 = False
+    cw = _cm_conv(c_in, c_out, 3, c_in + h, cuda)
+    g = torch.Generator().manual_seed(w)
+    x = torch.randn((2, c_in, h, w), generator=g).to(cuda, dtype)
+    _cm_close(KCM.conv3x3_cmajor(x, cw, act),
+              KCM.conv3x3_cmajor_plain(x, cw, act))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("secs,c_out,h,w,act", [
+    ((48,), 24, 40, 40, "silu"), ((24, 24, 24), 40, 10, 14, "silu"),
+    ((144,), 128, 16, 16, None), ((2, 30, 8), 520, 4, 6, "silu")])
+def test_conv1x1_cmajor_matches_plain(cuda, dtype, secs, c_out, h, w, act):
+    torch.backends.cudnn.allow_tf32 = False
+    cw = _cm_conv(sum(secs), c_out, 1, c_out + h, cuda)
+    g = torch.Generator().manual_seed(w)
+    xs = [torch.randn((2, c, h, w), generator=g).to(cuda, dtype)
+          for c in secs]
+    _cm_close(KCM.conv1x1_cmajor(xs, cw, act),
+              KCM.conv1x1_cmajor_plain(xs, cw, act))
+
+
+def test_conv1x1_cmajor_odd_map_in_float32(cuda):
+    torch.backends.cudnn.allow_tf32 = False
+    cw = _cm_conv(5, 7, 1, 0, cuda)
+    xs = [torch.randn((1, c, 5, 7), device=cuda) for c in (3, 2)]
+    _cm_close(KCM.conv1x1_cmajor(xs, cw), KCM.conv1x1_cmajor_plain(xs, cw))
+
+
+def test_cmajor_wrappers_count_launches_and_refuse_bad_input(cuda):
+    cw3, cw1 = _cm_conv(8, 8, 3, 0, cuda), _cm_conv(8, 8, 1, 1, cuda)
+    x = torch.zeros((1, 8, 6, 6), dtype=torch.bfloat16, device=cuda)
+    reset_launch_counts()
+    KCM.conv1x1_cmajor([KCM.conv3x3_cmajor(x, cw3)], cw1)
+    counts = launch_counts()
+    assert (counts["conv3x3_cmajor"], counts["conv1x1_cmajor"]) == (1, 1)
+    with pytest.raises(ValueError):                  # float64
+        KCM.conv3x3_cmajor(x.double(), cw3)
+    with pytest.raises(ValueError):                  # not contiguous
+        KCM.conv3x3_cmajor(x.transpose(2, 3), cw3)
+    with pytest.raises(ValueError):                  # channels
+        KCM.conv3x3_cmajor(x[:, :4].contiguous(), cw3)
+    with pytest.raises(ValueError):                  # odd bf16 section
+        KCM.conv1x1_cmajor([x[:, :3].contiguous(), x[:, :5].contiguous()],
+                           cw1)
+    with pytest.raises(ValueError):                  # 1x1 weights in K10
+        KCM.conv3x3_cmajor(x, cw1)
