@@ -6,8 +6,9 @@ and the same with the calibrated int8 region (``--fast int8``: the backbone,
 neck and head in int8, the attention blocks in float; and the backbone
 region alone, ``Q8Region(neck=False)``), bfloat16 serving with the DER
 blocks on the channel-major kernels (``build_engine(dtype=torch.bfloat16,
-der_fast="bf16")``), and training it (phases 9-14), and holds every CUDA
-kernel of those paths against its plain PyTorch version on the card.
+der_fast="bf16")``), training it (phases 9-14), and evaluating it with
+checkpoints (phases 16-20), and holds every CUDA kernel of those paths
+against its plain PyTorch version on the card.
 Phases, one JSON line each:
 
   1. device and build: the card, then nvcc of every csrc/*.cu (parallel)
@@ -115,8 +116,42 @@ as cli.train runs:
   14. profiler_after_training: the device events the profiler records in
      windows of K9 calls after the training phases (a report)
 
-Then the kernels line {"kernels": [...]} and, last, {"ok": true, "device":
-{...}}. Any failure raises and exits non-zero without the last line.
+and for evaluation (train/evaluate.py, cli.train --val-data / --eval-every,
+cli.test, the checkpoints; the counts zeroed before each evaluation and read
+after it):
+
+  16. kernels_eval_vs_plain (with the kernels, before training): K3 at
+     evaluation's K = 8192 on clustered boxes, zero-area duplicates and IoU
+     exactly at the threshold, keep sets identical to the plain version and,
+     on one image, to the greedy oracle; K12 dwconv5x5_f32w_q8 at the 18
+     depthwise 5x5 calls of one int8 forward with Q8Region(dw5_dense=False)
+     (batch 8, evaluation's; recorded on the way as in 5c), as 2b; the
+     row-3 route (a train-form attention block in eval(), q, k, v
+     projected by cuDNN, then K2) at the six CCVA shapes against the einsum
+     path, atol = rtol = 1e-4
+  17. times_eval: K12 per call of that forward (profiler ms from a cold L2,
+     event ms, plain, cuDNN's f32 depthwise conv, bound), summed per
+     forward; K2 on the row-3 route at the six CCVA shapes at batch 8,
+     summed per forward; K3 at K = 8192, batch 8, beside the plain matrix
+     version
+  18. eval_train_cli (after training): python -m rep_yolo_tpu_torch.cli.train
+     --data synthetic:64 --val-data synthetic:32 --epochs 3 --eval-every 1
+     (640 px, batch 8, no augment, no autoanchor): exit 0, an eval line every
+     epoch with 6 + 6 K2 launches per forward on the row-3 route and no K1,
+     one K3 per batch; best and last written
+  19. eval_modes: best's EMA weights on the same val set: fused float32,
+     unfused (row 3), bfloat16 der_fast, --fast int8 with K7 and with K12
+     (calibrated on the first 8 images): P, R, mAP@.5, mAP@.5:.95, host ms per
+     image, launches per forward, the gaps to float32 and K12 - K7
+  20. test_cli: python -m rep_yolo_tpu_torch.cli.test --weights best on the
+     val images written as PNG files, --rect --fast int8, then with
+     --dw5-exact (K12): exit 0, and mAP within 1e-6 of a direct evaluate on
+     DetectionDataset.from_path of that directory with the same flags (no
+     image decoder on the machine: says so and runs nothing)
+
+Then the kernels line {"kernels": [...]} (K1-K12; K3 again at K = 8192, K2
+again for the row-3 route) and, last, {"ok": true, "device": {...}}. Any
+failure raises and exits non-zero without the last line.
 
 Run:  python3 chip_smoke.py [--out results.json]
 """
@@ -126,6 +161,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import math
 import pathlib
 import statistics
 import subprocess
@@ -224,21 +260,22 @@ def attention_cost(c, h, w, batch, criss_cross):
     return (k1_bytes, k1_flops), (k2_bytes, k2_flops)
 
 
-def nms_cases(device):
+def nms_cases(device, ks=(1024, 4096), batch=2, seed=0):
     """(name, boxes (B,K,4), valid (B,K), thr) cases for the NMS check."""
     import numpy as np
     import torch
 
-    rng = np.random.default_rng(0)
+    rng = np.random.default_rng(seed)
     cases = []
-    for K in (1024, 4096):
-        centers = rng.uniform(0, 640, (2, 24, 2))
-        pick = rng.integers(0, 24, (2, K))
+    B = batch
+    for K in ks:
+        centers = rng.uniform(0, 640, (B, 24, 2))
+        pick = rng.integers(0, 24, (B, K))
         c = np.take_along_axis(centers, pick[..., None], 1) \
-            + rng.normal(0, 6, (2, K, 2))
-        wh = rng.uniform(20, 80, (2, K, 2))
+            + rng.normal(0, 6, (B, K, 2))
+        wh = rng.uniform(20, 80, (B, K, 2))
         boxes = np.concatenate([c - wh / 2, c + wh / 2], -1)
-        valid = rng.uniform(size=(2, K)) < 0.9
+        valid = rng.uniform(size=(B, K)) < 0.9
         cases.append((f"clustered_K{K}", boxes, valid, 0.45))
         dup = boxes.copy()
         dup[:, ::3, 2:] = dup[:, ::3, :2]                # zero area
@@ -246,8 +283,8 @@ def nms_cases(device):
         cases.append((f"zero_area_dups_K{K}", dup, valid, 0.45))
         # pairs at IoU exactly 0.5 (= thr: kept): [x, y, x+32, y+8] then
         # [x, y, x+16, y+8], inter 128, union 256, all exact in f32
-        xy = rng.integers(0, 75, (2, K // 2, 2)) * 8.0
-        edge = np.empty((2, K, 4))
+        xy = rng.integers(0, 75, (B, K // 2, 2)) * 8.0
+        edge = np.empty((B, K, 4))
         for j, wd in ((0, 32.0), (1, 16.0)):
             edge[:, j::2] = np.concatenate([xy, xy + [wd, 8.0]], -1)
         cases.append((f"iou_at_threshold_K{K}", edge, valid, 0.5))
@@ -341,7 +378,7 @@ def q8_case(torch, row, batch, dev, seed):
 
 
 Q8_KERNELS = ("conv3x3_q8", "conv1x1_q8", "max_pool2_q8", "dwconv5x5_q8",
-              "spp_pools_q8")
+              "spp_pools_q8", "dwconv5x5_f32w_q8")
 # launches of one int8 forward at 640 px, the neck on / the backbone alone
 Q8_PER_FORWARD = {"conv3x3_q8": 36, "conv1x1_q8": 76, "max_pool2_q8": 3,
                   "dwconv5x5_q8": 18, "spp_pools_q8": 1}
@@ -359,7 +396,8 @@ def q8_module(name):
     from rep_yolo_tpu_torch.ops.kernels import pool_flat as KP
 
     return {"conv3x3_q8": KC, "conv1x1_q8": KC, "max_pool2_q8": KP,
-            "dwconv5x5_q8": KNF, "spp_pools_q8": KNF}[name]
+            "dwconv5x5_q8": KNF, "spp_pools_q8": KNF,
+            "dwconv5x5_f32w_q8": KNF}[name]
 
 
 def record_q8_calls(model, x):
@@ -429,6 +467,18 @@ def call_case(torch, name, args):
             nbytes, ops = x.numel() * 5.0, 24.0 * x.numel()
         sig = (name, tuple(x.shape))
         return kcall, pcall, lib, None, nbytes, ops, sig
+    if name == "dwconv5x5_f32w_q8":
+        # K12's float32 weights (input scales folded in) on the int8 values
+        x, qd = args["x"], args["qd"]
+        C = qd.c
+        xf = x.permute(0, 3, 1, 2).float().contiguous()
+        wf = qd.w.t().reshape(C, 1, 5, 5).contiguous()
+        lib = lambda: F.conv2d(xf, wf, qd.bias, padding=2, groups=C)  # noqa
+        nbytes = (x.numel() * (1 + (4 if out_s is None else 1))
+                  + 4 * qd.w.numel() + 4 * C)
+        ops = 2.0 * 25 * x.numel()
+        sig = (name, tuple(x.shape), args["act"], out_s is None)
+        return kcall, pcall, lib, out_s, nbytes, ops, sig
     if name == "dwconv5x5_q8":
         x, qd = args["x"], args["qd"]
         C = qd.c
@@ -2114,6 +2164,430 @@ def phase_profiler_after_training(torch, dev, reps: int = 10,
                                 for w in seen]})
 
 
+# ---------------------------------------------------------------------------
+# evaluation: K3 at evaluation's K, K12, the row-3 route, the CLIs, mAP
+# ---------------------------------------------------------------------------
+
+EVAL_K = 8192            # evaluation's max_nms (train/evaluate.py)
+EVAL_BATCH = 8
+EVAL_TRAIN_N, EVAL_VAL_N, EVAL_EPOCHS = 64, 32, 3
+EVAL_RUNS = ROOT / "runs" / "chip_smoke"        # gitignored
+DW5_PER_FORWARD = 18     # the flagship's depthwise 5x5 calls per forward
+EVAL_MODES = ("fused_f32", "unfused_row3", "bf16_der_fast", "int8_k7",
+              "int8_k12")
+
+
+def _q8_gate(torch, got, ref, out_s):
+    """The int8 kernels' rule: int8 identical but for +-1 LSB on at most
+    1e-4 of the elements, float32 atol = rtol = 1e-5."""
+    err, off1, off_more = q8_diff(torch, got, ref, out_s)
+    if got.dtype == torch.int8:
+        ok = off_more == 0 and off1 <= 1e-4 * got.numel()
+    else:
+        ok = bool(torch.allclose(got, ref, atol=1e-5, rtol=1e-5))
+    return ok, {"out": list(got.shape), "dtype": str(got.dtype),
+                "max_abs_err": err, "lsb_off_by_1": off1,
+                "lsb_off_by_more": off_more}
+
+
+def phase_kernels_eval(torch, dev, errs, x):
+    """K3 at evaluation's K = 8192, K12 at every depthwise 5x5 call of one
+    int8 forward with ``Q8Region(dw5_dense=False)`` at evaluation's batch 8
+    (the golden weights, the served images and their mirror images,
+    recorded on the way as in 5c), and the row-3 route (the train-form
+    attention in eval() on K2) at the six CCVA shapes against the einsum
+    path. Returns the recorded K12 calls and the route's largest error per
+    mode."""
+    import numpy as np
+
+    from rep_yolo_tpu_torch.models.region import Q8Region
+    from rep_yolo_tpu_torch.nn.blocks import AxialAttention
+    from rep_yolo_tpu_torch.ops import nms as N
+    from rep_yolo_tpu_torch.ops.kernels import launch_counts, \
+        reset_launch_counts
+    from rep_yolo_tpu_torch.ops.kernels import nms as KN
+    from rep_yolo_tpu_torch.serve import build_engine
+
+    nms_rows = []
+    for name, boxes, valid, thr in nms_cases(dev, ks=(EVAL_K,), seed=1):
+        keep = KN.nms_keep(boxes, valid, thr)
+        ref = KN.nms_keep_plain(boxes, valid, thr)
+        same = bool(torch.equal(keep, ref))
+        row = {"case": name, "kept": int(keep.sum()), "identical": same}
+        if name.startswith("clustered"):
+            oracle = N._greedy_keep(boxes[:1].cpu(), valid[:1].cpu(), thr)
+            row["greedy_identical_image0"] = bool(
+                torch.equal(keep[:1].cpu(), oracle))
+            same &= row["greedy_identical_image0"]
+        nms_rows.append(row)
+        if not same:
+            raise AssertionError(f"K3 at K={EVAL_K} differs: {row}")
+
+    engine = build_engine(CFG, str(GOLDEN / "model_weights.npz"), SIZE,
+                          EVAL_BATCH, conf=0.001, iou=0.45, device=dev,
+                          fast="int8")
+    net = engine.model.net
+    net.set_q8(Q8Region(net.q8.scales, dw5_dense=False))
+    x8 = torch.cat([x, x.flip(2)])[:EVAL_BATCH]
+    _, calls = record_q8_calls(engine.model, x8)
+    engine.close()
+    calls = [c for c in calls if c[1] == "dwconv5x5_f32w_q8"]
+    if len(calls) != DW5_PER_FORWARD:
+        raise AssertionError(f"{len(calls)} K12 calls in a forward, want "
+                             f"{DW5_PER_FORWARD}")
+    dw_rows = []
+    for layer, name, args in calls:
+        kfn, pfn, _, out_s, _, _, sig = call_case(torch, name, args)
+        ok, r = _q8_gate(torch, kfn(), pfn(), out_s)
+        dw_rows.append({"layer": layer, "signature": str(sig[1:]), **r})
+        if not ok:
+            raise AssertionError(f"K12 differs from its plain version: "
+                                 f"{dw_rows[-1]}")
+        errs[name] = max(errs.get(name, 0.0), r["max_abs_err"])
+
+    tol = dict(atol=1e-4, rtol=1e-4)
+    attn_rows, attn_err = [], {}
+    for i, (c, h, w) in enumerate(ATTN_SHAPES):
+        g = torch.Generator().manual_seed(400 + i)
+        xa = torch.randn((2, c, h, w), generator=g).to(dev)
+        for cc in (True, False):
+            blk = AxialAttention(c, cc)
+            state = {}
+            for k, t in blk.state_dict().items():
+                if k.endswith("running_var") or (k.endswith("weight")
+                                                 and t.ndim == 1):
+                    state[k] = 0.5 + torch.rand(t.shape, generator=g)
+                elif k.endswith("gamma"):
+                    state[k] = torch.full(t.shape, 0.7)
+                else:
+                    state[k] = 0.3 * torch.randn(t.shape, generator=g)
+            blk.load_state_dict(state)
+            blk = blk.to(dev).eval()
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            y = blk(xa)                    # the default on the card: K2
+            torch.cuda.synchronize()
+            n = launch_counts()
+            blk.fused = False
+            ye = blk(xa)
+            torch.testing.assert_close(y, ye, **tol)
+            mode = "criss_cross" if cc else "vertical"
+            if n[f"axial_attend_{mode}"] != 1 or n["axial_project"]:
+                raise AssertionError(f"row-3 route launched {n}")
+            e = float((y - ye).abs().max())
+            attn_err[mode] = max(attn_err.get(mode, 0.0), e)
+            attn_rows.append({"shape": [2, h, w, c], "mode": mode,
+                              "max_abs_err": e,
+                              "out_absmax": float(ye.abs().max())})
+    emit({"phase": "kernels_eval_vs_plain", "ok": True,
+          "tolerance": {"nms": "keep sets identical",
+                        "dwconv5x5_f32w_q8": "int8 identical but for +-1 "
+                        "LSB on <= 1e-4 of the elements; f32 out atol = "
+                        "rtol = 1e-5", "row3_route": tol},
+          "nms_k": EVAL_K, "nms": nms_rows, "dwconv5x5_f32w_q8": dw_rows,
+          "row3_route": attn_rows})
+    return calls, attn_err
+
+
+def phase_times_eval(torch, dev, calls):
+    """K12 per distinct call of one int8 forward at batch 8 (profiler ms
+    from a cold L2, event ms, plain, cuDNN's f32 depthwise conv, bound),
+    summed per forward; K2 on the row-3 route at the six CCVA shapes at
+    batch 8, summed per forward; K3 at K = 8192, batch 8; all at
+    evaluation's batch, beside their plain versions. Before the training
+    phases (the profiler). Returns the per-forward sums of K12 and of K2
+    per mode, and K3's times."""
+    from rep_yolo_tpu_torch.ops.kernels import axial_attention as KA
+    from rep_yolo_tpu_torch.ops.kernels import nms as KN
+    from rep_yolo_tpu_torch.ops.kernels import reset_launch_counts
+
+    agg, timed = {}, {}
+    for layer, name, args in calls:
+        kfn, pfn, lib, _, nbytes, ops, sig = call_case(torch, name, args)
+        if sig not in timed:
+            t = kernel_times(torch, kfn, pfn, lib)
+            t.update(zip(("bound_ms", "bound_by"), bound(nbytes, ops)),
+                     bytes=nbytes, ops=ops)
+            timed[sig] = {"signature": str(sig[1:]), "calls_per_forward": 0,
+                          **t}
+        timed[sig]["calls_per_forward"] += 1
+        add_times(agg, timed[sig])
+    attn = {"criss_cross": {}, "vertical": {}}
+    attn_shapes = []
+    for i, (c, h, w) in enumerate(ATTN_SHAPES):
+        x, wqk, pq, pv, gamma = attention_inputs(c, h, w, EVAL_BATCH, 20 + i,
+                                                 0.7, dev)
+        q, k, v = KA.project_plain(x, wqk, pq, pv)
+        for cc, mode in ((True, "criss_cross"), (False, "vertical")):
+            _, (b2, f2) = attention_cost(c, h, w, EVAL_BATCH, cc)
+            t = kernel_times(torch, lambda: KA.attend(q, k, v, x, gamma, cc),
+                             lambda: KA.attend_plain(q, k, v, x, gamma, cc))
+            t.update(zip(("bound_ms", "bound_by"), bound(b2, f2)),
+                     bytes=b2, ops=f2)
+            add_times(attn[mode], t)
+            attn_shapes.append({"mode": mode,
+                                "shape": [EVAL_BATCH, h, w, c], **t})
+    boxes = [c for c in nms_cases(dev, ks=(EVAL_K,), batch=EVAL_BATCH,
+                                  seed=2) if c[0].startswith("clustered")]
+    _, b, v, thr = boxes[0]
+    K = EVAL_K
+    nms = kernel_times(torch, lambda: KN.nms_keep(b, v, thr),
+                       lambda: KN.nms_keep_plain(b, v, thr))
+    nb, nf = EVAL_BATCH * K * (16 + 1 + 1), EVAL_BATCH * K * (K - 1) / 2 * 12
+    nms.update(zip(("bound_ms", "bound_by"), bound(nb, nf)), bytes=nb,
+               ops=nf)
+    reset_launch_counts()
+    emit({"phase": "times_eval", "ok": True,
+          "note": f"dwconv5x5_f32w_q8: the {DW5_PER_FORWARD} calls of one "
+                  f"{SIZE}-px int8 forward at batch {EVAL_BATCH} with "
+                  "dw5_dense=False (each shape times its calls); library = "
+                  "cuDNN's f32 depthwise conv of the same shape; "
+                  "axial_attend_*_row3: K2 at the six CCVA shapes at batch "
+                  f"{EVAL_BATCH}, summed per forward; nms_keep at "
+                  f"K={K}, batch {EVAL_BATCH}, clustered boxes; ms, plain_ms, "
+                  "library_ms: device time under the profiler from a cold L2, "
+                  "10 calls after 3 warm-ups; event_ms: CUDA events, median of "
+                  "20 runs of 10 back-to-back calls (L2-warm)",
+          "dwconv5x5_f32w_q8": list(timed.values()),
+          "dwconv5x5_f32w_q8_per_forward": {k: agg[k] for k in TIME_KEYS},
+          "axial_attend_row3": attn_shapes,
+          "axial_attend_row3_per_forward": {
+              m: {k: a[k] for k in TIME_KEYS} for m, a in attn.items()},
+          "nms_keep_k8192": nms})
+    return agg, attn, nms
+
+
+def phase_eval_train_cli(torch, timeout=600):
+    """``python -m rep_yolo_tpu_torch.cli.train`` with evaluation every
+    epoch on the synthetic val set (seed + 1): eval lines with the row-3
+    route's K2 launches (no K1: the train form projects with cuDNN), K3,
+    and best / last written. Returns the run directory."""
+    import shutil
+
+    import numpy as np
+
+    shutil.rmtree(EVAL_RUNS / "train", ignore_errors=True)
+    cmd = [sys.executable, "-m", "rep_yolo_tpu_torch.cli.train",
+           "--cfg", CFG, "--data", f"synthetic:{EVAL_TRAIN_N}", "--val-data",
+           f"synthetic:{EVAL_VAL_N}", "--epochs", str(EVAL_EPOCHS),
+           "--eval-every", "1", "--batch-size", str(EVAL_BATCH),
+           "--img-size", str(SIZE), "--no-augment", "--no-autoanchor",
+           "--project", str(EVAL_RUNS), "--name", "train"]
+    t = time.perf_counter()
+    p = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                       timeout=timeout)
+    secs = time.perf_counter() - t
+    lines = [json.loads(s) for s in p.stdout.splitlines()
+             if s.startswith("{")]
+    evals = [r for r in lines if "eval" in r]
+    run = pathlib.Path(lines[0]["run_dir"]) if lines else None
+    fwd = -(-EVAL_VAL_N // EVAL_BATCH)
+    ok = (p.returncode == 0 and len(evals) == EVAL_EPOCHS and run is not None
+          and all((run / f"{n}.npz").exists() for n in ("best", "last"))
+          and all(r["launches"].get(f"axial_attend_{m}")
+                  == len(ATTN_SHAPES) * fwd
+                  and "axial_project" not in r["launches"]
+                  and r["launches"].get("nms_keep") == fwd
+                  for r in evals for m in ("criss_cross", "vertical"))
+          and all(np.isfinite(r["total"]) for r in lines if "total" in r))
+    if not ok:
+        raise AssertionError(f"cli.train with evaluation failed (exit "
+                             f"{p.returncode}):\n{p.stdout[-3000:]}\n"
+                             f"{p.stderr[-3000:]}")
+    best = json.loads((run / "best.json").read_text())
+    emit({"phase": "eval_train_cli", "ok": True, "cmd": " ".join(cmd[1:]),
+          "exit": p.returncode, "seconds": secs, "evals": evals,
+          "best": best, "steps": sum("total" in r for r in lines),
+          "checkpoint_mb": (run / "last.npz").stat().st_size / 1e6})
+    return run
+
+
+def _eval_model(torch, dev, ema, mode, val):
+    """The model of one evaluation mode on the checkpoint's EMA weights."""
+    from rep_yolo_tpu_torch.cli.test import calibrate_int8
+    from rep_yolo_tpu_torch.models.model import RepYOLO
+
+    model = RepYOLO.from_config(CFG, device=dev).load_state(ema)
+    if mode == "unfused_row3":
+        return model                  # its attention: K2 on the card
+    model = model.fuse()
+    if mode == "bf16_der_fast":
+        model.cast(torch.bfloat16)
+        model.net.set_der_fast("bf16")
+    elif mode.startswith("int8"):
+        calibrate_int8(model, val, SIZE, dw5_dense=mode == "int8_k7")
+    return model
+
+
+def phase_eval_modes(torch, dev, run):
+    """The trained ``best`` scored on the synthetic val set in five modes,
+    the counts zeroed before each evaluation and read after it: P, R,
+    mAP@.5, mAP@.5:.95, host ms per image and kernel launches per forward.
+    Returns {mode: launch counts}."""
+    from rep_yolo_tpu_torch.data.datasets import make_synthetic_dataset
+    from rep_yolo_tpu_torch.ops.kernels import launch_counts, \
+        reset_launch_counts
+    from rep_yolo_tpu_torch.train.checkpoint import read_checkpoint
+    from rep_yolo_tpu_torch.train.evaluate import evaluate
+
+    ema = read_checkpoint(run / "best")["ema"]
+    val = make_synthetic_dataset(EVAL_VAL_N, SIZE, 1, 120, seed=1)
+    fwd = -(-EVAL_VAL_N // EVAL_BATCH)
+    ccva = len(ATTN_SHAPES)           # one criss-cross + one vertical each
+    want = {"fused_f32": {"axial_project": 2 * ccva,
+                          "axial_attend_criss_cross": ccva},
+            "unfused_row3": {"axial_project": 0,
+                             "axial_attend_criss_cross": ccva,
+                             "axial_attend_vertical": ccva},
+            "bf16_der_fast": CM_PER_FORWARD,
+            "int8_k7": {"dwconv5x5_q8": DW5_PER_FORWARD,
+                        "dwconv5x5_f32w_q8": 0},
+            "int8_k12": {"dwconv5x5_f32w_q8": DW5_PER_FORWARD,
+                         "dwconv5x5_q8": 0}}
+    rows, counts = {}, {}
+    for mode in EVAL_MODES:
+        model = _eval_model(torch, dev, ema, mode, val)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        res = evaluate(model, val, batch_size=EVAL_BATCH, img_size=SIZE)
+        torch.cuda.synchronize()
+        counts[mode] = launch_counts()
+        per_fwd = {k: n / fwd for k, n in counts[mode].items() if n}
+        need = {**want[mode], "nms_keep": 1}
+        if any(per_fwd.get(k, 0) != n for k, n in need.items()):
+            raise AssertionError(f"{mode}: launches per forward {per_fwd}, "
+                                 f"want {need}")
+        if not all(map(math.isfinite, (res.mp, res.mr, res.map50, res.map))):
+            raise AssertionError(f"{mode}: {res}")
+        rows[mode] = {"P": res.mp, "R": res.mr, "map50": res.map50,
+                      "map": res.map, "ms_per_img": list(res.speed_ms),
+                      "launches_per_forward": per_fwd}
+        del model
+    f32 = rows["fused_f32"]
+    gaps = {f"{m}_minus_fused_f32": {k: rows[m][k] - f32[k]
+                                     for k in ("map50", "map")}
+            for m in EVAL_MODES[1:]}
+    gaps["int8_k12_minus_int8_k7"] = {
+        k: rows["int8_k12"][k] - rows["int8_k7"][k] for k in ("map50", "map")}
+    emit({"phase": "eval_modes", "ok": True, "weights": str(run / "best"),
+          "val": f"synthetic:{EVAL_VAL_N} (seed 1)", "batch": EVAL_BATCH,
+          "forwards": fwd, "modes": rows, "gaps": gaps})
+    return counts
+
+
+def phase_test_cli(torch, dev, run, timeout=600):
+    """``python -m rep_yolo_tpu_torch.cli.test`` on the val images written
+    as PNG files, with --rect and --fast int8 (K7, then K12 with
+    --dw5-exact): exit 0, and the same mAP, within 1e-6, as a direct
+    ``evaluate`` on ``DetectionDataset.from_path`` of that directory with
+    the same weights and flags. Without an image decoder the phase runs
+    nothing and says so."""
+    import numpy as np
+
+    from rep_yolo_tpu_torch.cli import test as cli_test
+    from rep_yolo_tpu_torch.cli.detect import load_model_and_vars
+    from rep_yolo_tpu_torch.data.datasets import (DetectionDataset,
+                                                  image_decoder,
+                                                  make_synthetic_dataset)
+    from rep_yolo_tpu_torch.train.evaluate import evaluate
+
+    try:
+        decoder = image_decoder()
+    except ImportError as e:
+        emit({"phase": "test_cli", "ok": True, "ran": False,
+              "reason": f"no image decoder on this machine: {e}"})
+        return
+    root = EVAL_RUNS / "val"
+    val = make_synthetic_dataset(EVAL_VAL_N, SIZE, 1, 120, seed=1)
+    for sub in ("images", "labels"):
+        (root / sub).mkdir(parents=True, exist_ok=True)
+    for i, (img, lab) in enumerate(zip(val.images, val.labels)):
+        path = root / "images" / f"{i:05d}.png"
+        if decoder == "cv2":
+            import cv2
+            cv2.imwrite(str(path), cv2.cvtColor(img, cv2.COLOR_RGB2BGR))
+        else:
+            from PIL import Image
+            Image.fromarray(img).save(path)
+        (root / "labels" / f"{i:05d}.txt").write_text("\n".join(
+            f"{int(c)} {x:.6f} {y:.6f} {w:.6f} {h:.6f}"
+            for c, x, y, w, h in lab))
+    tol = 1e-6
+    was = torch.backends.cudnn.deterministic
+    rows = []
+    for extra, kernel in (([], "dwconv5x5_q8"),
+                          (["--dw5-exact"], "dwconv5x5_f32w_q8")):
+        argv = ["--weights", str(run / "best"), "--data",
+                str(root / "images"), "--cfg", CFG, "--rect", "--fast", "int8",
+                "--batch-size", str(EVAL_BATCH), "--img-size",
+                str(SIZE)] + extra
+        t = time.perf_counter()
+        p = subprocess.run([sys.executable, "-m",
+                            "rep_yolo_tpu_torch.cli.test"] + argv, cwd=ROOT,
+                           capture_output=True, text=True, timeout=timeout)
+        secs = time.perf_counter() - t
+        if p.returncode != 0:
+            raise AssertionError(f"cli.test failed (exit {p.returncode}):\n"
+                                 f"{p.stdout[-3000:]}\n{p.stderr[-3000:]}")
+        out = json.loads(p.stdout[p.stdout.rindex('{\n  "P"'):])
+        # the same, in this process, as cli.test runs it
+        args = cli_test.parse_args(argv)
+        torch.backends.cudnn.deterministic = True
+        try:
+            model = load_model_and_vars(args)
+            ds = DetectionDataset.from_path(str(root / "images"), SIZE)
+            cli_test.calibrate_int8(model, ds, SIZE,
+                                    dw5_dense=not args.dw5_exact)
+            res = evaluate(model, ds, batch_size=EVAL_BATCH, img_size=SIZE,
+                           rect=True, rect_stride=args.rect_stride)
+        finally:
+            torch.backends.cudnn.deterministic = was
+        fwd = -(-EVAL_VAL_N // EVAL_BATCH)
+        gap = {k: abs(out[k] - getattr(res, a)) for k, a in
+               (("P", "mp"), ("R", "mr"), ("map50", "map50"),
+                ("map", "map"))}
+        row = {"flags": " ".join(argv[6:]), "exit": p.returncode,
+               "seconds": secs, "cli": {k: out[k] for k in
+                                        ("P", "R", "map50", "map",
+                                         "ms_per_img_infer")},
+               "direct": {"P": res.mp, "R": res.mr, "map50": res.map50,
+                          "map": res.map}, "abs_gap": gap,
+               "launches": out["launches"]}
+        rows.append(row)
+        if max(gap.values()) > tol or out["launches"].get(kernel) != \
+                DW5_PER_FORWARD * fwd:
+            raise AssertionError(f"cli.test disagrees: {row}")
+        del model
+    emit({"phase": "test_cli", "ok": True, "ran": True, "decoder": decoder,
+          "data": str(root), "tolerance": tol, "runs": rows})
+
+
+def eval_rows(counts, errs, dw_agg, attn_agg, attn_err,
+              nms_t) -> list[dict]:
+    """The kernels line's rows of the evaluation path, each timed at
+    evaluation's batch 8: K12, K3 at K = 8192 and K2 on the row-3 route
+    (its error the route's own against the einsum path)."""
+    rows = [kernel_row("dwconv5x5_f32w_q8",
+                       "rep_yolo_tpu_torch/csrc/neck_flat.cu",
+                       "rep_yolo_tpu/ops/pallas/neck_flat.py:333",
+                       counts["int8_k12"]["dwconv5x5_f32w_q8"],
+                       errs["dwconv5x5_f32w_q8"], dw_agg, F32_PEAK)]
+    rows[0]["launches_per_forward"] = DW5_PER_FORWARD
+    rows[0]["library_call"] = "F.conv2d(groups=C), cuDNN f32 depthwise"
+    rows.append(kernel_row("nms_keep_k8192", "rep_yolo_tpu_torch/csrc/nms.cu",
+                           "rep_yolo_tpu/ops/pallas/nms_kernel.py:97",
+                           counts["fused_f32"]["nms_keep"],
+                           errs["nms_keep"], nms_t, F32_PEAK))
+    for mode, line in (("criss_cross", 295), ("vertical", 330)):
+        rows.append(kernel_row(
+            f"axial_attend_{mode}_row3",
+            "rep_yolo_tpu_torch/csrc/axial_attention.cu",
+            f"rep_yolo_tpu/ops/pallas/axial_attention.py:{line}",
+            counts["unfused_row3"][f"axial_attend_{mode}"], attn_err[mode],
+            attn_agg[mode], F32_PEAK))
+    return rows
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--out", default=None,
@@ -2166,6 +2640,8 @@ def main(argv=None) -> int:
         kernels = phase_times(torch, dev, counts, errs)
         kernels += phase_times_q8(torch, dev, counts_q8, errs, calls)
         kernels += phase_times_cm(torch, dev, counts_bf16, errs)
+        dw_calls, attn_err = phase_kernels_eval(torch, dev, errs, x)
+        dw_agg, attn_agg, nms_t = phase_times_eval(torch, dev, dw_calls)
     # training needs autograd: outside inference_mode; cuDNN picks its
     # algorithms as under cli.train (TF32 stays off)
     torch.backends.cudnn.deterministic = False
@@ -2175,12 +2651,17 @@ def main(argv=None) -> int:
     counts_train = phase_train_step(torch, dev)
     phase_train_overfit(torch, dev)
     phase_train_cli(torch)
+    run = phase_eval_train_cli(torch)
     with torch.inference_mode():
+        counts_eval = phase_eval_modes(torch, dev, run)
+        phase_test_cli(torch, dev, run)
         phase_profiler_after_training(torch, dev)
         # last: after its batch-128 profiler windows the profiler loses a
         # device event in every later window, of every kernel alike
         phase_throughput_bf16(torch, dev)
     kernels.append(wgrad_row(counts_train, errs, wgrad_times))
+    kernels += eval_rows(counts_eval, errs, dw_agg, attn_agg, attn_err,
+                         nms_t)
     missing = [k["name"] for k in kernels if k["launches"] <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "

@@ -2,24 +2,37 @@
 ``_run_training`` loop) on the card, in float32 with TF32 off.
 
 Example:
-    python -m rep_yolo_tpu_torch.cli.train --data synthetic:16 --epochs 1 \\
-        --batch-size 8 --img-size 640 --no-augment --no-autoanchor \\
-        --eval-every 0
+    python -m rep_yolo_tpu_torch.cli.train --data synthetic:64 \
+        --val-data synthetic:32 --epochs 3 --batch-size 8 --img-size 640 \
+        --no-augment --no-autoanchor --eval-every 1
 
 Seeded init of the train-form model, the hyp preset's loss gains and
 optimizer (simOTA by default, 3-group nesterov SGD with warmup and
 one-cycle, gradient accumulation to the nominal batch 64 ramped over the
 warmup), the EMA; one JSON line per step (per call of the train step, which
 advances the iteration counter) with the loss components and the step's
-host ms. No run directory or checkpoint is written yet.
+host ms. Every ``--eval-every`` epochs and at the last one the EMA weights
+are scored on the validation set (``train/evaluate.py``; the train-form
+model, whose attention runs on K2 on the card), one JSON line each with
+the kernel launches of that evaluation. The run
+directory (``--project``/``--name``, numbered on, with ``opt.json`` and
+``results.txt``) receives ``last`` every epoch, ``best`` on a fitness gain
+and ``epoch_NNN`` snapshots (epoch 0, every 25th, the last 5), as the JAX
+CLI saves them (``train/checkpoint.py``, the JAX ``.npz`` form); the JAX
+CLI's ``init`` snapshot is not written.
+
+``--val-data``: ``synthetic[:N]`` (the generator at seed + 1, held in
+memory like the training data), a YOLO directory, a ``.txt`` list or a
+dataset YAML (``DetectionDataset.from_path``); without it the training set
+is scored, as in the JAX CLI. ``--eval-every 0`` turns evaluation off.
 
 The flags are the JAX CLI's. Paths not ported yet raise instead of being
-ignored: a YOLO-directory dataset (``--data`` takes ``synthetic[:N]``),
-augmentation, autoanchor and evaluation (``--no-augment``,
-``--no-autoanchor`` and ``--eval-every 0`` are required), and ``--bf16``,
-``--multi-scale``, ``--aux``, ``--resume``, ``--evolve``, ``--multihost``
-and the other flags listed in ``NOT_PORTED``. ``--device`` (the port's
-entry points' flag) picks the device: the card unless ``cpu`` is asked for.
+ignored: a YOLO-directory training set (``--data`` takes ``synthetic[:N]``),
+augmentation and autoanchor (``--no-augment`` and ``--no-autoanchor`` are
+required), and ``--bf16``, ``--multi-scale``, ``--aux``, ``--resume``,
+``--evolve``, ``--multihost`` and the other flags listed in ``NOT_PORTED``.
+``--device`` (the port's entry points' flag) picks the device: the card
+unless ``cpu`` is asked for.
 """
 
 from __future__ import annotations
@@ -27,6 +40,7 @@ from __future__ import annotations
 import argparse
 import json
 import time
+from pathlib import Path
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -38,7 +52,9 @@ def parse_args(argv=None):
     p.add_argument("--cfg", default="cfg/rep_yolo.yaml")
     p.add_argument("--data", required=True,
                    help="'synthetic[:N]' (a YOLO-layout dir is not ported)")
-    p.add_argument("--val-data", default=None)
+    p.add_argument("--val-data", default=None,
+                   help="'synthetic[:N]', a YOLO-layout dir, a .txt list or "
+                        "a dataset YAML (default: the training set)")
     p.add_argument("--hyp", default="scratch.p5")
     p.add_argument("--epochs", type=int, default=300)
     p.add_argument("--batch-size", type=int, default=8)
@@ -79,15 +95,11 @@ def parse_args(argv=None):
 
 # flag -> (the value that leaves its path unused, what the path is)
 NOT_PORTED = {
-    "val_data": (None, "evaluation"),
     "aux": (False, "the aux-head loss"),
     "no_augment": (True, "augmentation (pass --no-augment)"),
     "no_autoanchor": (True, "autoanchor (pass --no-autoanchor)"),
-    "eval_every": (0, "evaluation (pass --eval-every 0)"),
     "multi_scale": (False, "multi-scale training"),
     "image_weights": (False, "image weights"),
-    "project": ("runs/train", "the run directory"),
-    "name": ("exp", "the run directory"),
     "resume": (None, "checkpoints and resume"),
     "rbg": (False, "JAX's rbg generator"),
     "multihost": (False, "multi-host training"),
@@ -113,6 +125,10 @@ def check_ported(args) -> None:
     if not args.data.startswith("synthetic"):
         raise NotImplementedError("--data: only 'synthetic[:N]' is ported "
                                   "(a YOLO directory needs a decoder)")
+
+
+def _synthetic_n(spec: str) -> int:
+    return int(spec.split(":")[1]) if ":" in spec else 64
 
 
 class Training(NamedTuple):
@@ -144,9 +160,8 @@ def build_training(args, warmup: bool = True) -> Training:
     if dev.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    n = int(args.data.split(":")[1]) if ":" in args.data else 64
-    ds = make_synthetic_dataset(n, args.img_size, args.nc, args.max_labels,
-                                seed=args.seed)
+    ds = make_synthetic_dataset(_synthetic_n(args.data), args.img_size,
+                                args.nc, args.max_labels, seed=args.seed)
     loader = Loader(ds, args.batch_size, seed=args.seed)
 
     model = RepYOLO.from_config(args.cfg, nc=args.nc, device=dev)
@@ -177,16 +192,47 @@ def build_training(args, warmup: bool = True) -> Training:
                     step, loader, opt_cfg, accum)
 
 
+def build_val_set(args):
+    """The validation set ``--val-data`` names, or None (score the training
+    set)."""
+    from rep_yolo_tpu_torch.data.datasets import (DetectionDataset,
+                                                  make_synthetic_dataset)
+
+    if not args.val_data:
+        return None
+    if str(args.val_data).startswith("synthetic"):
+        # a different seed: truly held-out images
+        return make_synthetic_dataset(_synthetic_n(args.val_data),
+                                      args.img_size, args.nc,
+                                      args.max_labels, seed=args.seed + 1)
+    return DetectionDataset.from_path(args.val_data, args.img_size, args.nc,
+                                      args.max_labels)
+
+
 def run_training(args, emit=print) -> list[dict]:
-    """Train as the arguments say; ``emit`` gets each step's JSON line.
-    Returns the step records."""
+    """Train as the arguments say; ``emit`` gets each step's JSON line and
+    each evaluation's. Returns the step records."""
+    from rep_yolo_tpu_torch.models.model import RepYOLO
+    from rep_yolo_tpu_torch.ops.kernels import launch_counts
+    from rep_yolo_tpu_torch.train.checkpoint import save_checkpoint
+    from rep_yolo_tpu_torch.train.evaluate import evaluate
     from rep_yolo_tpu_torch.train.trainer import accum_target_for
+    from rep_yolo_tpu_torch.utils.general import increment_path
 
     t = build_training(args)
     dev, nb = t.model.device, len(t.loader)
+    out_dir = increment_path(Path(args.project) / args.name)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    (out_dir / "opt.json").write_text(json.dumps(vars(args), indent=2))
+    val_ds = build_val_set(args) or t.loader.ds
+    # the EMA weights are scored in a model of their own
+    ema_model = (RepYOLO.from_config(args.cfg, nc=args.nc, device=dev)
+                 if args.eval_every else None)
     emit(json.dumps({"train": len(t.loader.ds), "batches_per_epoch": nb,
-                     "device": str(dev)}))
+                     "val": len(val_ds) if ema_model else 0,
+                     "device": str(dev), "run_dir": str(out_dir)}))
     records = []
+    best_fitness, res = 0.0, None
     for epoch in range(args.epochs):
         for i, batch in enumerate(t.loader.epoch(epoch)):
             inputs = [torch.from_numpy(batch[k]).to(dev)
@@ -203,6 +249,37 @@ def run_training(args, emit=print) -> list[dict]:
             rec = {"epoch": epoch, "step": t.state.step, **vals, "ms": ms}
             records.append(rec)
             emit(json.dumps(rec))
+        ep = [r for r in records if r["epoch"] == epoch]
+        with open(out_dir / "results.txt", "a") as f:
+            f.write(json.dumps({"epoch": epoch, **{
+                k: float(np.mean([r[k] for r in ep]))
+                for k in ("box", "obj", "cls", "total")}}) + "\n")
+        if ema_model is not None and ((epoch + 1) % args.eval_every == 0
+                                      or epoch == args.epochs - 1):
+            ema_model.load_state(t.state.ema)
+            before = launch_counts()
+            res = evaluate(ema_model, val_ds, batch_size=args.batch_size,
+                           img_size=args.img_size)
+            launched = {k: n - before[k] for k, n in launch_counts().items()
+                        if n > before[k]}
+            emit(json.dumps({"epoch": epoch, "eval": {
+                "P": res.mp, "R": res.mr, "map50": res.map50,
+                "map": res.map, "fitness": res.fitness,
+                "ms_per_img": list(res.speed_ms)}, "launches": launched}))
+            if res.fitness > best_fitness:
+                best_fitness = res.fitness
+                meta = dict(epoch=epoch, fitness=res.fitness)
+                save_checkpoint(out_dir / "best", t.state, meta=meta)
+                if epoch >= 200:     # late-best snapshot
+                    save_checkpoint(out_dir / f"best_{epoch:03d}", t.state,
+                                    meta=meta)
+        # cadence (reference train.py:461-483): last every epoch; epoch
+        # snapshots at 0, every 25, and the final 5 epochs
+        meta = dict(epoch=epoch, fitness=res.fitness if res else 0.0)
+        save_checkpoint(out_dir / "last", t.state, meta=meta)
+        if epoch == 0 or (epoch + 1) % 25 == 0 or epoch >= args.epochs - 5:
+            save_checkpoint(out_dir / f"epoch_{epoch:03d}", t.state,
+                            meta=meta)
     if not all(np.isfinite(r["total"]) for r in records):
         raise FloatingPointError("a step's loss is not finite")
     return records

@@ -21,7 +21,23 @@
 // shared memory and takes bytewise signed maxima (__vmaxs4). Bound: bytes
 // (the map read once, four times its size written).
 //
-// Layout: channels-last int8 (B, H, W, C), C a multiple of 4.
+// K12 dwconv5x5_f32w_q8 replaces rep_yolo_tpu/ops/pallas/neck_flat.py:
+// dwconv5x5_flat_q8 (kernel _dw5_kernel), the exact-weight depthwise 5x5 that
+// the neck runs when its block-diagonal dense route is off (set_dw5_dense
+// (False) there, Q8Region(dw5_dense=False) here). The weights stay float32,
+// with the input's per-channel scale folded in, and the sum runs in float32
+// on the raw int8 values, in _dw5_kernel's order: for each kernel row u the
+// five taps left to right, then that row added to the accumulator; then the
+// bias and the activation, float32 out or an int8 requant. Every product and
+// sum is an explicitly rounded operation (and the file is compiled with
+// --fmad=false), so the outputs equal the plain version's bit for bit but for
+// SiLU's expf. A block stages an (8 + 4) x (32 + 4) pixel tile of 32
+// channels with its halo in shared memory (one byte a channel, so a warp's
+// loads of one pixel's channels coalesce); a thread owns one channel of one
+// output row, its 25 weights in registers, and walks the 32 columns. Bound:
+// bytes (int8 in, int8 or f32 out, the weights).
+//
+// Layout: channels-last int8 (B, H, W, C); C a multiple of 4 for K7 and K8.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -115,6 +131,82 @@ cudaError_t launch_dw(const int32_t* x, const int32_t* w, const float* s_w,
 }
 
 // ---------------------------------------------------------------------------
+// K12: depthwise 5x5 on float32 weights, stride 1, pad 2
+// ---------------------------------------------------------------------------
+
+constexpr int FW_TY = 8;                  // output rows of a tile
+constexpr int FW_TX = 32;                 // output columns of a tile
+constexpr int FW_C = 32;                  // channels of a tile, one a lane
+constexpr int FW_RY = FW_TY + 4, FW_RX = FW_TX + 4;
+constexpr int FW_THREADS = FW_C * FW_TY;  // a warp per output row
+
+// x (B, H, W, C) int8; w (25, C) f32, tap u * 5 + v; bias (C,);
+// y (B, H, W, C) f32 (F32_OUT) or int8 at 1 / inv_out.
+template <bool F32_OUT>
+__global__ void __launch_bounds__(FW_THREADS)
+dwconv5x5_f32w_kernel(const int8_t* __restrict__ x, const float* __restrict__ w,
+                      const float* __restrict__ bias, void* __restrict__ y,
+                      int H, int W, int C, int tiles_x, float inv_out, int act) {
+    __shared__ int8_t s_x[FW_RY * FW_RX][FW_C];
+    const int ty0 = (blockIdx.x / tiles_x) * FW_TY;
+    const int tx0 = (blockIdx.x % tiles_x) * FW_TX;
+    const int c0 = blockIdx.y * FW_C, b = blockIdx.z;
+    const int nc = min(FW_C, C - c0);
+    for (int i = threadIdx.x; i < FW_RY * FW_RX * FW_C; i += FW_THREADS) {
+        const int c = i % FW_C, pix = i / FW_C;
+        const int ry = pix / FW_RX, rx = pix - ry * FW_RX;
+        const int iy = ty0 - 2 + ry, ix = tx0 - 2 + rx;
+        int8_t v = 0;
+        if (c < nc && iy >= 0 && iy < H && ix >= 0 && ix < W)
+            v = x[(((long long)b * H + iy) * W + ix) * C + c0 + c];
+        s_x[pix][c] = v;
+    }
+    __syncthreads();
+
+    const int c = threadIdx.x % FW_C, ly = threadIdx.x / FW_C;
+    const int oy = ty0 + ly;
+    if (c >= nc || oy >= H) return;
+    float wr[25];
+#pragma unroll
+    for (int t = 0; t < 25; ++t) wr[t] = w[(long long)t * C + c0 + c];
+    const float bc = bias[c0 + c];
+    const long long row_off = ((long long)b * H + oy) * W;
+    for (int lx = 0; lx < FW_TX && tx0 + lx < W; ++lx) {
+        float acc = 0.0f;
+#pragma unroll
+        for (int u = 0; u < 5; ++u) {
+            const int8_t* px = &s_x[(ly + u) * FW_RX + lx][c];
+            float row = __fmul_rn(wr[u * 5], (float)px[0]);
+#pragma unroll
+            for (int v = 1; v < 5; ++v)
+                row = __fadd_rn(row, __fmul_rn(wr[u * 5 + v], (float)px[v * FW_C]));
+            acc = u == 0 ? row : __fadd_rn(acc, row);
+        }
+        float yv = __fadd_rn(acc, bc);
+        if (act) {
+            const float sig = __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-yv)));
+            yv = __fmul_rn(yv, sig);
+        }
+        const long long o = (row_off + tx0 + lx) * C + c0 + c;
+        if (F32_OUT)
+            ((float*)y)[o] = yv;
+        else
+            ((int8_t*)y)[o] = (int8_t)quant1(yv, inv_out);
+    }
+}
+
+template <bool F32_OUT>
+cudaError_t launch_dw_f32w(const int8_t* x, const float* w, const float* bias,
+                           void* y, int B, int H, int W, int C, float inv_out,
+                           int act, cudaStream_t stream) {
+    const int tiles_x = (W + FW_TX - 1) / FW_TX;
+    dim3 grid(tiles_x * ((H + FW_TY - 1) / FW_TY), (C + FW_C - 1) / FW_C, B);
+    dwconv5x5_f32w_kernel<F32_OUT><<<grid, FW_THREADS, 0, stream>>>(
+        x, w, bias, y, H, W, C, tiles_x, inv_out, act);
+    return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
 // K8: the SPP max pyramid [x, mp5, mp9, mp13]
 // ---------------------------------------------------------------------------
 
@@ -196,6 +288,20 @@ extern "C" int dwconv5x5_q8(const int32_t* x, const int32_t* w, const float* s_w
                                            inv_out, act, stream)
                          : launch_dw<false>(x, w, s_w, bias, y, B, H, W, cw, s_in,
                                             inv_out, act, stream));
+}
+
+// x (B, H, W, C) int8; w (25, C) f32; bias (C,) f32; y (B, H, W, C) f32
+// (f32_out) or int8 at 1 / inv_out. Returns a cudaError_t.
+extern "C" int dwconv5x5_f32w_q8(const int8_t* x, const float* w, const float* bias,
+                                 void* y, int B, int H, int W, int C, int f32_out,
+                                 float inv_out, int act, void* stream_ptr) {
+    cudaStream_t stream = (cudaStream_t)stream_ptr;
+    if (B <= 0 || H <= 0 || W <= 0 || C <= 0) return 0;
+    if (B > 65535) return (int)cudaErrorInvalidValue;
+    return (int)(f32_out ? launch_dw_f32w<true>(x, w, bias, y, B, H, W, C, inv_out,
+                                                act, stream)
+                         : launch_dw_f32w<false>(x, w, bias, y, B, H, W, C, inv_out,
+                                                 act, stream));
 }
 
 // x (B, H, W, 4*cw) int8 as words; y (B, H, W, 16*cw). The map (2 * H * W

@@ -20,7 +20,9 @@
 //
 // Bound on this card: a few KB in and out, K^2/2 IoUs of ~15 flops; at the
 // served K = 1024 that is microseconds, so launch latency and the serial
-// scan over K rows bound this simple version. K <= 4096 (2 words per lane).
+// scan over K rows bound this simple version. K <= 8192 (4 words per lane):
+// evaluation takes max_nms = 8192 candidates per image (rep_yolo_tpu/train/
+// evaluate.py:67-81), whose mask is 8 MB per image.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -28,8 +30,8 @@
 namespace {
 
 constexpr int BITS = 64;
-constexpr int WORDS_PER_LANE = 2;
-constexpr int MAX_K = 32 * WORDS_PER_LANE * BITS;   // 4096
+constexpr int WORDS_PER_LANE = 4;
+constexpr int MAX_K = 32 * WORDS_PER_LANE * BITS;   // 8192
 
 __device__ __forceinline__ float area_of(float x1, float y1, float x2, float y2) {
     return __fmul_rn(__fsub_rn(x2, x1), __fsub_rn(y2, y1));
@@ -80,17 +82,24 @@ __global__ void nms_scan_kernel(const unsigned long long* __restrict__ mask,
     for (int i = lane; i < K; i += 32) vs[i] = valid[(long long)b * K + i];
     __syncwarp();
     const unsigned long long* mb = mask + (long long)b * K * words;
-    unsigned long long removed0 = 0ull, removed1 = 0ull;
+    // lane l holds the removed-set words l, l + 32, l + 64 and l + 96
+    unsigned long long removed[WORDS_PER_LANE];
+#pragma unroll
+    for (int r = 0; r < WORDS_PER_LANE; ++r) removed[r] = 0ull;
     for (int i = 0; i < K; ++i) {
         const int wi = i / BITS;
-        const unsigned long long mine = (wi / 32) == 0 ? removed0 : removed1;
+        unsigned long long mine = removed[0];
+#pragma unroll
+        for (int r = 1; r < WORDS_PER_LANE; ++r)
+            if (wi / 32 == r) mine = removed[r];
         const unsigned long long word = __shfl_sync(0xffffffffu, mine, wi % 32);
         const bool alive = vs[i] && !((word >> (i % BITS)) & 1ull);
         if (lane == 0) keep[(long long)b * K + i] = alive ? 1 : 0;
         if (alive) {
             const unsigned long long* row = mb + (long long)i * words;
-            if (lane < words) removed0 |= row[lane];
-            if (lane + 32 < words) removed1 |= row[lane + 32];
+#pragma unroll
+            for (int r = 0; r < WORDS_PER_LANE; ++r)
+                if (lane + 32 * r < words) removed[r] |= row[lane + 32 * r];
         }
     }
 }

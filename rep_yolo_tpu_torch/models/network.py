@@ -84,7 +84,8 @@ class DetectionNet(nn.Module):
 
     The train form trains: ``set_wgrad`` routes its 3x3 convs' weight
     gradients to K9 and ``set_generator`` gives its dropout masks their
-    generator; both are held here, per network.
+    generator; in ``eval()``, ``set_fused_attention`` routes its attention
+    to K2. All are held here, per network.
 
     ``set_q8(Q8Region(scales))`` switches on the int8 region; the plan is
     computed once per input size (``region_plan`` holds the last one's
@@ -122,6 +123,17 @@ class DetectionNet(nn.Module):
                 m.wgrad = (enable and B.wgrad_eligible(m)
                            and bool(select(m.in_channels, m.out_channels)))
 
+    def set_fused_attention(self, enable: bool | None) -> None:
+        """Port of the JAX ``set_fused_attention(enable)``, held per network:
+        the train form's attention blocks, in ``eval()``, attend with K2
+        (kernel-table row 3) at every size. ``enable=None`` is the default:
+        on for CUDA tensors (the port's deploy attention always runs K1 /
+        K2), off on the CPU. The train forward never takes the kernel;
+        deploy blocks always do."""
+        for m in self.modules():
+            if isinstance(m, B.AxialAttention):
+                m.fused = enable
+
     def set_generator(self, generator: torch.Generator | None) -> None:
         """The generator every dropout mask of the train form is drawn
         from (on the device of the activations)."""
@@ -139,6 +151,10 @@ class DetectionNet(nn.Module):
             raise RuntimeError("the int8 region runs a float32 net without "
                                "der_fast (one mode switch in the JAX package)")
         self.q8 = region
+        # the depthwise 5x5 convs' int8 route (NF.quantized reads it)
+        for m in self.modules():
+            if isinstance(m, nn.Conv2d) and NF.is_dw5(m):
+                m.dw5_dense = region is None or region.dw5_dense
         self.region_plan = {}
         self._plans.clear()
         self._q8w.clear()

@@ -55,12 +55,15 @@ _FLAT_PASS = {"MP", "Upsample", "nn.Upsample", "Concat"}
 class Q8Region:
     """The int8 region's configuration, held by the network: the
     calibration scales ({JAX scope path: scale}, ``ops.quant.calibrate``),
-    the DER gate, and ``neck``: whether the neck and head run in int8 too
-    (the JAX package's ``set_neck_q8``; False keeps the backbone region
-    alone)."""
+    the DER gate, ``neck``: whether the neck and head run in int8 too (the
+    JAX package's ``set_neck_q8``; False keeps the backbone region alone),
+    and ``dw5_dense``: GSConv's depthwise 5x5 on K7 with per-channel int8
+    weights (True, the JAX default ``DW5_DENSE``) or on K12 with the exact
+    float32 weights (False, the JAX ``set_dw5_dense(False)``)."""
 
     scales: Mapping[str, float]
     neck: bool = True
+    dw5_dense: bool = True
 
     def select(self, c1: int) -> bool:
         # the JAX package's ``_CMAJOR_SELECT`` (c1 <= 512): the whole backbone

@@ -555,7 +555,11 @@ class AxialAttention(nn.Module):
     packed as the kernels take them (``wqk`` (2*c8, C), ``pq`` (3, 2*c8),
     ``pv`` (4, C); packed by ``nn.fuse``) and runs the fused kernels. The
     train form runs the JAX block's einsum formulation (``train=True``:
-    Dropout(0.2) on the row attention ``att_w``)."""
+    Dropout(0.2) on the row attention ``att_w``); in ``eval()`` with
+    ``fused`` on (``DetectionNet.set_fused_attention``; None: on for CUDA
+    tensors) it projects q, k, v as the einsum path does and attends with
+    K2 (the JAX ``criss_cross_fused`` / ``vertical_fused`` route,
+    kernel-table row 3)."""
 
     def __init__(self, c1, criss_cross: bool, deploy=False):
         super().__init__()
@@ -575,6 +579,13 @@ class AxialAttention(nn.Module):
             if criss_cross:
                 self.dropout = Dropout(0.2)
         self.gamma = nn.Parameter(torch.zeros(1))
+        self.fused: bool | None = None
+
+    def _use_fused(self, x: torch.Tensor) -> bool:
+        """The eval-mode train form takes K2 (``set_fused_attention``)."""
+        if self.training:
+            return False
+        return x.is_cuda if self.fused is None else self.fused
 
     def forward(self, x):
         if hasattr(self, "wqk"):
@@ -586,6 +597,11 @@ class AxialAttention(nn.Module):
         q = F.relu6(self.bn(self.query_conv(x))).permute(0, 2, 3, 1)
         k = F.relu6(self.bn(self.key_conv(x))).permute(0, 2, 3, 1)
         v = F.relu6(self.bn1(self.value_conv(x))).permute(0, 2, 3, 1)
+        if self._use_fused(x):
+            y = K_axial.attend(q.contiguous(), k.contiguous(), v.contiguous(),
+                               x.permute(0, 2, 3, 1).contiguous(), self.gamma,
+                               self.criss_cross)
+            return y.permute(0, 3, 1, 2)
         qT, kT, vT = (t.transpose(1, 2) for t in (q, k, v))   # (B, W, H, C)
         e_hT = torch.einsum("bwhc,bwgc->bwhg", qT, kT)
         if not self.criss_cross:

@@ -20,7 +20,7 @@ import torch
 from rep_yolo_tpu_torch import device as D
 
 LAUNCHES = {"nms_keep": 0}
-MAX_K = 4096
+MAX_K = 8192             # csrc/nms.cu: 4 mask words per lane
 
 
 def _lib():
@@ -70,7 +70,7 @@ def nms_keep_plain(boxes: torch.Tensor, valid: torch.Tensor,
 def nms_keep(boxes: torch.Tensor, valid: torch.Tensor,
              iou_thres: float) -> torch.Tensor:
     """Keep mask. CPU tensors take ``nms_keep_plain``; CUDA tensors launch
-    the kernel (K <= 4096) or raise."""
+    the kernel (K <= MAX_K) or raise."""
     if boxes.device.type == "cpu":
         return nms_keep_plain(boxes, valid, iou_thres)
     if boxes.device.type != "cuda" or valid.device != boxes.device:

@@ -130,21 +130,32 @@ def fold_meta(x) -> tuple[torch.Tensor, torch.Tensor | None]:
     return sv, torch.cat(perms)
 
 
+def is_dw5(conv: nn.Conv2d) -> bool:
+    """GSConv's depthwise 5x5 (K7, or K12 with ``conv.dw5_dense`` False,
+    which ``DetectionNet.set_q8`` sets from ``Q8Region.dw5_dense``)."""
+    return (conv.groups == conv.in_channels == conv.out_channels
+            and conv.kernel_size == (5, 5))
+
+
 def quantized(cache: dict, name: str, conv: nn.Conv2d, x):
     """``conv``'s weights with ``x``'s scales and permutation folded in,
-    quantized at the plan's first forward and kept in ``cache``."""
+    quantized at the plan's first forward and kept in ``cache``. A
+    depthwise 5x5 gets K7's per-channel int8 weights, or with
+    ``conv.dw5_dense`` False K12's float32 ones (the JAX
+    ``set_dw5_dense``)."""
     qw = cache.get(name)
     if qw is None:
         sv, perm = fold_meta(x)
         if conv.groups == 1:
             qw = K_conv.QConv(conv.weight, conv.bias, sv, perm)
-        elif (conv.groups == conv.in_channels == conv.out_channels
-              and conv.kernel_size == (5, 5)):
+        elif is_dw5(conv):
             # the depthwise input is GSConv's own cv1 output: no shuffle
             if perm is not None:
                 raise ValueError(f"{name}: depthwise input with a pending "
                                  "channel permutation")
-            qw = K_neck.QDepthwise(conv.weight, conv.bias, sv)
+            qw = (K_neck.QDepthwise(conv.weight, conv.bias, sv)
+                  if getattr(conv, "dw5_dense", True) else
+                  K_neck.QDepthwiseF32(conv.weight, conv.bias, sv))
         else:
             raise ValueError(f"{name}: no int8 kernel for groups="
                              f"{conv.groups}, k={conv.kernel_size}")
@@ -155,8 +166,8 @@ def quantized(cache: dict, name: str, conv: nn.Conv2d, x):
 def flat_conv(x, conv: nn.Conv2d, cache: dict, name: str, act: str | None,
               out_scale: float | None):
     """A deploy conv on int8 input (``neck_flat.flat_conv``): a concat or a
-    1x1 -> K5, a 3x3 at stride 1 or 2 -> K4, the depthwise 5x5 -> K7, all at
-    s_in = 1 on the folded weights. Returns a Q8Map at ``out_scale``, or
+    1x1 -> K5, a 3x3 at stride 1 or 2 -> K4, the depthwise 5x5 -> K7 (or
+    K12), all at s_in = 1 on the folded weights. Returns a Q8Map at ``out_scale``, or
     float32 (B, H', W', O) without one."""
     qw = quantized(cache, name, conv, x)
     k, s = conv.kernel_size[0], conv.stride[0]
@@ -167,6 +178,8 @@ def flat_conv(x, conv: nn.Conv2d, cache: dict, name: str, act: str | None,
         y = K_conv.conv1x1_q8(xs, qw, 1.0, act, out_scale)
     elif isinstance(qw, K_neck.QDepthwise):
         y = K_neck.dwconv5x5_q8(x.data, qw, 1.0, act, out_scale)
+    elif isinstance(qw, K_neck.QDepthwiseF32):
+        y = K_neck.dwconv5x5_f32w_q8(x.data, qw, act, out_scale)
     elif k == 3 and s in (1, 2) and conv.padding == (1, 1):
         y = K_conv.conv3x3_q8(x.data, qw, 1.0, s, act, out_scale)
     else:

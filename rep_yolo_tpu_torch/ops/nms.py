@@ -8,11 +8,12 @@ fixed ``(B, max_det)`` outputs with a validity mask.
 
 Suppression backends (``method=``):
 - ``"kernel"``: ``ops.kernels.nms.nms_keep`` — the CUDA kernel on the card
-  (K <= 4096); on CPU tensors its plain version. The default on CUDA.
+  (K <= 8192, evaluation's ``max_nms``); on CPU tensors its plain version.
+  The default on CUDA.
 - ``"matrix"``: the plain fixed-point version (any device, any K).
 - ``"greedy"``: a literal greedy loop, the parity oracle.
 ``"auto"`` is ``"kernel"`` on CUDA, else ``"matrix"`` (``"greedy"`` above
-4096 candidates, where the K x K matrix grows large).
+``MATRIX_MAX_K`` candidates, where the K x K matrix grows large).
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from rep_yolo_tpu_torch.ops.boxes import xywh2xyxy
 from rep_yolo_tpu_torch.ops.kernels import nms as K_nms
 
 MAX_WH = 4096.0  # class-offset multiplier (reference utils/general.py:965)
+MATRIX_MAX_K = 4096  # "auto" on the CPU: the matrix version up to this K
 
 
 class Detections(NamedTuple):
@@ -57,7 +59,7 @@ def _resolve_method(method: str, k: int, device: torch.device) -> str:
         return method
     if device.type == "cuda":
         return "kernel"
-    return "matrix" if k <= K_nms.MAX_K else "greedy"
+    return "matrix" if k <= MATRIX_MAX_K else "greedy"
 
 
 def non_max_suppression(prediction: torch.Tensor, conf_thres: float = 0.25,
@@ -105,7 +107,11 @@ def non_max_suppression(prediction: torch.Tensor, conf_thres: float = 0.25,
             cand = (flat > conf_thres) & (obj > conf_thres)
             box_idx = torch.arange(N, device=dev)
         masked = torch.where(cand, flat, ninf)
-        top_scores, top_i = torch.topk(masked, k, dim=1)     # sorted desc
+        # sorted desc, ties lower index first, as jax.lax.top_k (torch.topk
+        # leaves the order of equal scores open)
+        top_scores, top_i = torch.sort(masked, dim=1, descending=True,
+                                       stable=True)
+        top_scores, top_i = top_scores[:, :k], top_i[:, :k]
         bi = box_idx[top_i]
         sel_box = torch.gather(box, 1, bi[..., None].expand(-1, -1, 4))
         ci = cls_idx[top_i] if multi_label else torch.gather(cls_idx, 1, top_i)

@@ -143,11 +143,13 @@ def calibrate(model, batches: Sequence[torch.Tensor]) -> dict[str, float]:
     return {p: a / 127.0 for p, a in maxes.items() if a > 0.0}
 
 
-def enable_int8_fast_path(model, sample_inputs, neck: bool = True):
+def enable_int8_fast_path(model, sample_inputs, neck: bool = True,
+                          dw5_dense: bool = True):
     """Calibrate a fused model on ``sample_inputs`` (one batch or a list of
     them: letterboxed NHWC images in [0, 1]) and switch its network to the
     int8 region: the backbone, and with ``neck`` (the default, as the JAX
-    package's ``--fast int8``) the neck and head too. Port of
+    package's ``--fast int8``) the neck and head too; ``dw5_dense=False``
+    puts GSConv's depthwise 5x5 on K12 (``Q8Region.dw5_dense``). Port of
     ``cli/detect.py:enable_int8_fast_path``; the region configuration is
     held by the network, not a process global. Returns the scales."""
     from rep_yolo_tpu_torch.models.region import Q8Region
@@ -155,5 +157,5 @@ def enable_int8_fast_path(model, sample_inputs, neck: bool = True):
     batches = sample_inputs if isinstance(sample_inputs, (list, tuple)) \
         else [sample_inputs]
     scales = calibrate(model, batches)
-    model.net.set_q8(Q8Region(scales, neck=neck))
+    model.net.set_q8(Q8Region(scales, neck=neck, dw5_dense=dw5_dense))
     return scales

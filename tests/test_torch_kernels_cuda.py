@@ -7,9 +7,12 @@ installed (``tests/conftest.py`` imports JAX, hence ``--noconftest``):
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py
 
 Tolerances: attention f32 atol = rtol = 1e-4 (summation order differs);
-NMS keep sets identical; the int8 kernels: int8 outputs identical but for
-+-1 LSB on at most 1e-4 of the elements (CUDA's expf against torch's
-sigmoid), float32 outputs atol = rtol = 1e-5, pools (K6, K8) identical;
+NMS keep sets identical (K up to 8192, evaluation's max_nms); the row-3
+route (the train-form attention in eval() on K2) against the einsum path
+atol = rtol = 1e-4; the int8 kernels (K12's float32 sums included): int8
+outputs identical but for +-1 LSB on at most 1e-4 of the elements (CUDA's
+expf against torch's sigmoid), float32 outputs atol = rtol = 1e-5, pools
+(K6, K8) identical;
 K9 wgrad3x3: |dW - plain| <= 1e-4 |plain| + 1e-4 max|plain| (sums of up to
 51,200 products in another order); K10 / K11 (conv3x3_cmajor,
 conv1x1_cmajor): float32 atol = rtol = 1e-4, bfloat16 at most one bfloat16
@@ -90,7 +93,7 @@ def test_wrappers_count_launches_and_refuse_bad_input(cuda):
                                device=cuda), 0.5)
 
 
-@pytest.mark.parametrize("k", [64, 1000, 4096])
+@pytest.mark.parametrize("k", [64, 1000, 4096, 8192])
 def test_nms_keep_matches_plain_and_greedy(cuda, k):
     rng = np.random.default_rng(k)
     c = rng.uniform(0, 300, (2, 8, 2))
@@ -199,6 +202,50 @@ def test_dwconv5x5_q8_matches_plain(cuda, c, h, w, act, out_scale):
                      KNF.dwconv5x5_q8_plain(x, *args))
 
 
+@pytest.mark.parametrize("c,h,w,act,out_scale", [
+    (64, 80, 80, "silu", 0.03),     # the flagship's l17 depthwise
+    (128, 20, 20, None, 0.05),      # a GSBottleneck gs2, no activation
+    (32, 40, 40, "silu", None),     # float exit
+    (12, 13, 21, "silu", 0.02),     # C not a multiple of 4, ragged tiles
+])
+def test_dwconv5x5_f32w_q8_matches_plain(cuda, c, h, w, act, out_scale):
+    rng = np.random.default_rng(c + h + 1)
+    wt = torch.from_numpy(rng.normal(0, 0.1, (c, 1, 5, 5)).astype(np.float32))
+    b = torch.from_numpy(rng.normal(0, 0.5, (c,)).astype(np.float32))
+    qd = KNF.QDepthwiseF32(wt.to(cuda), b.to(cuda),
+                           torch.full((c,), 0.02, device=cuda))
+    x = torch.from_numpy(rng.integers(-127, 128, (2, h, w, c)).astype(
+        np.int8)).to(cuda)
+    _assert_q8_close(KNF.dwconv5x5_f32w_q8(x, qd, act, out_scale),
+                     KNF.dwconv5x5_f32w_q8_plain(x, qd, act, out_scale))
+
+
+def test_row3_route_on_the_card(cuda):
+    """The train-form attention blocks in eval() take K2 by default on the
+    card and agree with the einsum path; the train forward does not."""
+    from rep_yolo_tpu_torch.nn.blocks import CCVA
+
+    torch.manual_seed(0)
+    blk = CCVA(64, 64).to(cuda).eval()
+    with torch.no_grad():
+        for m in blk.modules():
+            if isinstance(m, AxialAttention):
+                m.gamma.fill_(0.5)
+        x = torch.randn(2, 64, 40, 40, device=cuda)
+        reset_launch_counts()
+        got = blk(x)
+        counts = launch_counts()
+        assert (counts["axial_attend_criss_cross"],
+                counts["axial_attend_vertical"]) == (1, 1)
+        for m in blk.modules():
+            if isinstance(m, AxialAttention):
+                m.fused = False
+        torch.testing.assert_close(got, blk(x), **TOL)
+    assert sum(launch_counts().values()) == 2
+    blk.train()(x)
+    assert sum(launch_counts().values()) == 2
+
+
 @pytest.mark.parametrize("shape", [(4, 20, 20, 512), (2, 7, 9, 8),
                                    (1, 40, 40, 64)])
 def test_spp_pools_q8_matches_plain(cuda, shape):
@@ -218,10 +265,15 @@ def test_q8_wrappers_count_launches_and_refuse_bad_input(cuda):
     qd = KNF.QDepthwise(torch.zeros((8, 1, 5, 5), device=cuda),
                         torch.zeros(8, device=cuda))
     KNF.spp_pools_q8(KNF.dwconv5x5_q8(y, qd, out_scale=0.02))
+    qf = KNF.QDepthwiseF32(torch.zeros((8, 1, 5, 5), device=cuda), None)
+    KNF.dwconv5x5_f32w_q8(y, qf, None)
     counts = launch_counts()
     assert (counts["conv3x3_q8"], counts["conv1x1_q8"],
             counts["max_pool2_q8"], counts["dwconv5x5_q8"],
-            counts["spp_pools_q8"]) == (1, 1, 1, 1, 1)
+            counts["spp_pools_q8"], counts["dwconv5x5_f32w_q8"]) == \
+        (1, 1, 1, 1, 1, 1)
+    with pytest.raises(ValueError):                  # K12 takes int8 only
+        KNF.dwconv5x5_f32w_q8(y.float(), qf)
     with pytest.raises(ValueError):                  # int8 C not 4k
         KC.conv3x3_q8(torch.zeros((1, 8, 8, 3), dtype=torch.int8,
                                   device=cuda), _qconv(rng, 3, 8, 3, cuda),
