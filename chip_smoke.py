@@ -6,9 +6,11 @@ and the same with the calibrated int8 region (``--fast int8``: the backbone,
 neck and head in int8, the attention blocks in float; and the backbone
 region alone, ``Q8Region(neck=False)``), bfloat16 serving with the DER
 blocks on the channel-major kernels (``build_engine(dtype=torch.bfloat16,
-der_fast="bf16")``), training it (phases 9-14), and evaluating it with
-checkpoints (phases 16-20), and holds every CUDA kernel of those paths
-against its plain PyTorch version on the card.
+der_fast="bf16")``), the DER blocks' int8 "xla_q8" mode
+(``build_engine(der_fast="xla_q8")``), the kernel benches
+(``rep_yolo_tpu_torch.tools.kernel_bench*``), training it (phases 9-14), and
+evaluating it with checkpoints (phases 16-20), and holds every CUDA kernel
+of those paths against its plain PyTorch version on the card.
 Phases, one JSON line each:
 
   1. device and build: the card, then nvcc of every csrc/*.cu (parallel)
@@ -92,6 +94,35 @@ float32):
      a cold L2, event ms, plain, cuDNN bf16 conv + bias + SiLU, bound),
      summed per forward
 
+and for the last five TPU kernels (K13 conv3x3_cmajor_q8, K14
+conv1x1_cmajor_q8, K4 with 5x5 taps as conv5x5_q8, the pixel-major
+conv3x3_pm_q8 / conv1x1_pm_q8 on K4 / K5) and the "xla_q8" mode:
+
+  4e. xla_q8_e2e: golden weights, calibrated on serve's calibration batch,
+     640 px, batch 4, a float32 net and one cast to bfloat16, with
+     der_fast="xla_q8": 24 + 28 pixel-major calls (on K4 / K5) per forward;
+     raw maps against the same net on the plain versions within 1e-4
+     max|ref| per level, and against the float32 net without der_fast
+     within 0.15 max|ref| with a correlation above 0.99
+  5e. serving_xla_q8: as 5, the float32 xla_q8 engine; launches per
+     forward 24 conv3x3_pm_q8 and 28 conv1x1_pm_q8 (as many K4 and K5)
+     beside 12 / 6 / 6 / 1
+  2d. kernels_q8_rest (after 5c): K13 / K14 at kernel_bench's 15 shapes and
+     the JAX test's, batch 2, float32 / bfloat16 / int8 in, bfloat16 / int8
+     out (K14 over three sections at the cv1 shapes); the pixel-major pair
+     at the 20 DER shapes, batch 2, ReLU included; int8 identical but
+     +-1 LSB on <= 1e-4, bfloat16 within one ulp; conv5x5_q8 at the 18
+     depthwise calls of 5c's forward with the block-diagonal weights of the
+     JAX dw5_dense route: identical to K7 and within the gate of its plain
+     version
+  7e. kernel_bench: both benches of the port at batch 8, in process, their
+     tables on one line
+  7f. times_q8_rest: K13 / K14 summed over kernel_bench's 3x3 / 1x1 shapes
+     at batch 8 (bf16 in and out; cuDNN bf16 and f32 conv + bias + SiLU
+     beside); the pixel-major pair over one xla_q8 served forward at batch
+     4 (cuDNN f32 beside); conv5x5_q8 over the 18 block-diagonal calls
+     (cuDNN's f32 depthwise and K7 beside)
+
 and, outside inference_mode, training cfg/rep_yolo.yaml at 640 px, batch 8
 as cli.train builds it (build_training: seeded init, synthetic batches from
 seed 0, scratch.p5, simOTA, SGD, EMA; --no-accumulate), with the wgrad route
@@ -149,9 +180,10 @@ after it):
      DetectionDataset.from_path of that directory with the same flags (no
      image decoder on the machine: says so and runs nothing)
 
-Then the kernels line {"kernels": [...]} (K1-K12; K3 again at K = 8192, K2
-again for the row-3 route) and, last, {"ok": true, "device": {...}}. Any
-failure raises and exits non-zero without the last line.
+Then the kernels line {"kernels": [...]} (K1-K14, conv5x5_q8 and the two
+pixel-major rows; K3 again at K = 8192, K2 again for the row-3 route) and,
+last, {"ok": true, "device": {...}}. Any failure raises and exits non-zero
+without the last line.
 
 Run:  python3 chip_smoke.py [--out results.json]
 """
@@ -925,8 +957,9 @@ def phase_serving(torch, dev, fast=None, neck=True, der_fast=None):
     """serve.py's HTTP server on the engine (float, or ``fast="int8"``,
     with the neck or, ``neck=False``, the backbone region alone; or, with
     ``der_fast="bf16"``, the bfloat16 model with the DER blocks on K10 /
-    K11): 3 requests, the launch counts of that run, responses equal to
-    direct engine calls."""
+    K11; or, with ``der_fast="xla_q8"``, the float32 model with the DER
+    blocks int8-resident on K4 / K5): 3 requests, the launch counts of that
+    run, responses equal to direct engine calls."""
     import numpy as np
 
     from rep_yolo_tpu_torch.data.letterbox import letterbox_batch
@@ -940,7 +973,8 @@ def phase_serving(torch, dev, fast=None, neck=True, der_fast=None):
     engine = build_engine(CFG, str(GOLDEN / "model_weights.npz"), size,
                           max_batch, conf=0.001, iou=0.45, device=dev,
                           fast=fast, der_fast=der_fast,
-                          dtype=torch.bfloat16 if der_fast else torch.float32)
+                          dtype=torch.bfloat16 if der_fast == "bf16"
+                          else torch.float32)
     if fast == "int8" and not neck:
         net = engine.model.net
         net.set_q8(Q8Region(net.q8.scales, neck=False))
@@ -982,12 +1016,10 @@ def phase_serving(torch, dev, fast=None, neck=True, der_fast=None):
     n_fwd = len(requests)
     q8 = {} if fast != "int8" else \
         Q8_PER_FORWARD if neck else Q8_BACKBONE_PER_FORWARD
-    cm = CM_PER_FORWARD if der_fast else {}
-    want = {"axial_project": 12 * n_fwd, "axial_attend_criss_cross": 6 * n_fwd,
-            "axial_attend_vertical": 6 * n_fwd, "nms_keep": n_fwd,
-            **{k: q8.get(k, 0) * n_fwd for k in Q8_KERNELS},
-            **{k: cm.get(k, 0) * n_fwd for k in CM_PER_FORWARD},
-            "wgrad3x3": 0}
+    cm = {"bf16": CM_PER_FORWARD, "xla_q8": XLQ_PER_FORWARD}.get(der_fast, {})
+    per_fwd = {"axial_project": 12, "axial_attend_criss_cross": 6,
+               "axial_attend_vertical": 6, "nms_keep": 1, **q8, **cm}
+    want = {k: per_fwd.get(k, 0) * n_fwd for k in launch_counts()}
     if counts != want:
         raise AssertionError(f"launch counts {counts} != {want}")
     dets = []
@@ -1007,8 +1039,8 @@ def phase_serving(torch, dev, fast=None, neck=True, der_fast=None):
     e2e_ms = served_ms(torch, engine, batch4)
     fwd_x = x.to(engine.dtype)
     fwd_ms = cuda_ms(lambda: engine.infer(fwd_x), runs=10)
-    emit({"phase": "serving_bf16" if der_fast else "serving" if fast is None
-          else f"serving_{fast}" + ("" if neck else "_backbone"),
+    emit({"phase": f"serving_{der_fast}" if der_fast else "serving"
+          if fast is None else f"serving_{fast}" + ("" if neck else "_backbone"),
           "ok": True, "health": health,
           "build_engine_s": round(build_s, 3), "batches": [1, 2, 4],
           "detections_per_image": dets,
@@ -1035,6 +1067,8 @@ def _category(name: str) -> str:
     low = name.lower()
     if "axial_project" in low or "axial_attend" in low:
         return "attention kernels (K1, K2)"
+    if "_q8_cm_kernel" in low:
+        return "channel-major int8 conv kernels (K13, K14)"
     if "conv3x3_q8" in low or "conv1x1_q8" in low:
         return "int8 conv kernels (K4, K5)"
     if "max_pool2_q8" in low:
@@ -1764,6 +1798,501 @@ def phase_times_cm(torch, dev, counts, errs, batches=(4, 128)):
                                    for n in CM_PER_FORWARD}
                           for b in batches},
           "launches_per_forward": CM_PER_FORWARD, "per_shape": per_shape})
+    return kernels
+
+
+# ---------------------------------------------------------------------------
+# the last five kernels: K13 / K14 (rows 5, 6), K4 with 5x5 taps (row 9,
+# dense), the pixel-major wrappers on K4 / K5 (rows 11, 12); the DER blocks'
+# "xla_q8" mode and the kernel benches
+# ---------------------------------------------------------------------------
+
+# launches of one forward with der_fast="xla_q8", at any size: the four DER
+# blocks' six 3x3 and seven 1x1 convs, each a pixel-major call on K4 / K5
+XLQ_PER_FORWARD = {"conv3x3_pm_q8": 24, "conv1x1_pm_q8": 28,
+                   "conv3x3_q8": 24, "conv1x1_q8": 28}
+PM_KERNELS = ("conv3x3_pm_q8", "conv1x1_pm_q8")
+Q8_REST_TOL = ("int8 identical but for +-1 LSB on <= 1e-4 of the elements; "
+               "bfloat16 within one bfloat16 ulp (of the larger magnitude); "
+               "float32 atol = rtol = 1e-5; the dense 5x5 with block-diagonal "
+               "weights identical to K7")
+# the "xla_q8" network: against its plain path (max err / max|ref| per
+# level), and against the float32 engine (the JAX test's gates for the
+# int8 DER chain, tests/test_conv_kernel.py:179-183)
+XLQ_PLAIN_REL = 1e-4
+XLQ_FLOAT_REL, XLQ_FLOAT_CORR = 0.15, 0.99
+BENCH_BATCH = 8          # the kernel benches' batch here
+BENCH_ITERS = 5          # back-to-back calls per timed run (standalone: 20)
+S_IN_BENCH = 0.5 / 127.0
+
+
+def q8_rest_gate(torch, got, ref, out_s):
+    """(max abs err in float units, ok, detail) of one output against its
+    plain version, by Q8_REST_TOL."""
+    if got.dtype != ref.dtype or got.shape != ref.shape:
+        return math.inf, False, {"got": [str(got.dtype), list(got.shape)],
+                                 "ref": [str(ref.dtype), list(ref.shape)]}
+    if got.dtype == torch.int8:
+        err, off1, more = q8_diff(torch, got, ref, out_s)
+        return err, more == 0 and off1 <= 1e-4 * got.numel(), {
+            "lsb_off_by_1": off1, "lsb_off_by_more": more}
+    g, r = got.float(), ref.float()
+    d = (g - r).abs()
+    if got.dtype == torch.bfloat16:
+        _, e = torch.frexp(torch.maximum(g.abs(), r.abs()))
+        bad = int((d > torch.ldexp(torch.ones_like(g), e - 8)).sum())
+    else:
+        bad = int((d > 1e-5 + 1e-5 * r.abs()).sum())
+    return float(d.max()), bad == 0, {"beyond_tolerance": bad}
+
+
+def _conv_weights(torch, cout, cin, k, dev, g):
+    w = torch.randn((cout, cin, k, k), generator=g, device=dev) \
+        / (cin * k * k) ** 0.5
+    return w, 0.1 * torch.randn((cout,), generator=g, device=dev)
+
+
+def phase_kernels_q8_rest(torch, dev, errs, neck_calls):
+    """K13 / K14 at kernel_bench's 15 shapes and the JAX test's shapes,
+    batch 2, float32, bfloat16 and int8 inputs, bfloat16 and int8 outputs
+    (K14 over three sections at the cv1 shapes); the pixel-major pair at the
+    flagship's DER shapes, batch 2, ReLU included; then the dense 5x5 at the
+    18 depthwise calls of one int8 forward (``neck_calls``, batch 4), with
+    the block-diagonal weights the JAX dw5_dense route builds: first the 18
+    calls alone (their launches are the row's), then each against K7 (bit
+    for bit) and against its plain version. K13 / K14 are held again at the
+    kernel benches' batch, where their launches are counted, by
+    ``phase_times_q8_rest``. Returns ({kernel: launches} of the 18 calls,
+    [(call args, block-diagonal QConv)])."""
+    from rep_yolo_tpu_torch.ops.kernels import conv_flat as KC
+    from rep_yolo_tpu_torch.ops.kernels import conv_kernel as KCM
+    from rep_yolo_tpu_torch.ops.kernels import conv_pm as KPM
+    from rep_yolo_tpu_torch.ops.kernels import launch_counts, \
+        reset_launch_counts
+    from rep_yolo_tpu_torch.ops.kernels import neck_flat as KNF
+    from rep_yolo_tpu_torch.ops.quant import quantize
+    from rep_yolo_tpu_torch.tools.kernel_bench import SHAPES
+
+    rows = []
+
+    def check(name, kfn, pfn, out_s, **info):
+        got, ref = kfn(), pfn()
+        torch.cuda.synchronize()
+        err, ok, detail = q8_rest_gate(torch, got, ref, out_s)
+        r = {"kernel": name, **info, "out": list(got.shape),
+             "dtype": str(got.dtype), "max_abs_err": err, **detail}
+        rows.append(r)
+        if not ok:
+            raise AssertionError(f"{name} differs from its plain version: "
+                                 f"{r}")
+        errs[name] = max(errs.get(name, 0.0), err)
+
+    s_in = 4.0 / 127.0
+    shapes = [(k, C, O, H, H) for k, C, O, H in SHAPES] + [
+        (3, 48, 48, 16, 64), (3, 24, 48, 16, 64), (3, 16, 32, 16, 64),
+        (1, 48, 24, 16, 64)]
+    for i, (k, C, O, H, W) in enumerate(shapes):
+        g = torch.Generator(device=dev).manual_seed(600 + i)
+        qw = KCM.CMQConv(*_conv_weights(torch, O, C, k, dev, g))
+        x = torch.randn((2, C, H, W), generator=g, device=dev)
+        name = "conv3x3_cmajor_q8" if k == 3 else "conv1x1_cmajor_q8"
+        kf, pf = getattr(KCM, name), getattr(KCM, name + "_plain")
+        out_s = float(pf(x, qw, s_in).float().abs().max()) / 127.0
+        for xi in (x, x.bfloat16(), quantize(x, s_in)):
+            if k == 1 and C % 3 == 0 and C >= 144 and xi.dtype == torch.int8:
+                xi = [t.contiguous() for t in xi.chunk(3, 1)]
+            for o in (None, out_s):
+                check(name, lambda: kf(xi, qw, s_in, "silu", o),
+                      lambda: pf(xi, qw, s_in, "silu", o), o,
+                      shape=[2, C, H, W, O, k],
+                      sections=len(xi) if isinstance(xi, list) else 1,
+                      input=str(xi[0].dtype if isinstance(xi, list)
+                                else xi.dtype))
+    for i, row in enumerate(der_cm_shapes()):
+        label, k, cins, cout, hw, _ = row
+        g = torch.Generator(device=dev).manual_seed(700 + i)
+        qw = KC.QConv(*_conv_weights(torch, cout, sum(cins), k, dev, g))
+        xs = [torch.randn((2, hw * hw, c), generator=g, device=dev)
+              for c in cins]
+        if k == 3:
+            name, kf, pf = ("conv3x3_pm_q8", KPM.conv3x3_pm_q8,
+                            KPM.conv3x3_pm_q8_plain)
+            x = xs[0]
+            out_s = float(pf(x, qw, s_in, hw, hw).float().abs().max()) / 127
+            cases = [(x, "silu", None), (x.bfloat16(), "relu", None),
+                     (quantize(x, s_in), "silu", out_s),
+                     (quantize(x, s_in), "relu", out_s)]
+            for xi, act, o in cases:
+                check(name, lambda: kf(xi, qw, s_in, hw, hw, act, o),
+                      lambda: pf(xi, qw, s_in, hw, hw, act, o), o,
+                      shape=label, input=str(xi.dtype), act=act)
+        else:
+            name, kf, pf = ("conv1x1_pm_q8", KPM.conv1x1_pm_q8,
+                            KPM.conv1x1_pm_q8_plain)
+            out_s = float(pf(xs, qw, s_in).float().abs().max()) / 127
+            q = [quantize(t, s_in) for t in xs]
+            cases = [(xs, "relu", None), (q, "silu", None), (q, "silu", out_s),
+                     (q, "relu", out_s)]
+            for xi, act, o in cases:
+                check(name, lambda: kf(xi, qw, s_in, act, o),
+                      lambda: pf(xi, qw, s_in, act, o), o, shape=label,
+                      sections=len(xi), input=str(xi[0].dtype), act=act)
+    # row 9, dense: the depthwise calls as the dw5_dense route runs them
+    dw = [(args, KC.block_diagonal(args["qd"]))
+          for _, name, args in neck_calls if name == "dwconv5x5_q8"]
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    outs = [KC.conv5x5_q8(a["x"], bd, a["s_in"], a["act"], a["out_scale"])
+            for a, bd in dw]
+    torch.cuda.synchronize()
+    bd_counts = launch_counts()
+    same = []
+    for (a, bd), got in zip(dw, outs):
+        ref = KNF.dwconv5x5_q8(**a)
+        same.append(bool(torch.equal(got, ref)))
+        check("conv5x5_q8", lambda: got,
+              lambda: KC.conv5x5_q8_plain(a["x"], bd, a["s_in"], a["act"],
+                                          a["out_scale"]), a["out_scale"],
+              shape=list(a["x"].shape), block_diagonal=True,
+              identical_to_k7=same[-1])
+    if len(dw) != DW5_PER_FORWARD or not all(same):
+        raise AssertionError(f"the dense 5x5 with block-diagonal weights "
+                             f"differs from K7: {len(dw)} calls, {same}")
+    emit({"phase": "kernels_q8_rest", "ok": True, "tolerance": Q8_REST_TOL,
+          "k13_k14_batch": 2, "pm_batch": 2, "dense5x5_batch": 4,
+          "dense5x5_launches": bd_counts["conv5x5_q8"], "rows": rows})
+    return bd_counts, dw
+
+
+@contextlib.contextmanager
+def plain_pm():
+    """Run the "xla_q8" DER blocks through the plain versions (of K4 / K5,
+    by way of the pixel-major wrappers)."""
+    from rep_yolo_tpu_torch.ops.kernels import conv_pm as KPM
+
+    saved = {n: getattr(KPM, n) for n in PM_KERNELS}
+    for n in PM_KERNELS:
+        setattr(KPM, n, getattr(KPM, n + "_plain"))
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(KPM, n, fn)
+
+
+def der_outputs(torch, m, x):
+    """(raw maps, {layer: DER block output as float32}) of one forward,
+    whichever path the DER blocks take."""
+    from rep_yolo_tpu_torch.nn.blocks import DERBlock
+
+    net, outs = m.net, {}
+    der_cm = net._der_cm
+
+    def rec(spec, mod, inp):
+        y = der_cm(spec, mod, inp)
+        if y is not None:
+            outs[spec.i] = y.float()
+        return y
+
+    hooks = [mod.register_forward_hook(
+        lambda _m, _a, y, i=i: outs.__setitem__(i, y.float()))
+        for i, mod in enumerate(net.model) if isinstance(mod, DERBlock)]
+    net._der_cm = rec
+    try:
+        maps = m.apply(x)
+    finally:
+        del net._der_cm
+        for h in hooks:
+            h.remove()
+    return maps, outs
+
+
+def phase_xla_q8_e2e(torch, dev, batch=4):
+    """Golden weights, fused, calibrated on serve's calibration batch, at
+    SIZE px, batch 4, with der_fast="xla_q8", in a float32 net and in one
+    cast to bfloat16: the launches of one forward; the four DER blocks'
+    outputs and the raw maps against the same net on the plain versions
+    (XLQ_PLAIN_REL) and against the float32 net without der_fast
+    (XLQ_FLOAT_REL / XLQ_FLOAT_CORR; the golden head's raw maps hardly see
+    the backbone, so the DER outputs carry this gate)."""
+    import numpy as np
+
+    from rep_yolo_tpu_torch.models.model import RepYOLO
+    from rep_yolo_tpu_torch.ops.kernels import launch_counts, \
+        reset_launch_counts
+    from rep_yolo_tpu_torch.ops.quant import calibrate
+    from rep_yolo_tpu_torch.serve import calibration_batch
+    from rep_yolo_tpu_torch.utils.weights import load_reference_npz
+
+    m = RepYOLO.from_config(CFG, device=dev).load_state(
+        load_reference_npz(GOLDEN / "model_weights.npz")).fuse()
+    x = torch.from_numpy(np.random.default_rng(1).uniform(
+        0, 1, (batch, SIZE, SIZE, 3)).astype(np.float32)).to(dev)
+    maps_f32, der_f32 = der_outputs(torch, m, x)
+    scales = calibrate(m, [calibration_batch(SIZE, dev)])
+    out, ok = {"phase": "xla_q8_e2e", "batch": batch, "size": SIZE}, True
+    for dtype in (torch.float32, torch.bfloat16):
+        if dtype != torch.float32:
+            m.cast(dtype)
+        m.net.set_der_fast("xla_q8", scales=scales)
+        xi = x.to(dtype)
+        m.apply(xi)                            # quantizes the DER weights
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        maps_k, der_k = der_outputs(torch, m, xi)
+        torch.cuda.synchronize()
+        seen = {k: launch_counts()[k] for k in XLQ_PER_FORWARD}
+        with plain_pm():
+            maps_p, der_p = der_outputs(torch, m, xi)
+        layers = sorted(der_k)
+        plain = [rel_corr(a, b)[0] for a, b in zip(maps_k, maps_p)]
+        plain_der = [rel_corr(der_k[i], der_p[i])[0] for i in layers]
+        flt = [rel_corr(a, b) for a, b in zip(maps_k, maps_f32)]
+        flt_der = [rel_corr(der_k[i], der_f32[i]) for i in layers]
+        r = {"launches_per_forward": seen, "raw_map_dtype":
+             str(maps_k[0].dtype), "der_layers": layers,
+             "der_vs_plain_rel_max_err": plain_der,
+             "der_vs_float32_rel_max_err": [e for e, _ in flt_der],
+             "der_vs_float32_corr": [c for _, c in flt_der],
+             "vs_plain_rel_max_err_per_level": plain,
+             "vs_float32_rel_max_err_per_level": [e for e, _ in flt],
+             "vs_float32_corr_per_level": [c for _, c in flt]}
+        r["ok"] = (seen == XLQ_PER_FORWARD and maps_k[0].dtype == dtype
+                   and layers == sorted(der_f32) and len(layers) == 4
+                   and all(e < XLQ_PLAIN_REL for e in plain + plain_der)
+                   and all(e < XLQ_FLOAT_REL and c > XLQ_FLOAT_CORR
+                           for e, c in flt + flt_der))
+        out[str(dtype).replace("torch.", "")] = r
+        ok &= r["ok"]
+    out.update(ok=ok, tolerance={"vs_plain_rel": XLQ_PLAIN_REL,
+                                 "vs_float32_rel": XLQ_FLOAT_REL,
+                                 "vs_float32_corr": XLQ_FLOAT_CORR})
+    emit(out)
+    if not ok:
+        raise AssertionError(f"xla_q8 end-to-end check failed: {out}")
+
+
+def phase_kernel_bench(torch, dev):
+    """Both kernel benches of the port at batch BENCH_BATCH (BENCH_ITERS
+    calls a timed run), in process, their tables on one line. Returns the
+    launch counts of that run (K13 / K14's main path)."""
+    from rep_yolo_tpu_torch.ops.kernels import launch_counts, \
+        reset_launch_counts
+    from rep_yolo_tpu_torch.tools import kernel_bench as KB
+    from rep_yolo_tpu_torch.tools import kernel_bench_flat as KF
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    lines: list[str] = []
+    rows = KB.run(BENCH_BATCH, dev, BENCH_ITERS, out=lines.append)
+    rows_f = KF.run(BENCH_BATCH, dev, BENCH_ITERS, out=lines.append)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    vals = [r[v] for r in rows for v in KB.VARIANTS] + [r["ms"] for r in rows_f]
+    ok = (len(rows) == len(KB.SHAPES) and len(rows_f) == 2 * len(KF.CONV3) + 5
+          and all(math.isfinite(v) and v > 0 for v in vals))
+    emit({"phase": "kernel_bench", "ok": ok, "batch": BENCH_BATCH,
+          "iters": BENCH_ITERS,
+          "note": "ms per call: CUDA events over back-to-back calls after 3 "
+                  "warm-ups, median of 3 runs (L2-warm)",
+          "kernel_bench": rows, "kernel_bench_flat": rows_f})
+    if not ok:
+        raise AssertionError("a kernel bench row is missing or not finite")
+    return counts
+
+
+def record_pm_calls(torch, model, x):
+    """One forward of ``model`` on ``x``: [(kernel name, bound arguments)]
+    of every pixel-major call, with its real inputs."""
+    import inspect
+
+    from rep_yolo_tpu_torch.ops.kernels import conv_pm as KPM
+
+    calls, saved = [], {}
+    for name in PM_KERNELS:
+        fn = saved[name] = getattr(KPM, name)
+        sig = inspect.signature(getattr(KPM, name + "_plain"))
+
+        def rec(*a, _fn=fn, _n=name, _sig=sig, **k):
+            b = _sig.bind(*a, **k)
+            b.apply_defaults()
+            calls.append((_n, dict(b.arguments)))
+            return _fn(*a, **k)
+        setattr(KPM, name, rec)
+    try:
+        model.apply(x)
+    finally:
+        for name, fn in saved.items():
+            setattr(KPM, name, fn)
+    return calls
+
+
+def rest_times(torch, kfn, pfn, lib) -> dict:
+    """One call's times: ``ms`` the kernel's device time (profiler, cold
+    L2), ``event_ms`` back-to-back CUDA events (5 runs of 5), ``plain_ms``
+    and ``library_ms`` device time of all kernels of the call (median of 3
+    windows; the plain version's float64 convolutions in windows of 2)."""
+    return {"ms": device_ms(torch, kfn), "event_ms": cuda_ms(kfn, runs=5,
+                                                            reps=5),
+            "plain_ms": device_ms(torch, pfn, reps=2, warmup=1,
+                                  whole=False),
+            "library_ms": device_ms(torch, lib, reps=5, whole=False)}
+
+
+def phase_times_q8_rest(torch, dev, counts, errs, dw, xlq_engine, x4):
+    """Times of the five new rows, each summed over its main path:
+
+    - K13 / K14: kernel_bench's 3x3 / 1x1 shapes at batch BENCH_BATCH, on
+      its inputs (``shape_case``), bf16 in and out (its "q8"), against its
+      "xla" (cuDNN's bf16 conv) and cuDNN's f32 conv (TF32 off), each with
+      the bias, then SiLU. First each shape's "q8" and "q8c" (int8 in and
+      out) are held against their plain versions (Q8_REST_TOL), at the
+      batch whose launches are the rows';
+    - the pixel-major pair: every call of one "xla_q8" served forward at
+      batch 4 (``xlq_engine`` on ``x4``), against the f32 cuDNN conv;
+    - the dense 5x5: the 18 block-diagonal calls (``dw``), against cuDNN's
+      f32 depthwise conv, K7 beside.
+
+    ``counts``: {kernel: launches of its main path}."""
+    import torch.nn.functional as F
+
+    from rep_yolo_tpu_torch.ops.kernels import conv_flat as KC
+    from rep_yolo_tpu_torch.ops.kernels import conv_pm as KPM
+    from rep_yolo_tpu_torch.ops.kernels import neck_flat as KNF
+    from rep_yolo_tpu_torch.ops.kernels import reset_launch_counts
+    from rep_yolo_tpu_torch.tools.kernel_bench import SHAPES, shape_case
+
+    names = ("conv3x3_cmajor_q8", "conv1x1_cmajor_q8", "conv5x5_q8",
+             "conv3x3_pm_q8", "conv1x1_pm_q8")
+    agg = {n: {} for n in names}
+    per_shape, checks = [], []
+    B = BENCH_BATCH
+    for k, C, O, H in SHAPES:
+        # kernel_bench's own inputs and calls at this shape
+        fns = shape_case(k, C, O, H, B, dev)
+        name = "conv3x3_cmajor_q8" if k == 3 else "conv1x1_cmajor_q8"
+        for v, out_s in (("q8", None), ("q8c", S_IN_BENCH)):
+            got, ref = fns[v](), fns[v + "_plain"]()
+            torch.cuda.synchronize()
+            err, ok, detail = q8_rest_gate(torch, got, ref, out_s)
+            r = {"kernel": name, "variant": v, "shape": [B, C, H, H, O, k],
+                 "dtype": str(got.dtype), "max_abs_err": err, **detail}
+            checks.append(r)
+            if not ok:
+                raise AssertionError(f"{name} differs from its plain version "
+                                     f"at kernel_bench's batch: {r}")
+            errs[name] = max(errs.get(name, 0.0), err)
+            del got, ref
+        t = rest_times(torch, fns["q8"], fns["q8_plain"], fns["xla"])
+        t["library_f32_ms"] = device_ms(torch, fns["xla_f32"], reps=5,
+                                        whole=False)
+        npix = B * H * H
+        nbytes = 2 * npix * (C + O) + O * C * k * k + 8 * O
+        ops = 2.0 * npix * O * C * k * k
+        t.update(zip(("bound_ms", "bound_by"), bound(nbytes, ops, INT8_PEAK)),
+                 bytes=nbytes, ops=ops)
+        add_times(agg[name], t)
+        agg[name]["library_f32_ms"] = agg[name].get(
+            "library_f32_ms", 0.0) + t["library_f32_ms"]
+        per_shape.append({"kernel": name, "shape": [B, C, H, H, O, k], **t})
+        del fns
+    # rows 11 / 12: each distinct call of one served "xla_q8" forward
+    xi = x4.to(xlq_engine.dtype)
+    xlq_engine.infer(xi)
+    timed: dict = {}
+    for name, a in record_pm_calls(torch, xlq_engine.model, xi):
+        out_s = a["out_scale"]
+        if name == "conv3x3_pm_q8":
+            xs, hw, k = [a["x"]], (a["H"], a["W"]), 3
+        else:
+            xs = a["xs"] if isinstance(a["xs"], (list, tuple)) else [a["xs"]]
+            n = xs[0].shape[1]
+            hw, k = (n, 1), 1
+        qw = a["qw"]
+        sig = (name, tuple(tuple(t.shape) for t in xs), str(xs[0].dtype),
+               qw.c_out, out_s is None)
+        row = timed.get(sig)
+        if row is None:
+            Bq = xs[0].shape[0]
+            xf = torch.cat(xs, -1).float().reshape(Bq, *hw, -1).permute(
+                0, 3, 1, 2).contiguous()
+            cin = xf.shape[1]
+            wf = qw.w_q.float().permute(0, 3, 1, 2)[:, :cin].contiguous()
+            kfn = getattr(KPM, name)
+            pfn = getattr(KPM, name + "_plain")
+            t = rest_times(torch, lambda: kfn(**a), lambda: pfn(**a),
+                           lambda: F.conv2d(xf, wf, qw.bias, padding=k // 2))
+            npix = Bq * hw[0] * hw[1]
+            nbytes = (sum(u.numel() * u.element_size() for u in xs)
+                      + qw.w_q.numel() + 8 * qw.c_out
+                      + npix * qw.c_out * (2 if out_s is None else 1))
+            ops = 2.0 * npix * qw.c_out * cin * k * k
+            t.update(zip(("bound_ms", "bound_by"),
+                         bound(nbytes, ops, INT8_PEAK)), bytes=nbytes, ops=ops)
+            row = timed[sig] = {"kernel": name, "signature": str(sig[1:]),
+                                "calls_per_forward": 0, **t}
+        row["calls_per_forward"] += 1
+        add_times(agg[name], row)
+    # row 9, dense: the 18 block-diagonal calls, K7 beside
+    dense_rows, k7_ms = [], 0.0
+    for a, bd in dw:
+        x = a["x"]
+        C = bd.c_out
+        xf = x.permute(0, 3, 1, 2).float().contiguous()
+        wf = a["qd"].w_q.float().reshape(C, 1, 5, 5)
+        t = rest_times(
+            torch, lambda: KC.conv5x5_q8(x, bd, a["s_in"], a["act"],
+                                         a["out_scale"]),
+            lambda: KC.conv5x5_q8_plain(x, bd, a["s_in"], a["act"],
+                                        a["out_scale"]),
+            lambda: F.conv2d(xf, wf, a["qd"].bias, padding=2, groups=C))
+        t["k7_ms"] = device_ms(torch, lambda: KNF.dwconv5x5_q8(**a))
+        k7_ms += t["k7_ms"]
+        nbytes = (x.numel() * (1 + (4 if a["out_scale"] is None else 1))
+                  + bd.w_q.numel() + 8 * C)
+        ops = 2.0 * 25 * C * x.numel()          # the dense sum it computes
+        t.update(zip(("bound_ms", "bound_by"), bound(nbytes, ops, INT8_PEAK)),
+                 bytes=nbytes, ops=ops)
+        add_times(agg["conv5x5_q8"], t)
+        dense_rows.append({"shape": list(x.shape), **t})
+    reset_launch_counts()
+    kernels = []
+    for name, src, replaces, lib_call in (
+            ("conv3x3_cmajor_q8", "conv_cmajor_q8", "conv_kernel.py:226",
+             "F.conv2d (cuDNN, bf16, channels_last, with the bias) then "
+             "F.silu: kernel_bench's xla"),
+            ("conv1x1_cmajor_q8", "conv_cmajor_q8", "conv_kernel.py:296",
+             "F.conv2d (cuDNN, bf16, channels_last, with the bias) then "
+             "F.silu: kernel_bench's xla"),
+            ("conv5x5_q8", "conv_flat", "conv_flat.py:548",
+             "F.conv2d(groups=C), cuDNN f32 depthwise"),
+            ("conv3x3_pm_q8", "conv_flat", "conv_pm.py:184",
+             "F.conv2d (cuDNN, f32, TF32 off, with the bias)"),
+            ("conv1x1_pm_q8", "conv_flat", "conv_pm.py:260",
+             "F.conv2d (cuDNN, f32, TF32 off, with the bias)")):
+        row = kernel_row(name, f"rep_yolo_tpu_torch/csrc/{src}.cu",
+                         f"rep_yolo_tpu/ops/pallas/{replaces}", counts[name],
+                         errs[name], agg[name], INT8_PEAK)
+        row["library_call"] = lib_call
+        if "library_f32_ms" in agg[name]:
+            row["library_f32_ms"] = agg[name]["library_f32_ms"]
+        if name == "conv5x5_q8":
+            row["k7_ms"] = k7_ms
+        kernels.append(row)
+    emit({"phase": "times_q8_rest", "ok": True,
+          "note": f"K13 / K14 summed over kernel_bench's 3x3 / 1x1 shapes at "
+                  f"batch {BENCH_BATCH}, bf16 in and out; the pixel-major pair "
+                  "over one served xla_q8 forward at batch 4 (each call times "
+                  "its calls per forward); the dense 5x5 over the 18 "
+                  "block-diagonal calls at batch 4. ms, library_ms: device "
+                  "time under the profiler from a cold L2; event_ms: CUDA "
+                  "events, median of 5 runs of 5 back-to-back calls "
+                  "(L2-warm); bound_ms: bytes over 3.35 TB/s or int8 ops over "
+                  "1,979 TOP/s (the dense 5x5: all 25 C^2 products a pixel)",
+          "per_forward": {n: {k: v for k, v in agg[n].items()} for n in names},
+          "checks_k13_k14": checks, "tolerance": Q8_REST_TOL,
+          "per_shape": per_shape, "pm_calls": list(timed.values()),
+          "dense5x5": dense_rows})
     return kernels
 
 
@@ -2623,6 +3152,7 @@ def main(argv=None) -> int:
         phase_int8_e2e(torch, dev)
         phase_int8_e2e(torch, dev, neck=True)
         phase_bf16_e2e(torch, dev)
+        phase_xla_q8_e2e(torch, dev)
         counts, e2e_ms, engine, x = phase_serving(torch, dev)
         _, e2e_bb_ms, engine_bb, _ = phase_serving(torch, dev, "int8",
                                                    neck=False)
@@ -2630,9 +3160,13 @@ def main(argv=None) -> int:
                                                            "int8")
         counts_bf16, e2e_bf16_ms, engine_bf16, _ = phase_serving(
             torch, dev, der_fast="bf16")
+        counts_xlq, e2e_xlq_ms, engine_xlq, _ = phase_serving(
+            torch, dev, der_fast="xla_q8")
         calls = phase_kernels_neck(torch, engine_q8, x, errs)
+        bd_counts, dw = phase_kernels_q8_rest(torch, dev, errs, calls)
         engines = {"float32": engine, "int8_backbone": engine_bb,
-                   "int8": engine_q8, "bf16_der_fast": engine_bf16}
+                   "int8": engine_q8, "bf16_der_fast": engine_bf16,
+                   "xla_q8": engine_xlq}
         phase_profile(torch, engines, x)
         ab = phase_served_ab(torch, engines, x.cpu().numpy())
         for e in engines.values():
@@ -2640,6 +3174,14 @@ def main(argv=None) -> int:
         kernels = phase_times(torch, dev, counts, errs)
         kernels += phase_times_q8(torch, dev, counts_q8, errs, calls)
         kernels += phase_times_cm(torch, dev, counts_bf16, errs)
+        bench_counts = phase_kernel_bench(torch, dev)
+        rest_counts = {**{k: bench_counts[k] for k in (
+            "conv3x3_cmajor_q8", "conv1x1_cmajor_q8")},
+            "conv5x5_q8": bd_counts["conv5x5_q8"],
+            **{k: counts_xlq[k] for k in PM_KERNELS}}
+        kernels += phase_times_q8_rest(torch, dev, rest_counts, errs, dw,
+                                       engine_xlq, x)
+        del dw
         dw_calls, attn_err = phase_kernels_eval(torch, dev, errs, x)
         dw_agg, attn_agg, nms_t = phase_times_eval(torch, dev, dw_calls)
     # training needs autograd: outside inference_mode; cuDNN picks its
@@ -2669,7 +3211,8 @@ def main(argv=None) -> int:
     emit({"card": card, "served_batch4_ms": e2e_ms,
           "served_batch4_int8_backbone_ms": e2e_bb_ms,
           "served_batch4_int8_ms": e2e_q8_ms,
-          "served_batch4_bf16_der_fast_ms": e2e_bf16_ms, "served_ab_ms": ab,
+          "served_batch4_bf16_der_fast_ms": e2e_bf16_ms,
+          "served_batch4_xla_q8_ms": e2e_xlq_ms, "served_ab_ms": ab,
           "total_s": round(time.perf_counter() - t0, 3)})
     kline = {"kernels": kernels}
     print(json.dumps(kline), flush=True)

@@ -6,11 +6,19 @@
 // K5 conv1x1_q8 replaces conv_flat.py:conv1x1_flat_q8 (_conv1_flat_q8_kernel,
 // _conv1_pool_flat_q8_kernel): a 1x1 conv over 1-3 input sections (a concat
 // that is never materialised), optionally followed by a 2x2/s2 max pool.
+// K4 with 5x5 taps (KS = 5, halo 2, stride 1) replaces the dense case of
+// conv_flat.py:conv5x5_flat_q8 (_conv5_flat_q8_kernel / _whole): the same
+// kernel, templated on its tap count.
+// K4 and K5 also carry the pixel-major contract of conv_pm.py:conv3x3_pm_q8
+// and conv1x1_pm_q8 (ops/kernels/conv_pm.py): pixel-major (B, H*W, C) is
+// this NHWC layout, so those rows need only ReLU (q8_common.cuh), a bfloat16
+// store beside the float32 and int8 ones, and float input for K5.
 //
 // Layout: channels-last int8 (B, H, W, C), C a multiple of 4, so a 4-channel
 // pack is one 32-bit word that __dp4a multiplies against a weight pack. K4
 // also takes float32 input (any C) and quantizes it while staging it, padding
-// the channels to a multiple of 4 with zeros (exact: the weights there are 0).
+// the channels to a multiple of 4 with zeros (exact: the weights there are 0);
+// K5 takes float32 sections whose channels are multiples of 4.
 // The weights arrive packed by the wrapper, per block of TO = 32 output
 // channels and chunk of KC input channels, as [tap][KC/4][TO] words, so a
 // block stages them with one contiguous copy.
@@ -25,8 +33,9 @@
 // bank conflicts.
 //
 // Epilogue (q8_common.cuh), in the JAX package's operation order and
-// rounding: y = acc * (s_w * s_in) + bias, SiLU, then int8 at
-// clip(rint(y * (1/out_scale))) or float32. With the pool, the max of the
+// rounding: y = acc * (s_w * s_in) + bias, SiLU or ReLU, then int8 at
+// clip(rint(y * (1/out_scale))), float32, or bfloat16 rounded once from the
+// float32 value (the JAX y.astype(bf16)). With the pool, the max of the
 // window's four f32 values is requantized: requant is monotone, so this equals
 // conv, requant, then pool.
 //
@@ -41,6 +50,7 @@
 // activations; this simple version runs on the dp4a integer pipe, far below
 // the tensor cores (IMMA / wgmma with TMA staging is later work).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -55,13 +65,31 @@ constexpr int NTHREADS = 128;  // 4 warps
 constexpr int TILE_H = 8;      // K4 output tile: 8 rows x 16 columns
 constexpr int TILE_W = 16;
 
+// Output types (the wrappers' out_mode).
+constexpr int OUT_I8 = 0;
+constexpr int OUT_F32 = 1;
+constexpr int OUT_BF16 = 2;
+
 __device__ __forceinline__ int odd_pitch(int kp) { return kp | 1; }
 
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+}
+
 // Writes the thread's 8 channels of one output pixel.
-template <bool F32_OUT>
 __device__ __forceinline__ void store8(void* y, long long pix, int O, int og0,
-                                       const float* v, float inv_out) {
-    if (F32_OUT) {
+                                       const float* v, float inv_out, int out_mode) {
+    if (out_mode == OUT_BF16) {
+        __nv_bfloat16* dst = (__nv_bfloat16*)y + pix * O + og0;
+        if (og0 + OPT <= O && (O % 8) == 0) {
+            *(uint4*)dst = make_uint4(pack_bf16x2(v[0], v[1]), pack_bf16x2(v[2], v[3]),
+                                      pack_bf16x2(v[4], v[5]), pack_bf16x2(v[6], v[7]));
+        } else {
+            for (int o = 0; o < OPT; ++o)
+                if (og0 + o < O) dst[o] = __float2bfloat16_rn(v[o]);
+        }
+    } else if (out_mode == OUT_F32) {
         float* dst = (float*)y + pix * O + og0;
         if (og0 + OPT <= O && (O % 4) == 0) {
             ((float4*)dst)[0] = make_float4(v[0], v[1], v[2], v[3]);
@@ -87,29 +115,30 @@ __device__ __forceinline__ void store8(void* y, long long pix, int O, int og0,
 }
 
 // ---------------------------------------------------------------------------
-// K4: 3x3 conv, stride S, pad 1
+// K4: KS x KS conv (KS = 3 or 5), stride S, pad KS / 2
 // ---------------------------------------------------------------------------
 
-template <int S, bool F32_IN, bool F32_OUT>
+template <int KS, int S>
 __global__ void __launch_bounds__(NTHREADS)
 conv3x3_q8_kernel(const void* __restrict__ x, const int32_t* __restrict__ wpk,
                   const float* __restrict__ s_w, const float* __restrict__ bias,
                   void* __restrict__ y, int H, int W, int C, int C4, int KC,
                   int Ho, int Wo, int O, int tiles_x, float s_in, float inv_s_in,
-                  float inv_out, int act) {
-    constexpr int RH = (TILE_H - 1) * S + 3;
-    constexpr int RW = (TILE_W - 1) * S + 3;
+                  float inv_out, int act, int f32_in, int out_mode) {
+    constexpr int NTAP = KS * KS;
+    constexpr int RH = (TILE_H - 1) * S + KS;
+    constexpr int RW = (TILE_W - 1) * S + KS;
     constexpr int RA = RH * RW;
     extern __shared__ int4 smem4[];
     int32_t* smem = (int32_t*)smem4;
     const int kp = KC / 4;
     const int pitch = odd_pitch(kp);
     int32_t* s_x = smem;                                   // [RA][pitch]
-    int32_t* s_wt = smem + ((RA * pitch + 3) & ~3);        // [9][kp][TO]
+    int32_t* s_wt = smem + ((RA * pitch + 3) & ~3);        // [NTAP][kp][TO]
 
     const int tile = blockIdx.x, ob = blockIdx.y, b = blockIdx.z;
     const int ty0 = (tile / tiles_x) * TILE_H, tx0 = (tile % tiles_x) * TILE_W;
-    const int iy0 = ty0 * S - 1, ix0 = tx0 * S - 1;
+    const int iy0 = ty0 * S - KS / 2, ix0 = tx0 * S - KS / 2;
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     const int r = lane >> 4, c = lane & 15;      // pixel j: row r + 2j, col c
     const int nchunks = C4 / KC;
@@ -129,7 +158,7 @@ conv3x3_q8_kernel(const void* __restrict__ x, const int32_t* __restrict__ wpk,
             int32_t v = 0;
             if (iy >= 0 && iy < H && ix >= 0 && ix < W) {
                 const long long base = ((long long)b * H + iy) * W + ix;
-                if (F32_IN) {
+                if (f32_in) {
                     const float* xf = (const float*)x + base * C;
                     const int c0 = ch * KC + 4 * p;
                     uint32_t pack = 0;
@@ -144,14 +173,14 @@ conv3x3_q8_kernel(const void* __restrict__ x, const int32_t* __restrict__ wpk,
             }
             s_x[pix * pitch + p] = v;
         }
-        const int nw = 9 * kp * TO / 4;
-        const int4* src = (const int4*)(wpk + (long long)(ob * nchunks + ch) * 9 * kp * TO);
+        const int nw = NTAP * kp * TO / 4;
+        const int4* src = (const int4*)(wpk + (long long)(ob * nchunks + ch) * NTAP * kp * TO);
         for (int i = threadIdx.x; i < nw; i += NTHREADS) ((int4*)s_wt)[i] = src[i];
         __syncthreads();
 
 #pragma unroll 1
-        for (int tap = 0; tap < 9; ++tap) {
-            const int ky = tap / 3, kx = tap - 3 * ky;
+        for (int tap = 0; tap < NTAP; ++tap) {
+            const int ky = tap / KS, kx = tap - KS * ky;
             const int32_t* xa = s_x + ((r * S + ky) * RW + c * S + kx) * pitch;
             const int32_t* wa = s_wt + tap * kp * TO + warp * OPT;
             for (int p = 0; p < kp; ++p) {
@@ -184,7 +213,7 @@ conv3x3_q8_kernel(const void* __restrict__ x, const int32_t* __restrict__ wpk,
         float v[OPT];
 #pragma unroll
         for (int o = 0; o < OPT; ++o) v[o] = epi(acc[j][o], sw[o], s_in, bb[o], act);
-        store8<F32_OUT>(y, ((long long)b * Ho + oy) * Wo + ox, O, og0, v, inv_out);
+        store8(y, ((long long)b * Ho + oy) * Wo + ox, O, og0, v, inv_out, out_mode);
     }
 }
 
@@ -193,18 +222,19 @@ conv3x3_q8_kernel(const void* __restrict__ x, const int32_t* __restrict__ wpk,
 // ---------------------------------------------------------------------------
 
 struct Sections {
-    const int32_t* x[3];   // (B, H, W, C_s) int8, as words
+    const void* x[3];      // (B, H, W, C_s) int8 (read as words) or float32
     int c[3];              // channels of each section (multiples of KC)
     int off[3];            // first global channel of each section
     int n;
 };
 
-template <bool POOL, bool F32_OUT>
+template <bool POOL, bool F32_IN>
 __global__ void __launch_bounds__(NTHREADS)
 conv1x1_q8_kernel(Sections secs, const int32_t* __restrict__ wpk,
                   const float* __restrict__ s_w, const float* __restrict__ bias,
                   void* __restrict__ y, long long npix_out, int H, int W,
-                  int Ctot, int KC, int O, float s_in, float inv_out, int act) {
+                  int Ctot, int KC, int O, float s_in, float inv_s_in,
+                  float inv_out, int act, int out_mode) {
     extern __shared__ int4 smem4[];
     int32_t* smem = (int32_t*)smem4;
     const int kp = KC / 4;
@@ -229,7 +259,7 @@ conv1x1_q8_kernel(Sections secs, const int32_t* __restrict__ wpk,
         const int g0 = ch * KC;
         int s = 0;
         while (s + 1 < secs.n && g0 >= secs.off[s + 1]) ++s;
-        const int32_t* xs = secs.x[s];
+        const void* xs = secs.x[s];
         const int cw = secs.c[s] / 4;                  // words per pixel
         const int w0 = (g0 - secs.off[s]) / 4;         // first word of the chunk
         __syncthreads();
@@ -249,7 +279,19 @@ conv1x1_q8_kernel(Sections secs, const int32_t* __restrict__ wpk,
                 pix = tile * SLOTS + slot;
                 ok = pix < npix_out;
             }
-            s_x[slot * pitch + p] = ok ? xs[pix * cw + w0 + p] : 0;
+            int32_t v = 0;
+            if (ok) {
+                if (F32_IN) {
+                    const float4 f = ((const float4*)xs)[pix * cw + w0 + p];
+                    v = (int32_t)((quant1(f.x, inv_s_in) & 0xff)
+                                  | ((quant1(f.y, inv_s_in) & 0xff) << 8)
+                                  | ((quant1(f.z, inv_s_in) & 0xff) << 16)
+                                  | ((uint32_t)(quant1(f.w, inv_s_in) & 0xff) << 24));
+                } else {
+                    v = ((const int32_t*)xs)[pix * cw + w0 + p];
+                }
+            }
+            s_x[slot * pitch + p] = v;
         }
         const int nw = kp * TO / 4;
         const int4* src = (const int4*)(wpk + (long long)(ob * nchunks + ch) * kp * TO);
@@ -290,7 +332,7 @@ conv1x1_q8_kernel(Sections secs, const int32_t* __restrict__ wpk,
             for (int j = 1; j < PPT; ++j) m = fmaxf(m, epi(acc[j][o], sw[o], s_in, bb[o], act));
             v[o] = m;
         }
-        store8<F32_OUT>(y, q, O, og0, v, inv_out);
+        store8(y, q, O, og0, v, inv_out, out_mode);
     } else {
 #pragma unroll
         for (int j = 0; j < PPT; ++j) {
@@ -299,87 +341,92 @@ conv1x1_q8_kernel(Sections secs, const int32_t* __restrict__ wpk,
             float v[OPT];
 #pragma unroll
             for (int o = 0; o < OPT; ++o) v[o] = epi(acc[j][o], sw[o], s_in, bb[o], act);
-            store8<F32_OUT>(y, pix, O, og0, v, inv_out);
+            store8(y, pix, O, og0, v, inv_out, out_mode);
         }
     }
 }
 
-template <int S, bool F32_IN, bool F32_OUT>
+template <int KS, int S>
 cudaError_t launch3(const void* x, const int32_t* wpk, const float* s_w,
                     const float* bias, void* y, int B, int H, int W, int C, int C4,
                     int KC, int Ho, int Wo, int O, float s_in, float inv_s_in,
-                    float inv_out, int act, cudaStream_t stream) {
-    constexpr int RA = ((TILE_H - 1) * S + 3) * ((TILE_W - 1) * S + 3);
+                    float inv_out, int act, int f32_in, int out_mode,
+                    cudaStream_t stream) {
+    constexpr int RA = ((TILE_H - 1) * S + KS) * ((TILE_W - 1) * S + KS);
     const int kp = KC / 4;
-    const size_t bytes = (size_t)(((RA * (kp | 1) + 3) & ~3) + 9 * kp * TO) * 4;
-    cudaError_t err = set_smem(conv3x3_q8_kernel<S, F32_IN, F32_OUT>, bytes);
+    const size_t bytes = (size_t)(((RA * (kp | 1) + 3) & ~3) + KS * KS * kp * TO) * 4;
+    cudaError_t err = set_smem(conv3x3_q8_kernel<KS, S>, bytes);
     if (err != cudaSuccess) return err;
     const int tiles_x = (Wo + TILE_W - 1) / TILE_W;
     const int tiles = tiles_x * ((Ho + TILE_H - 1) / TILE_H);
     dim3 grid(tiles, (O + TO - 1) / TO, B);
-    conv3x3_q8_kernel<S, F32_IN, F32_OUT><<<grid, NTHREADS, bytes, stream>>>(
+    conv3x3_q8_kernel<KS, S><<<grid, NTHREADS, bytes, stream>>>(
         x, wpk, s_w, bias, y, H, W, C, C4, KC, Ho, Wo, O, tiles_x, s_in, inv_s_in,
-        inv_out, act);
+        inv_out, act, f32_in, out_mode);
     return cudaGetLastError();
 }
 
-template <bool POOL, bool F32_OUT>
+template <bool POOL, bool F32_IN>
 cudaError_t launch1(const Sections& secs, const int32_t* wpk, const float* s_w,
                     const float* bias, void* y, int B, int H, int W, int Ctot,
-                    int KC, int O, float s_in, float inv_out, int act,
-                    cudaStream_t stream) {
+                    int KC, int O, float s_in, float inv_s_in, float inv_out,
+                    int act, int out_mode, cudaStream_t stream) {
     const int kp = KC / 4;
     const size_t bytes = (size_t)(((32 * PPT * (kp | 1) + 3) & ~3) + kp * TO) * 4;
-    cudaError_t err = set_smem(conv1x1_q8_kernel<POOL, F32_OUT>, bytes);
+    cudaError_t err = set_smem(conv1x1_q8_kernel<POOL, F32_IN>, bytes);
     if (err != cudaSuccess) return err;
     const long long npix_out = POOL ? (long long)B * (H / 2) * (W / 2)
                                     : (long long)B * H * W;
     const long long per = POOL ? 32 : 32 * PPT;
     dim3 grid((unsigned)((npix_out + per - 1) / per), (O + TO - 1) / TO, 1);
-    conv1x1_q8_kernel<POOL, F32_OUT><<<grid, NTHREADS, bytes, stream>>>(
-        secs, wpk, s_w, bias, y, npix_out, H, W, Ctot, KC, O, s_in, inv_out, act);
+    conv1x1_q8_kernel<POOL, F32_IN><<<grid, NTHREADS, bytes, stream>>>(
+        secs, wpk, s_w, bias, y, npix_out, H, W, Ctot, KC, O, s_in, inv_s_in,
+        inv_out, act, out_mode);
     return cudaGetLastError();
 }
 
 }  // namespace
 
 // x (B, H, W, C) f32 (f32_in) or (B, H, W, C4) int8; wpk packed words; y
-// (B, Ho, Wo, O) f32 (f32_out) or int8. Returns a cudaError_t.
+// (B, Ho, Wo, O) int8 (out_mode 0), f32 (1) or bf16 (2); ks 3 (stride 1 or
+// 2) or 5 (stride 1); act 0 none, 1 SiLU, 2 ReLU. Returns a cudaError_t.
 extern "C" int conv3x3_q8(const void* x, const int32_t* wpk, const float* s_w,
                           const float* bias, void* y, int B, int H, int W, int C,
-                          int C4, int KC, int stride, int O, int f32_in, int f32_out,
+                          int C4, int KC, int ks, int stride, int O, int f32_in,
+                          int out_mode, float s_in, float inv_s_in, float inv_out,
+                          int act, void* stream_ptr) {
+    cudaStream_t stream = (cudaStream_t)stream_ptr;
+    if (B <= 0 || H <= 0 || W <= 0 || O <= 0) return 0;
+    if (KC <= 0 || KC % 4 || KC > 64 || C4 % KC ||
+        (out_mode != OUT_I8 && out_mode != OUT_F32 && out_mode != OUT_BF16) ||
+        !((ks == 3 && (stride == 1 || stride == 2)) || (ks == 5 && stride == 1)))
+        return (int)cudaErrorInvalidValue;
+    const int Ho = (H - 1) / stride + 1, Wo = (W - 1) / stride + 1;
+#define L3(KS, S) launch3<KS, S>(x, wpk, s_w, bias, y, B, H, W, C, C4, KC, Ho, Wo, \
+                                 O, s_in, inv_s_in, inv_out, act, f32_in, out_mode, \
+                                 stream)
+    if (ks == 5) return (int)L3(5, 1);
+    return (int)(stride == 1 ? L3(3, 1) : L3(3, 2));
+#undef L3
+}
+
+// xs: n_in (<= 3) (B, H, W, C_s) sections, int8 or (f32_in) float32; wpk
+// packed words; y (B, H, W, O) or, with pool, (B, H/2, W/2, O), int8
+// (out_mode 0), f32 (1) or bf16 (2). Returns a cudaError_t.
+extern "C" int conv1x1_q8(const void* x0, const void* x1, const void* x2,
+                          int c0, int c1, int c2, int n_in, const int32_t* wpk,
+                          const float* s_w, const float* bias, void* y, int B, int H,
+                          int W, int KC, int O, int pool, int f32_in, int out_mode,
                           float s_in, float inv_s_in, float inv_out, int act,
                           void* stream_ptr) {
     cudaStream_t stream = (cudaStream_t)stream_ptr;
     if (B <= 0 || H <= 0 || W <= 0 || O <= 0) return 0;
-    if (KC <= 0 || KC % 4 || KC > 64 || C4 % KC || (stride != 1 && stride != 2))
-        return (int)cudaErrorInvalidValue;
-    const int Ho = (H - 1) / stride + 1, Wo = (W - 1) / stride + 1;
-#define L3(S, FI, FO) launch3<S, FI, FO>(x, wpk, s_w, bias, y, B, H, W, C, C4, KC, \
-                                         Ho, Wo, O, s_in, inv_s_in, inv_out, act, stream)
-    if (stride == 1) {
-        if (f32_in) return (int)(f32_out ? L3(1, true, true) : L3(1, true, false));
-        return (int)(f32_out ? L3(1, false, true) : L3(1, false, false));
-    }
-    if (f32_in) return (int)(f32_out ? L3(2, true, true) : L3(2, true, false));
-    return (int)(f32_out ? L3(2, false, true) : L3(2, false, false));
-#undef L3
-}
-
-// xs: n_in (<= 3) int8 (B, H, W, C_s) sections; wpk packed words; y (B, H, W, O)
-// or, with pool, (B, H/2, W/2, O), f32 or int8. Returns a cudaError_t.
-extern "C" int conv1x1_q8(const int32_t* x0, const int32_t* x1, const int32_t* x2,
-                          int c0, int c1, int c2, int n_in, const int32_t* wpk,
-                          const float* s_w, const float* bias, void* y, int B, int H,
-                          int W, int KC, int O, int pool, int f32_out, float s_in,
-                          float inv_out, int act, void* stream_ptr) {
-    cudaStream_t stream = (cudaStream_t)stream_ptr;
-    if (B <= 0 || H <= 0 || W <= 0 || O <= 0) return 0;
     if (n_in < 1 || n_in > 3 || KC <= 0 || KC % 4 || KC > 64 ||
+        (out_mode != OUT_I8 && out_mode != OUT_F32 && out_mode != OUT_BF16) ||
         (pool && (H % 2 || W % 2)))
         return (int)cudaErrorInvalidValue;
     Sections secs;
-    const int32_t* xp[3] = {x0, x1, x2};
+    const void* xp[3] = {x0, x1, x2};
     const int cs[3] = {c0, c1, c2};
     int off = 0;
     for (int s = 0; s < 3; ++s) {
@@ -392,9 +439,9 @@ extern "C" int conv1x1_q8(const int32_t* x0, const int32_t* x1, const int32_t* x
         }
     }
     secs.n = n_in;
-#define L1(P, FO) launch1<P, FO>(secs, wpk, s_w, bias, y, B, H, W, off, KC, O, s_in, \
-                                 inv_out, act, stream)
-    if (pool) return (int)(f32_out ? L1(true, true) : L1(true, false));
-    return (int)(f32_out ? L1(false, true) : L1(false, false));
+#define L1(P, FI) launch1<P, FI>(secs, wpk, s_w, bias, y, B, H, W, off, KC, O, s_in, \
+                                 inv_s_in, inv_out, act, out_mode, stream)
+    if (pool) return (int)(f32_in ? L1(true, true) : L1(true, false));
+    return (int)(f32_in ? L1(false, true) : L1(false, false));
 #undef L1
 }

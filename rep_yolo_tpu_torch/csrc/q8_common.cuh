@@ -1,10 +1,11 @@
-// The int8 arithmetic that the int8 kernels share (conv_flat.cu, neck_flat.cu):
+// The int8 arithmetic that the int8 kernels share (conv_flat.cu, neck_flat.cu,
+// conv_cmajor_q8.cu):
 // requantization and the conv epilogue, in the JAX package's operation order
 // and rounding. The sources that include it are compiled with --fmad=false,
 // and the products and sums are written with explicit round-to-nearest
 // intrinsics, so the results equal the plain PyTorch versions bit for bit:
-// y = acc * (s_w * s_in) + bias, SiLU as y * (1 / (1 + exp(-y))), int8 as
-// clip(rint(y * (1/out_scale)), -127, 127).
+// y = acc * (s_w * s_in) + bias, SiLU as y * (1 / (1 + exp(-y))) or ReLU as
+// max(y, 0), int8 as clip(rint(y * (1/out_scale)), -127, 127).
 
 #pragma once
 
@@ -12,6 +13,11 @@
 #include <stdint.h>
 
 namespace {
+
+// Activation codes of the epilogue, as the wrappers pass them.
+constexpr int ACT_NONE = 0;
+constexpr int ACT_SILU = 1;
+constexpr int ACT_RELU = 2;
 
 __device__ __forceinline__ int32_t quant1(float v, float inv_s) {
     float q = rintf(__fmul_rn(v, inv_s));
@@ -22,9 +28,11 @@ __device__ __forceinline__ int32_t quant1(float v, float inv_s) {
 __device__ __forceinline__ float epi(int32_t acc, float sw, float s_in, float b,
                                      int act) {
     float y = __fadd_rn(__fmul_rn(__int2float_rn(acc), __fmul_rn(sw, s_in)), b);
-    if (act) {
+    if (act == ACT_SILU) {
         const float sig = __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-y)));
         y = __fmul_rn(y, sig);
+    } else if (act == ACT_RELU) {
+        y = fmaxf(y, 0.0f);
     }
     return y;
 }

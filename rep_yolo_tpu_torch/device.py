@@ -32,7 +32,8 @@ COMMON_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
 # must round exactly like their plain versions (no fused multiply-add
 # contraction), or boxes at the threshold and int8 requants flip.
 EXTRA_FLAGS = {"nms.cu": ["--fmad=false"], "conv_flat.cu": ["--fmad=false"],
-               "neck_flat.cu": ["--fmad=false"]}
+               "neck_flat.cu": ["--fmad=false"],
+               "conv_cmajor_q8.cu": ["--fmad=false"]}
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}

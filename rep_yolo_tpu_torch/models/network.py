@@ -5,7 +5,8 @@ the float graph, train form (``train()`` / ``eval()``, the JAX ``train``
 argument) or deploy form, and for a deploy net with ``set_q8`` the int8
 region planned by ``models/region.py`` (the backbone, and with
 ``Q8Region.neck`` the neck and head too), or with ``set_der_fast("bf16")``
-the DER blocks on the channel-major float kernels. ``cast`` runs a deploy net
+the DER blocks on the channel-major float kernels (with ``"xla_q8"`` on the
+int8 pixel-major ones, K4 / K5). ``cast`` runs a deploy net
 in bfloat16 with float32 attention islands. Layer ``i`` lives at
 ``model.{i}``, so state keys match the reference's.
 """
@@ -94,7 +95,8 @@ class DetectionNet(nn.Module):
     folds need the input maps' scales and permutations).
 
     ``cast(dtype)`` runs the deploy net in ``dtype`` (bfloat16 serving);
-    ``set_der_fast("bf16")`` routes its DER blocks to K10 / K11."""
+    ``set_der_fast("bf16")`` routes its DER blocks to K10 / K11,
+    ``set_der_fast("xla_q8", scales=)`` to K4 / K5 int8-resident."""
 
     def __init__(self, cfg: ModelConfig, deploy: bool = False):
         super().__init__()
@@ -108,8 +110,9 @@ class DetectionNet(nn.Module):
         self.dtype: torch.dtype | None = None     # None: as loaded, no casts
         self.island_dtype = torch.float32
         self.der_fast: str | None = None
+        self.der_scales: dict[str, float] = {}
         self._der_select = der_fast_default_select
-        self._cmw: dict[int, dict] = {}
+        self._cmw: dict[int, dict | None] = {}
 
     def set_wgrad(self, enable: bool, select=None) -> None:
         """Port of the JAX ``set_pallas_wgrad(enable, select)``: with
@@ -159,13 +162,18 @@ class DetectionNet(nn.Module):
         self._plans.clear()
         self._q8w.clear()
 
-    def set_der_fast(self, mode: str | None, select=None) -> None:
-        """Port of the JAX ``set_cmajor_deploy(mode, select=)`` for mode
-        ``"bf16"`` (or None: off): every deploy DER block that passes
-        ``select(c1, h, w)`` (default ``der_fast_default_select``) runs
-        ``DERBlock.forward_cm`` on K10 / K11, in the net's activation
-        dtype."""
-        if mode not in (None, "bf16"):
+    def set_der_fast(self, mode: str | None, select=None,
+                     scales: dict[str, float] | None = None) -> None:
+        """Port of the JAX ``set_cmajor_deploy(mode, scales, select)`` for
+        modes ``"bf16"`` and ``"xla_q8"`` (or None: off): every deploy DER
+        block that passes ``select(c1, h, w)`` (default
+        ``der_fast_default_select``) runs ``DERBlock.forward_cm`` on K10 /
+        K11 in the net's activation dtype ("bf16"), or
+        ``DERBlock.forward_xla_q8`` on K4 / K5 with the calibrated
+        ``scales`` (``ops.quant.calibrate``; "xla_q8"). A block whose 13
+        scales are not all there runs its regular deploy path, as the JAX
+        ``_fast_deploy`` returns None."""
+        if mode not in (None, "bf16", "xla_q8"):
             raise ValueError(f"unknown DER fast mode {mode!r}")
         if mode is not None and not self.deploy:
             raise RuntimeError("der_fast runs the deploy form; fuse first")
@@ -174,8 +182,15 @@ class DetectionNet(nn.Module):
                                "switch in the JAX package; set_q8(None) "
                                "first")
         self.der_fast = mode
+        self.der_scales = dict(scales or {})
         self._der_select = select or der_fast_default_select
         self._cmw.clear()
+
+    def der_fast_declined(self) -> list[int]:
+        """The layers of the DER blocks that a forward since the last
+        ``set_der_fast`` selected for "xla_q8" but that ran their regular
+        path, their scales missing."""
+        return sorted(i for i, w in self._cmw.items() if w is None)
 
     def cast(self, dtype: torch.dtype,
              island_dtype: torch.dtype = torch.float32) -> None:
@@ -194,14 +209,25 @@ class DetectionNet(nn.Module):
         self._cmw.clear()
 
     def _der_cm(self, spec: LayerSpec, mod: nn.Module, x):
-        """The DER block on K10 / K11 when ``set_der_fast`` selects it, else
-        None."""
+        """The DER block on K10 / K11 ("bf16") or K4 / K5 ("xla_q8") when
+        ``set_der_fast`` selects it, else None (also for an "xla_q8" block
+        without its scales)."""
         if self.der_fast is None or not isinstance(mod, B.DERBlock) \
                 or not self._der_select(x.shape[1], x.shape[2], x.shape[3]):
             return None
         if spec.i not in self._cmw:
-            self._cmw[spec.i] = mod.cm_weights()
-        return mod.forward_cm(x.contiguous(), self._cmw[spec.i])
+            if self.der_fast == "bf16":
+                self._cmw[spec.i] = mod.cm_weights()
+            else:
+                sc = B.DERBlock.q8_scales(self.der_scales, f"l{spec.i}")
+                self._cmw[spec.i] = None if sc is None else \
+                    {"qw": mod.q8_weights(sc), "sc": sc}
+        w = self._cmw[spec.i]
+        if w is None:
+            return None
+        if self.der_fast == "bf16":
+            return mod.forward_cm(x.contiguous(), w)
+        return mod.forward_xla_q8(x, w["qw"], w["sc"])
 
     def plan_for(self, h: int, w: int) -> RegionPlan:
         """The region plan for (h, w) inputs, made once per size; the

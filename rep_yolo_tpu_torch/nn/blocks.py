@@ -33,7 +33,9 @@ calibrated input scale of the block's conv ``key`` (e.g. ``"cv2/conv"``),
 
 ``DetectionNet.set_der_fast("bf16")`` runs the deploy DER blocks through
 ``DERBlock.forward_cm`` on the channel-major float kernels (K10, K11), NCHW
-in the activation dtype.
+in the activation dtype; ``set_der_fast("xla_q8", scales=)`` through
+``DERBlock.forward_xla_q8``, int8-resident on the pixel-major wrappers of
+K4 / K5 (``ops/kernels/conv_pm.py``).
 """
 
 from __future__ import annotations
@@ -48,6 +50,7 @@ from rep_yolo_tpu_torch.ops import neck_flat as NF
 from rep_yolo_tpu_torch.ops.kernels import axial_attention as K_axial
 from rep_yolo_tpu_torch.ops.kernels import conv_flat as K_conv
 from rep_yolo_tpu_torch.ops.kernels import conv_kernel as K_cm
+from rep_yolo_tpu_torch.ops.kernels import conv_pm as K_pm
 from rep_yolo_tpu_torch.ops.kernels import neck_flat as K_neck
 from rep_yolo_tpu_torch.ops.kernels import wgrad as K_wgrad
 from rep_yolo_tpu_torch.ops.quant import f32
@@ -281,6 +284,23 @@ DER_NEXT = {"st1": "st2", "st2": "st3", "st3": "cv0_1", "cv0_1": "st4",
             "st6": "cv2_2", "cv2_2": "cv1"}
 
 
+def _copy_as(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``t`` as a contiguous tensor of ``dtype``, in one copy."""
+    return torch.empty(t.shape, dtype=dtype, device=t.device).copy_(t)
+
+
+def der_chain(conv, x):
+    """The deploy DER block's dataflow up to its concat (JAX
+    ``_fast_deploy``'s ``run_chain``): ``conv(name, h)`` runs one of the 12
+    convs; returns the three sections [x1, x4_1, x4_3] that cv1 reads."""
+    x1 = conv("st1", x)
+    x3 = conv("st3", conv("st2", x1))
+    x4_1 = conv("cv0_2", conv("st4", conv("cv0_1", x3)))
+    x4_2 = conv("cv1_2", conv("st5", conv("cv1_1", x4_1)))
+    x4_3 = conv("cv2_2", conv("st6", conv("cv2_1", x4_2)))
+    return [x1, x4_1, x4_3]
+
+
 class DERBlock(nn.Module):
     """Three full-width RepS stages, three half-width stages between 1x1
     convs, concat [stage1, mid1, mid3] -> 1x1 (reference
@@ -361,13 +381,31 @@ class DERBlock(nn.Module):
                 return K_conv.conv3x3_q8(h, q, s, 1, "silu", nxt)
             return K_conv.conv1x1_q8(h, q, s, "silu", nxt)
 
-        x1 = conv("st1", x)
-        x3 = conv("st3", conv("st2", x1))
-        x4_1 = conv("cv0_2", conv("st4", conv("cv0_1", x3)))
-        x4_2 = conv("cv1_2", conv("st5", conv("cv1_1", x4_1)))
-        x4_3 = conv("cv2_2", conv("st6", conv("cv2_1", x4_2)))
-        return K_conv.conv1x1_q8([x1, x4_1, x4_3], qw["cv1"], 1.0, "silu",
+        return K_conv.conv1x1_q8(der_chain(conv, x), qw["cv1"], 1.0, "silu",
                                  out_scale, pool)
+
+    def forward_xla_q8(self, x: torch.Tensor, qw: dict[str, K_conv.QConv],
+                       sc: dict[str, float]) -> torch.Tensor:
+        """The deploy block int8-resident on the pixel-major kernels (port of
+        ``_fast_deploy``, "xla_q8"): x (B, c1, H, W) NCHW float32 or
+        bfloat16 -> (B, c2, H, W) in x's dtype. The input is quantized at
+        s(st1) (inside K4's staging), every conv emits int8 at its
+        successor's input scale, and cv1 runs over the three sections at
+        s_in = 1 with their scales folded (``q8_weights``); its output is
+        rounded to bfloat16 and then cast to x's dtype, as the JAX block's
+        ``_xla_conv_q8(...).astype(x.dtype)``."""
+        B, _, H, W = x.shape
+        h = _copy_as(x.permute(0, 2, 3, 1), torch.float32)
+
+        def conv(name, h):
+            q, s, nxt = qw[name], sc[name], sc[DER_NEXT[name]]
+            if q.k == 3:
+                return K_pm.conv3x3_pm_q8(h, q, s, H, W, "silu", nxt)
+            return K_pm.conv1x1_pm_q8(h, q, s, "silu", nxt)
+
+        y = K_pm.conv1x1_pm_q8(der_chain(conv, h.reshape(B, H * W, -1)),
+                               qw["cv1"], 1.0, "silu")
+        return _copy_as(y.reshape(B, H, W, -1).permute(0, 3, 1, 2), x.dtype)
 
     def cm_weights(self) -> dict[str, K_cm.CMConv]:
         """The 13 deploy convs as K10 / K11 take them (packed at their first
@@ -389,12 +427,7 @@ class DERBlock(nn.Module):
                 return K_cm.conv3x3_cmajor(h, q, "silu")
             return K_cm.conv1x1_cmajor(h, q, "silu")
 
-        x1 = conv("st1", x)
-        x3 = conv("st3", conv("st2", x1))
-        x4_1 = conv("cv0_2", conv("st4", conv("cv0_1", x3)))
-        x4_2 = conv("cv1_2", conv("st5", conv("cv1_1", x4_1)))
-        x4_3 = conv("cv2_2", conv("st6", conv("cv2_1", x4_2)))
-        return K_cm.conv1x1_cmajor([x1, x4_1, x4_3], cw["cv1"], "silu")
+        return K_cm.conv1x1_cmajor(der_chain(conv, x), cw["cv1"], "silu")
 
 
 class SPPCSPC(nn.Module):

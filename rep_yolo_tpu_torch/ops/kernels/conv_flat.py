@@ -3,15 +3,18 @@
 Replaces ``rep_yolo_tpu/ops/pallas/conv_flat.py``: ``conv3x3_flat_q8`` (K4
 ``conv3x3_q8``, which also computes the stem's stride-2 conv that the TPU
 kernel reached by space-to-depth) and ``conv1x1_flat_q8`` (K5
-``conv1x1_q8``: 1-3 input sections, optional fused 2x2/s2 max pool).
+``conv1x1_q8``: 1-3 input sections, optional fused 2x2/s2 max pool) and
+the dense case of ``conv5x5_flat_q8`` (``conv5x5_q8``: K4 with 5x5 taps).
 Source: ``csrc/conv_flat.cu``.
 
 Activations are channels-last, ``(B, H, W, C)``: int8 at a calibrated
-per-tensor scale (C a multiple of 4), or float32 quantized inside K4 at
-``s_in``. Weights are a ``QConv``, quantized once. The output is int8 at
-``out_scale`` or, without one, float32 (the JAX kernels emit bf16 there).
-The wrappers take the plain versions for CPU tensors only; on a CUDA
-tensor they launch the kernel or raise.
+per-tensor scale (C a multiple of 4), or float32 quantized inside the
+kernel at ``s_in`` (K5: section channels multiples of 4). Weights are a
+``QConv``, quantized once. The output is int8 at ``out_scale`` or, without
+one, float32, or bfloat16 with ``out_dtype`` (the JAX kernels emit bf16
+there; ``ops/kernels/conv_pm.py`` asks for it). The activation is SiLU,
+ReLU or none. The wrappers take the plain versions for CPU tensors only;
+on a CUDA tensor they launch the kernel or raise.
 """
 
 from __future__ import annotations
@@ -26,19 +29,21 @@ from rep_yolo_tpu_torch import device as D
 from rep_yolo_tpu_torch.ops.quant import (epilogue, quantize,
                                           quantize_weights, requant)
 
-LAUNCHES = {"conv3x3_q8": 0, "conv1x1_q8": 0}
+LAUNCHES = {"conv3x3_q8": 0, "conv1x1_q8": 0, "conv5x5_q8": 0}
 _TO = 32            # output channels per block of the kernels
-_ACTS = {"silu": 1, None: 0}
+_ACTS = {"silu": 1, None: 0, "relu": 2}
+# the kernels' out_mode: int8 at out_scale, else float32 or bfloat16
+_OUT_MODES = {torch.float32: 1, torch.bfloat16: 2}
 
 
 def _lib():
     lib = D.load_kernel("conv_flat")
     if not getattr(lib, "_typed", False):
         vp, i32, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.conv3x3_q8.argtypes = [vp] * 5 + [i32] * 10 + [f] * 3 + [i32, vp]
+        lib.conv3x3_q8.argtypes = [vp] * 5 + [i32] * 11 + [f] * 3 + [i32, vp]
         lib.conv3x3_q8.restype = i32
         lib.conv1x1_q8.argtypes = [vp] * 3 + [i32] * 4 + [vp] * 4 \
-            + [i32] * 7 + [f] * 2 + [i32, vp]
+            + [i32] * 8 + [f] * 3 + [i32, vp]
         lib.conv1x1_q8.restype = i32
         lib._typed = True
     return lib
@@ -136,57 +141,127 @@ def _check_cuda(name: str, ts, qw: QConv) -> None:
             raise ValueError(f"{name}: weights on {t.device}, input on {dev}")
 
 
+def _out_mode(name: str, out_scale, out_dtype) -> tuple[int, torch.dtype]:
+    if out_scale is not None:
+        return 0, torch.int8
+    if out_dtype not in _OUT_MODES:
+        raise ValueError(f"{name}: out_dtype {out_dtype} is not float32 or "
+                         f"bfloat16")
+    return _OUT_MODES[out_dtype], out_dtype
+
+
+def _exit(y: torch.Tensor, out_scale, out_dtype) -> torch.Tensor:
+    """The epilogue's float32 values as the kernels store them: int8 at
+    ``out_scale``, else rounded once to ``out_dtype``."""
+    return requant(y, out_scale) if out_scale is not None else y.to(out_dtype)
+
+
 # ---------------------------------------------------------------------------
-# K4: 3x3
+# K4: 3x3 (and 5x5)
 # ---------------------------------------------------------------------------
 
-def conv3x3_q8_plain(x: torch.Tensor, qw: QConv, s_in: float,
-                     stride: int = 1, act: str | None = "silu",
-                     out_scale: float | None = None) -> torch.Tensor:
-    """x (B, H, W, C) int8 at ``s_in`` or float -> (B, Ho, Wo, O), pad 1.
+def _conv_kxk_plain(x, qw: QConv, s_in, stride, act, out_scale, out_dtype):
+    """x (B, H, W, C) int8 at ``s_in`` or float -> (B, Ho, Wo, O), pad k/2.
     The s32 sums are exact (float64 products of int8 values)."""
     xq = x if x.dtype == torch.int8 else quantize(x, s_in)
     C = xq.shape[-1]
     w = qw.w_q[..., :C].permute(0, 3, 1, 2).double()
     acc = F.conv2d(xq.permute(0, 3, 1, 2).double(), w, stride=stride,
-                   padding=1)
+                   padding=qw.k // 2)
     y = epilogue(acc.permute(0, 2, 3, 1), qw.s_w, qw.bias, s_in, act)
-    return requant(y, out_scale).contiguous()
+    return _exit(y, out_scale, out_dtype).contiguous()
 
 
-def conv3x3_q8(x: torch.Tensor, qw: QConv, s_in: float, stride: int = 1,
-               act: str | None = "silu",
-               out_scale: float | None = None) -> torch.Tensor:
-    """K4. CPU tensors take ``conv3x3_q8_plain``."""
-    if x.device.type == "cpu":
-        return conv3x3_q8_plain(x, qw, s_in, stride, act, out_scale)
-    _check_cuda("conv3x3_q8", [x], qw)
+def _conv_kxk(name, x, qw: QConv, s_in, stride, act, out_scale, out_dtype):
+    _check_cuda(name, [x], qw)
     B, H, W, C = x.shape
     cp = qw.w_q.shape[-1]
-    if qw.k != 3 or stride not in (1, 2) or act not in _ACTS:
-        raise ValueError(f"conv3x3_q8: k={qw.k} stride={stride} act={act}")
+    if act not in _ACTS:
+        raise ValueError(f"{name}: unknown activation {act!r}")
     if x.dtype == torch.int8:
         if C != cp:
-            raise ValueError(f"conv3x3_q8: int8 input has {C} channels, "
-                             f"the weights {cp} (a multiple of 4)")
+            raise ValueError(f"{name}: int8 input has {C} channels, the "
+                             f"weights {cp} (a multiple of 4)")
     elif x.dtype != torch.float32 or C != qw.c_in:
-        raise ValueError(f"conv3x3_q8: expected int8 or float32 input with "
+        raise ValueError(f"{name}: expected int8 or float32 input with "
                          f"{qw.c_in} channels, got {x.dtype} {C}")
+    mode, dt = _out_mode(name, out_scale, out_dtype)
     x = x.contiguous()
     kc = _chunk([cp])
     ho, wo = (H - 1) // stride + 1, (W - 1) // stride + 1
     O = qw.c_out
-    y = torch.empty((B, ho, wo, O), device=x.device,
-                    dtype=torch.float32 if out_scale is None else torch.int8)
+    y = torch.empty((B, ho, wo, O), device=x.device, dtype=dt)
     s, inv_s, inv_out = _scales(s_in, out_scale)
     err = _lib().conv3x3_q8(
         D.ptr(x), D.ptr(qw.packed(kc)), D.ptr(qw.s_w), D.ptr(qw.bias),
-        D.ptr(y), B, H, W, C, cp, kc, stride, O,
-        int(x.dtype == torch.float32), int(out_scale is None), s, inv_s,
-        inv_out, _ACTS[act], D.stream_handle(x))
-    D.check_launch("conv3x3_q8", err)
-    LAUNCHES["conv3x3_q8"] += 1
+        D.ptr(y), B, H, W, C, cp, kc, qw.k, stride, O,
+        int(x.dtype == torch.float32), mode, s, inv_s, inv_out, _ACTS[act],
+        D.stream_handle(x))
+    D.check_launch(name, err)
+    LAUNCHES[name] += 1
     return y
+
+
+def conv3x3_q8_plain(x: torch.Tensor, qw: QConv, s_in: float,
+                     stride: int = 1, act: str | None = "silu",
+                     out_scale: float | None = None,
+                     out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """x (B, H, W, C) int8 at ``s_in`` or float -> (B, Ho, Wo, O), pad k/2
+    (the weights' k: 3 here, 1 for K14's and 5 for conv5x5_q8's plain
+    versions)."""
+    return _conv_kxk_plain(x, qw, s_in, stride, act, out_scale, out_dtype)
+
+
+def conv3x3_q8(x: torch.Tensor, qw: QConv, s_in: float, stride: int = 1,
+               act: str | None = "silu", out_scale: float | None = None,
+               out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """K4. CPU tensors take ``conv3x3_q8_plain``."""
+    if x.device.type == "cpu":
+        return conv3x3_q8_plain(x, qw, s_in, stride, act, out_scale,
+                                out_dtype)
+    if qw.k != 3 or stride not in (1, 2):
+        raise ValueError(f"conv3x3_q8: k={qw.k} stride={stride}")
+    return _conv_kxk("conv3x3_q8", x, qw, s_in, stride, act, out_scale,
+                     out_dtype)
+
+
+def conv5x5_q8_plain(x: torch.Tensor, qw: QConv, s_in: float,
+                     act: str | None = "silu",
+                     out_scale: float | None = None,
+                     out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """x (B, H, W, C) int8 at ``s_in`` or float -> (B, H, W, O): a dense
+    5x5, stride 1, pad 2."""
+    return _conv_kxk_plain(x, qw, s_in, 1, act, out_scale, out_dtype)
+
+
+def conv5x5_q8(x: torch.Tensor, qw: QConv, s_in: float,
+               act: str | None = "silu", out_scale: float | None = None,
+               out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """K4 with 5x5 taps (the dense ``conv5x5_flat_q8``). CPU tensors take
+    ``conv5x5_q8_plain``."""
+    if x.device.type == "cpu":
+        return conv5x5_q8_plain(x, qw, s_in, act, out_scale, out_dtype)
+    if qw.k != 5:
+        raise ValueError(f"conv5x5_q8: the weights are {qw.k}x{qw.k}")
+    return _conv_kxk("conv5x5_q8", x, qw, s_in, 1, act, out_scale,
+                     out_dtype)
+
+
+def block_diagonal(qd) -> QConv:
+    """The dense 5x5 ``QConv`` of a depthwise one (``neck_flat.QDepthwise``)
+    as the JAX dw5_dense route builds it (``neck_flat.py:219-231``): output
+    channel o reads input channel o alone. Its per-channel weight scale is
+    the depthwise one (the maximum over 25 taps and zeros), so the int8
+    weights are the depthwise ones on the diagonal."""
+    C = qd.c
+    qc = QConv.__new__(QConv)
+    qc.w_q = torch.zeros((C, 5, 5, C), dtype=torch.int8,
+                         device=qd.w_q.device)
+    idx = torch.arange(C, device=qd.w_q.device)
+    qc.w_q[idx, :, :, idx] = qd.w_q.reshape(C, 5, 5)
+    qc.s_w, qc.bias = qd.s_w, qd.bias
+    qc.c_in, qc.k, qc._packed = C, 5, {}
+    return qc
 
 
 # ---------------------------------------------------------------------------
@@ -199,55 +274,61 @@ def _pool2(y: torch.Tensor) -> torch.Tensor:
 
 
 def conv1x1_q8_plain(xs, qw: QConv, s_in: float, act: str | None = "silu",
-                     out_scale: float | None = None,
-                     pool: bool = False) -> torch.Tensor:
+                     out_scale: float | None = None, pool: bool = False,
+                     out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """conv1x1(concat(xs, -1)) for int8 sections (B, H, W, C_s) at
-    ``s_in`` (a section's own scale folded into ``qw``), then requant, then
-    (``pool``) the 2x2/s2 max pool."""
+    ``s_in`` (a section's own scale folded into ``qw``) or float sections
+    quantized at ``s_in``, then the exit (int8 at ``out_scale``, else
+    ``out_dtype``), then (``pool``) the 2x2/s2 max pool."""
     xs = list(xs) if isinstance(xs, (list, tuple)) else [xs]
     x = torch.cat(xs, -1) if len(xs) > 1 else xs[0]
     if x.dtype != torch.int8:
         x = quantize(x, s_in)
     w = qw.w_q.reshape(qw.c_out, -1)[:, :x.shape[-1]]
     acc = torch.matmul(x.double(), w.double().t())
-    y = requant(epilogue(acc, qw.s_w, qw.bias, s_in, act), out_scale)
+    y = _exit(epilogue(acc, qw.s_w, qw.bias, s_in, act), out_scale,
+              out_dtype)
     return (_pool2(y) if pool else y).contiguous()
 
 
 def conv1x1_q8(xs, qw: QConv, s_in: float, act: str | None = "silu",
-               out_scale: float | None = None,
-               pool: bool = False) -> torch.Tensor:
-    """K5. CPU tensors take ``conv1x1_q8_plain``."""
+               out_scale: float | None = None, pool: bool = False,
+               out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """K5. CPU tensors take ``conv1x1_q8_plain``. The sections are all int8
+    or all float32; their channel counts are multiples of 4."""
     xs = list(xs) if isinstance(xs, (list, tuple)) else [xs]
     if xs[0].device.type == "cpu":
-        return conv1x1_q8_plain(xs, qw, s_in, act, out_scale, pool)
+        return conv1x1_q8_plain(xs, qw, s_in, act, out_scale, pool,
+                                out_dtype)
     _check_cuda("conv1x1_q8", xs, qw)
     B, H, W, _ = xs[0].shape
     cs = [t.shape[-1] for t in xs]
+    dt_in = xs[0].dtype
     if not 1 <= len(xs) <= 3 or qw.k != 1 or act not in _ACTS:
         raise ValueError(f"conv1x1_q8: {len(xs)} sections, k={qw.k}, "
                          f"act={act}")
-    if any(t.dtype != torch.int8 or t.shape[:3] != (B, H, W) for t in xs) \
+    if dt_in not in (torch.int8, torch.float32) \
+            or any(t.dtype != dt_in or t.shape[:3] != (B, H, W) for t in xs) \
             or any(c % 4 for c in cs) or sum(cs) != qw.w_q.shape[-1]:
-        raise ValueError(f"conv1x1_q8: expected int8 sections (B, H, W, C) "
-                         f"with C multiples of 4 summing to "
-                         f"{qw.w_q.shape[-1]}, got "
+        raise ValueError(f"conv1x1_q8: expected int8 or float32 sections "
+                         f"(B, H, W, C) of one dtype with C multiples of 4 "
+                         f"summing to {qw.w_q.shape[-1]}, got "
                          f"{[(t.dtype, tuple(t.shape)) for t in xs]}")
     if pool and (H % 2 or W % 2):
         raise ValueError(f"conv1x1_q8: pool needs even H, W, got {H}x{W}")
+    mode, dt = _out_mode("conv1x1_q8", out_scale, out_dtype)
     xs = [t.contiguous() for t in xs]
     kc = _chunk(cs)
     O = qw.c_out
     shape = (B, H // 2, W // 2, O) if pool else (B, H, W, O)
-    y = torch.empty(shape, device=xs[0].device,
-                    dtype=torch.float32 if out_scale is None else torch.int8)
-    s, _, inv_out = _scales(s_in, out_scale)
+    y = torch.empty(shape, device=xs[0].device, dtype=dt)
+    s, inv_s, inv_out = _scales(s_in, out_scale)
     ptrs = [D.ptr(t) for t in xs] + [None] * (3 - len(xs))
     cs3 = cs + [0] * (3 - len(cs))
     err = _lib().conv1x1_q8(
         *ptrs, *cs3, len(xs), D.ptr(qw.packed(kc)), D.ptr(qw.s_w),
         D.ptr(qw.bias), D.ptr(y), B, H, W, kc, O, int(pool),
-        int(out_scale is None), s, inv_out, _ACTS[act],
+        int(dt_in == torch.float32), mode, s, inv_s, inv_out, _ACTS[act],
         D.stream_handle(xs[0]))
     D.check_launch("conv1x1_q8", err)
     LAUNCHES["conv1x1_q8"] += 1

@@ -1,4 +1,5 @@
-"""Channel-major float 3x3 and 1x1 convolutions: CUDA kernels + plain versions.
+"""Channel-major 3x3 and 1x1 convolutions, float and int8: CUDA kernels +
+plain versions.
 
 Replaces ``rep_yolo_tpu/ops/pallas/conv_kernel.py``: ``conv3x3_cmajor`` (K10
 ``conv3x3_cmajor``: 3x3, stride 1, zero padding 1) and ``conv1x1_cmajor``
@@ -12,6 +13,14 @@ sums and the epilogue are float32 with one rounding at the end; the bias is
 the float32 value of the conv's bias parameter. Weights are a ``CMConv``,
 packed once per dtype. The wrappers take the plain versions for CPU tensors
 only; on a CUDA tensor they launch the kernel or raise.
+
+And the int8 ones, ``conv3x3_cmajor_q8`` (K13) and ``conv1x1_cmajor_q8``
+(K14, 1-3 sections), which the kernel benches reach
+(``rep_yolo_tpu_torch/tools/kernel_bench*.py``). Source:
+``csrc/conv_cmajor_q8.cu``. The input (B, C, H, W) is int8 at ``s_in`` or
+float32 / bfloat16 quantized in the kernel at ``s_in``; the weights are a
+``CMQConv``, quantized once per output channel; the output is bfloat16
+(the float32 epilogue rounded once) or int8 at ``out_scale``.
 """
 
 from __future__ import annotations
@@ -22,8 +31,11 @@ import torch
 import torch.nn.functional as F
 
 from rep_yolo_tpu_torch import device as D
+from rep_yolo_tpu_torch.ops.kernels import conv_flat as K_conv
+from rep_yolo_tpu_torch.ops.kernels.conv_flat import QConv
 
-LAUNCHES = {"conv3x3_cmajor": 0, "conv1x1_cmajor": 0}
+LAUNCHES = {"conv3x3_cmajor": 0, "conv1x1_cmajor": 0,
+            "conv3x3_cmajor_q8": 0, "conv1x1_cmajor_q8": 0}
 _BM = 32            # output channels per block of the kernels
 _ACTS = {"silu": 1, None: 0}
 _DTYPES = (torch.bfloat16, torch.float32)
@@ -207,4 +219,153 @@ def conv1x1_cmajor(xs, cw: CMConv, act: str | None = "silu") -> torch.Tensor:
         B, H * W, cw.c_out, int(bf16), _ACTS[act], D.stream_handle(xs[0]))
     D.check_launch("conv1x1_cmajor", err)
     LAUNCHES["conv1x1_cmajor"] += 1
+    return y
+
+
+# ---------------------------------------------------------------------------
+# K13 / K14: int8
+# ---------------------------------------------------------------------------
+
+_KQ = 32            # input channels per k-step of the int8 kernels
+_IN_TYPES = {torch.int8: 0, torch.float32: 1, torch.bfloat16: 2}
+
+
+def _lib_q8():
+    lib = D.load_kernel("conv_cmajor_q8")
+    if not getattr(lib, "_typed", False):
+        vp, i32, i64, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                           ctypes.c_float)
+        lib.conv3x3_cmajor_q8.argtypes = [vp] * 5 + [i32] * 7 + [f] * 3 \
+            + [i32, vp]
+        lib.conv3x3_cmajor_q8.restype = i32
+        lib.conv1x1_cmajor_q8.argtypes = [vp] * 3 + [i32] * 3 + [vp] * 4 \
+            + [i32, i64] + [i32] * 3 + [f] * 3 + [i32, vp]
+        lib.conv1x1_cmajor_q8.restype = i32
+        lib._typed = True
+    return lib
+
+
+class CMQConv(QConv):
+    """One conv's int8 weights for K13 / K14: ``QConv``'s per-output-channel
+    quantization (``w_q``, ``s_w``, ``bias``), packed once for the
+    channel-major kernels by ``packed_cm``:
+
+    - 3x3: (Opad, Cpad / 32, 9, 32) int8, tap = u * 3 + v;
+    - 1x1: (Opad, Cpad) int8;
+
+    Opad = O rounded up to 32, Cpad = C rounded up to 32, zeros there."""
+
+    def packed_cm(self) -> torch.Tensor:
+        if "cm" not in self._packed:
+            O, k, _, cp4 = self.w_q.shape
+            C = self.c_in
+            opad, cpad = _up(O, _BM), _up(C, _KQ)
+            w = torch.zeros((opad, k * k, cpad), dtype=torch.int8,
+                            device=self.w_q.device)
+            w[:O, :, :C] = self.w_q.reshape(O, k * k, cp4)[..., :C]
+            if k == 3:
+                w = w.reshape(opad, 9, cpad // _KQ, _KQ).permute(0, 2, 1, 3)
+            self._packed["cm"] = w.reshape(opad, -1).contiguous()
+        return self._packed["cm"]
+
+
+def _plain_q8(x: torch.Tensor, qw: QConv, s_in: float, act,
+              out_scale) -> torch.Tensor:
+    """K4's plain version on NCHW: int8 x (or float x quantized at
+    ``s_in``) -> (B, O, H, W) int8 at ``out_scale`` or bfloat16."""
+    y = K_conv.conv3x3_q8_plain(x.permute(0, 2, 3, 1), qw, s_in, 1, act,
+                                out_scale, torch.bfloat16)
+    return y.permute(0, 3, 1, 2).contiguous()
+
+
+def _check_q8(name: str, xs, qw: QConv, act) -> None:
+    x0 = xs[0]
+    dev, dt = x0.device, x0.dtype
+    if act not in K_conv._ACTS:
+        raise ValueError(f"{name}: unknown activation {act!r}")
+    if dt not in _IN_TYPES:
+        raise ValueError(f"{name}: expected int8, float32 or bfloat16 input, "
+                         f"got {dt}")
+    for t in xs:
+        if t.dim() != 4 or t.device != dev or t.dtype != dt \
+                or t.shape[0] != x0.shape[0] or t.shape[2:] != x0.shape[2:]:
+            raise ValueError(f"{name}: expected NCHW {dt} sections of one "
+                             f"(B, H, W) on {dev}, got "
+                             f"{[(t.dtype, tuple(t.shape)) for t in xs]}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: input is not contiguous")
+    if sum(t.shape[1] for t in xs) != qw.c_in:
+        raise ValueError(f"{name}: {sum(t.shape[1] for t in xs)} input "
+                         f"channels, the weights take {qw.c_in}")
+    if any(t.device != dev for t in (qw.w_q, qw.s_w, qw.bias)):
+        raise ValueError(f"{name}: weights on {qw.w_q.device}, input on "
+                         f"{dev}")
+
+
+def conv3x3_cmajor_q8_plain(x: torch.Tensor, qw: QConv, s_in: float,
+                            act: str | None = "silu",
+                            out_scale: float | None = None) -> torch.Tensor:
+    """x (B, C, H, W) int8 at ``s_in`` or float -> (B, O, H, W) bfloat16, or
+    int8 at ``out_scale``; stride 1, pad 1."""
+    return _plain_q8(x, qw, s_in, act, out_scale)
+
+
+def conv3x3_cmajor_q8(x: torch.Tensor, qw: QConv, s_in: float,
+                      act: str | None = "silu",
+                      out_scale: float | None = None) -> torch.Tensor:
+    """K13. CPU tensors take ``conv3x3_cmajor_q8_plain``."""
+    if x.device.type == "cpu":
+        return conv3x3_cmajor_q8_plain(x, qw, s_in, act, out_scale)
+    _check_q8("conv3x3_cmajor_q8", [x], qw, act)
+    if qw.k != 3:
+        raise ValueError(f"conv3x3_cmajor_q8: the weights are {qw.k}x{qw.k}")
+    B, C, H, W = x.shape
+    y = torch.empty((B, qw.c_out, H, W), device=x.device,
+                    dtype=torch.bfloat16 if out_scale is None else torch.int8)
+    s, inv_s, inv_out = K_conv._scales(s_in, out_scale)
+    err = _lib_q8().conv3x3_cmajor_q8(
+        D.ptr(x), D.ptr(qw.packed_cm()), D.ptr(qw.s_w), D.ptr(qw.bias),
+        D.ptr(y), B, C, H, W, qw.c_out, _IN_TYPES[x.dtype],
+        0 if out_scale is not None else 2, s, inv_s, inv_out,
+        K_conv._ACTS[act], D.stream_handle(x))
+    D.check_launch("conv3x3_cmajor_q8", err)
+    LAUNCHES["conv3x3_cmajor_q8"] += 1
+    return y
+
+
+def conv1x1_cmajor_q8_plain(xs, qw: QConv, s_in: float,
+                            act: str | None = "silu",
+                            out_scale: float | None = None) -> torch.Tensor:
+    """conv1x1(concat(xs, 1)): sections (B, C_s, H, W), int8 at ``s_in`` or
+    float quantized at ``s_in`` -> (B, O, H, W) bfloat16 or int8."""
+    xs = _sections(xs)
+    return _plain_q8(torch.cat(xs, 1) if len(xs) > 1 else xs[0], qw, s_in,
+                     act, out_scale)
+
+
+def conv1x1_cmajor_q8(xs, qw: QConv, s_in: float, act: str | None = "silu",
+                      out_scale: float | None = None) -> torch.Tensor:
+    """K14. CPU tensors take ``conv1x1_cmajor_q8_plain``. The sections are of
+    one dtype."""
+    xs = _sections(xs)
+    if xs[0].device.type == "cpu":
+        return conv1x1_cmajor_q8_plain(xs, qw, s_in, act, out_scale)
+    _check_q8("conv1x1_cmajor_q8", xs, qw, act)
+    if qw.k != 1 or not 1 <= len(xs) <= 3:
+        raise ValueError(f"conv1x1_cmajor_q8: {len(xs)} sections, weights "
+                         f"{qw.k}x{qw.k}")
+    B, _, H, W = xs[0].shape
+    cs = [t.shape[1] for t in xs]
+    y = torch.empty((B, qw.c_out, H, W), device=xs[0].device,
+                    dtype=torch.bfloat16 if out_scale is None else torch.int8)
+    s, inv_s, inv_out = K_conv._scales(s_in, out_scale)
+    ptrs = [D.ptr(t) for t in xs] + [None] * (3 - len(xs))
+    cs3 = cs + [0] * (3 - len(cs))
+    err = _lib_q8().conv1x1_cmajor_q8(
+        *ptrs, *cs3, D.ptr(qw.packed_cm()), D.ptr(qw.s_w), D.ptr(qw.bias),
+        D.ptr(y), B, H * W, qw.c_out, _IN_TYPES[xs[0].dtype],
+        0 if out_scale is not None else 2, s, inv_s, inv_out,
+        K_conv._ACTS[act], D.stream_handle(xs[0]))
+    D.check_launch("conv1x1_cmajor_q8", err)
+    LAUNCHES["conv1x1_cmajor_q8"] += 1
     return y

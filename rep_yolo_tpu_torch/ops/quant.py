@@ -9,7 +9,8 @@ scales from the calibration absmax, s32 accumulation.
 
 The operation order is the JAX package's, so the int8 values agree bit for
 bit: ``x * (1/s)`` (never ``x / s``), ``acc * (s_w * s_in) + b`` with the
-product formed first, SiLU as ``y * sigmoid(y)``, rounding half to even.
+product formed first, SiLU as ``y * sigmoid(y)`` (ReLU as ``max(y, 0)``,
+the pixel-major kernels' third activation), rounding half to even.
 A scale given as a Python float becomes float32 before it multiplies, as a
 weakly typed scalar does in JAX.
 """
@@ -54,6 +55,8 @@ def epilogue(acc: torch.Tensor, s_w: torch.Tensor, bias: torch.Tensor,
     y = acc.float() * (s_w * f32(s_in).to(s_w.device)) + bias
     if act == "silu":
         return y * torch.sigmoid(y)
+    if act == "relu":
+        return torch.clamp_min(y, 0.0)
     if act is None:
         return y
     raise ValueError(f"unknown activation {act!r}")
@@ -131,12 +134,14 @@ def calibrate(model, batches: Sequence[torch.Tensor]) -> dict[str, float]:
         else:
             continue
         handles.append(mod.register_forward_pre_hook(hook(keys)))
-    saved = net.q8
+    saved, der_fast = net.q8, net.der_fast
     net.set_q8(None)
+    net.der_fast = None          # the DER convs' inputs pass the hooks
     try:
         for x in batches:
             net(x)
     finally:
+        net.der_fast = der_fast
         net.set_q8(saved)
         for h in handles:
             h.remove()

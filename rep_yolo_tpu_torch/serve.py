@@ -33,7 +33,7 @@ import torch
 from rep_yolo_tpu_torch.device import resolve_device
 from rep_yolo_tpu_torch.models.model import RepYOLO
 from rep_yolo_tpu_torch.ops.nms import Detections, non_max_suppression
-from rep_yolo_tpu_torch.ops.quant import enable_int8_fast_path
+from rep_yolo_tpu_torch.ops.quant import calibrate, enable_int8_fast_path
 from rep_yolo_tpu_torch.utils.weights import load_reference_npz
 
 
@@ -121,7 +121,12 @@ def build_engine(cfg: str, weights: str | None, img_size: int,
     ``dtype=torch.bfloat16`` casts the fused model (``RepYOLO.cast``: the
     attention islands stay float32) and serves bfloat16 images;
     ``der_fast="bf16"`` also runs the DER blocks on K10 / K11
-    (``DetectionNet.set_der_fast``)."""
+    (``DetectionNet.set_der_fast``). ``der_fast="xla_q8"`` calibrates on
+    ``calib`` as ``fast="int8"`` does and runs the DER blocks int8-resident
+    on K4 / K5 (the JAX ``set_cmajor_deploy("xla_q8", scales)``), in
+    float32 or bfloat16; it raises if a DER block it selects finds no
+    scales (``DetectionNet.set_der_fast`` alone lets that block run its
+    regular path, as the JAX package does)."""
     if fast not in (None, "int8"):
         raise ValueError(f"unknown fast path {fast!r}")
     if dtype not in (torch.float32, torch.bfloat16):
@@ -142,12 +147,22 @@ def build_engine(cfg: str, weights: str | None, img_size: int,
     model = model.fuse()
     if dtype != torch.float32:
         model.cast(dtype)
-    model.net.set_der_fast(der_fast)
+    if der_fast == "xla_q8":
+        scales = calibrate(model, [calib if calib is not None
+                                   else calibration_batch(img_size, dev)])
+        model.net.set_der_fast(der_fast, scales=scales)
+    else:
+        model.net.set_der_fast(der_fast)
     if fast == "int8":
         enable_int8_fast_path(model, calib if calib is not None
                               else calibration_batch(img_size, dev))
     engine = Engine(model, img_size, max_batch, conf, iou)
     engine(np.zeros((max_batch, img_size, img_size, 3), np.float32))
+    declined = model.net.der_fast_declined()
+    if declined:
+        engine.close()
+        raise ValueError(f"der_fast='xla_q8': the calibration gave no scales "
+                         f"for the DER blocks of layers {declined}")
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     return engine

@@ -17,7 +17,12 @@ K9 wgrad3x3: |dW - plain| <= 1e-4 |plain| + 1e-4 max|plain| (sums of up to
 51,200 products in another order); K10 / K11 (conv3x3_cmajor,
 conv1x1_cmajor): float32 atol = rtol = 1e-4, bfloat16 at most one bfloat16
 ulp from the plain version or within 1e-3 max|plain| where the value is near
-zero (both sum in float32 in another order, then round once).
+zero (both sum in float32 in another order, then round once); K13 / K14
+(conv3x3_cmajor_q8, conv1x1_cmajor_q8), conv5x5_q8 and the pixel-major
+wrappers (conv_pm, on K4 / K5): int8 as the int8 kernels, bfloat16 at most
+one bfloat16 ulp (the same exact s32 sums and float32 epilogue, rounded
+once; only the SiLU's last bit differs); conv5x5_q8 with block-diagonal
+weights equal to K7 bit for bit.
 """
 
 import numpy as np
@@ -30,6 +35,7 @@ from rep_yolo_tpu_torch.ops import nms as TN
 from rep_yolo_tpu_torch.ops.kernels import axial_attention as KA
 from rep_yolo_tpu_torch.ops.kernels import conv_flat as KC
 from rep_yolo_tpu_torch.ops.kernels import conv_kernel as KCM
+from rep_yolo_tpu_torch.ops.kernels import conv_pm as KPM
 from rep_yolo_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
 from rep_yolo_tpu_torch.ops.kernels import neck_flat as KNF
 from rep_yolo_tpu_torch.ops.kernels import nms as KN
@@ -413,3 +419,157 @@ def test_cmajor_wrappers_count_launches_and_refuse_bad_input(cuda):
                            cw1)
     with pytest.raises(ValueError):                  # 1x1 weights in K10
         KCM.conv3x3_cmajor(x, cw1)
+
+
+# ---------------------------------------------------------------------------
+# K13 / K14, conv5x5_q8, the pixel-major wrappers
+# ---------------------------------------------------------------------------
+
+def _q8_out_close(got, ref):
+    assert got.dtype == ref.dtype and got.shape == ref.shape
+    if got.dtype == torch.bfloat16:
+        bf16_close(got, ref, floor=0.0)
+    else:
+        _assert_q8_close(got, ref)
+
+
+def _map(rng, shape, dtype, device):
+    if dtype == torch.int8:
+        a = rng.integers(-127, 128, shape).astype(np.int8)
+        return torch.from_numpy(a).to(device)
+    a = torch.from_numpy(rng.uniform(-1, 1, shape).astype(np.float32))
+    return a.to(device=device, dtype=dtype)
+
+
+def _cmq(rng, c_in, c_out, k, device):
+    w = torch.from_numpy(rng.normal(0, 0.1, (c_out, c_in, k, k)).astype(
+        np.float32))
+    b = torch.from_numpy(rng.normal(0, 0.5, (c_out,)).astype(np.float32))
+    return KCM.CMQConv(w.to(device), b.to(device))
+
+
+@pytest.mark.parametrize("c_in,c_out,h,w,dtype,out_scale", [
+    (48, 48, 24, 40, torch.bfloat16, None),   # l1 stages: C padded 48 -> 64
+    (24, 24, 13, 21, torch.int8, 0.05),       # O = 24, ragged tiles
+    (256, 256, 20, 20, torch.float32, None),  # 8 chunks
+    (16, 32, 16, 64, torch.int8, None),       # int8 in, bf16 out
+])
+def test_conv3x3_cmajor_q8_matches_plain(cuda, c_in, c_out, h, w, dtype,
+                                         out_scale):
+    rng = np.random.default_rng(c_in + h)
+    qw = _cmq(rng, c_in, c_out, 3, cuda)
+    x = _map(rng, (2, c_in, h, w), dtype, cuda)
+    args = (qw, 0.01, "silu", out_scale)
+    _q8_out_close(KCM.conv3x3_cmajor_q8(x, *args),
+                  KCM.conv3x3_cmajor_q8_plain(x, *args))
+
+
+@pytest.mark.parametrize("secs,c_out,h,w,dtype,out_scale", [
+    ((48, 48, 48), 48, 16, 32, torch.int8, 0.04),     # DER cv1, 3 sections
+    ((48,), 24, 12, 20, torch.bfloat16, None),        # cv0_1
+    ((768,), 512, 8, 10, torch.float32, 0.05),        # l7 cv1 width
+    ((16, 8, 24), 24, 7, 9, torch.int8, None),        # odd H*W, odd splits
+])
+def test_conv1x1_cmajor_q8_matches_plain(cuda, secs, c_out, h, w, dtype,
+                                         out_scale):
+    rng = np.random.default_rng(sum(secs) + h)
+    qw = _cmq(rng, sum(secs), c_out, 1, cuda)
+    xs = [_map(rng, (2, c, h, w), dtype, cuda) for c in secs]
+    args = (qw, 0.01, "relu" if dtype == torch.int8 else "silu", out_scale)
+    _q8_out_close(KCM.conv1x1_cmajor_q8(xs, *args),
+                  KCM.conv1x1_cmajor_q8_plain(xs, *args))
+
+
+@pytest.mark.parametrize("c_in,c_out,h,w,out_scale,out_dtype", [
+    (16, 24, 16, 16, None, torch.float32),
+    (64, 64, 20, 20, 0.02, torch.float32),
+    (32, 32, 8, 12, None, torch.bfloat16),
+])
+def test_conv5x5_q8_matches_plain(cuda, c_in, c_out, h, w, out_scale,
+                                  out_dtype):
+    rng = np.random.default_rng(c_in + h)
+    qw = _qconv(rng, c_in, c_out, 5, cuda)
+    x = _map(rng, (2, h, w, c_in), torch.int8, cuda)
+    args = (qw, 0.01, "silu", out_scale, out_dtype)
+    _q8_out_close(KC.conv5x5_q8(x, *args), KC.conv5x5_q8_plain(x, *args))
+
+
+@pytest.mark.parametrize("c,h,w,act,out_scale", [(64, 80, 80, "silu", 0.02),
+                                                 (128, 20, 20, None, None)])
+def test_conv5x5_block_diagonal_equals_k7(cuda, c, h, w, act, out_scale):
+    rng = np.random.default_rng(c)
+    qd = KNF.QDepthwise(
+        torch.from_numpy(rng.normal(0, 0.1, (c, 1, 5, 5)).astype(
+            np.float32)).to(cuda),
+        torch.from_numpy(rng.normal(0, 0.1, (c,)).astype(np.float32)).to(
+            cuda))
+    x = _map(rng, (2, h, w, c), torch.int8, cuda)
+    got = KC.conv5x5_q8(x, KC.block_diagonal(qd), 1.0, act, out_scale)
+    assert torch.equal(got, KNF.dwconv5x5_q8(x, qd, 1.0, act, out_scale))
+
+
+@pytest.mark.parametrize("b,c,o,h,w,dtype,act,out_scale", [
+    (2, 16, 24, 16, 64, torch.bfloat16, "silu", None),
+    (1, 48, 48, 40, 40, torch.float32, "relu", 0.05),
+    (2, 24, 24, 13, 21, torch.int8, "silu", None),
+])
+def test_conv3x3_pm_q8_matches_plain(cuda, b, c, o, h, w, dtype, act,
+                                     out_scale):
+    rng = np.random.default_rng(c + h)
+    qw = _qconv(rng, c, o, 3, cuda)
+    x = _map(rng, (b, h * w, c), dtype, cuda)
+    args = (qw, 0.01, h, w, act, out_scale)
+    got = KPM.conv3x3_pm_q8(x, *args)
+    assert got.shape == (b, h * w, o)
+    _q8_out_close(got, KPM.conv3x3_pm_q8_plain(x, *args))
+
+
+@pytest.mark.parametrize("secs,o,hw,dtype,act,out_scale", [
+    ((16, 16, 16), 24, 1024, torch.float32, "relu", None),
+    ((48, 48, 48), 48, 1600, torch.int8, "silu", None),      # DER cv1
+    ((24,), 48, 999, torch.bfloat16, "silu", 0.03),
+])
+def test_conv1x1_pm_q8_matches_plain(cuda, secs, o, hw, dtype, act,
+                                     out_scale):
+    rng = np.random.default_rng(sum(secs) + hw)
+    qw = _qconv(rng, sum(secs), o, 1, cuda)
+    xs = [_map(rng, (2, hw, c), dtype, cuda) for c in secs]
+    args = (qw, 0.01, act, out_scale)
+    _q8_out_close(KPM.conv1x1_pm_q8(xs, *args),
+                  KPM.conv1x1_pm_q8_plain(xs, *args))
+
+
+def test_q8_rest_wrappers_count_launches_and_refuse_bad_input(cuda):
+    rng = np.random.default_rng(5)
+    q3, q1 = _cmq(rng, 8, 8, 3, cuda), _cmq(rng, 8, 8, 1, cuda)
+    x = torch.zeros((1, 8, 6, 6), dtype=torch.int8, device=cuda)
+    xn = torch.zeros((1, 6, 6, 8), dtype=torch.int8, device=cuda)
+    reset_launch_counts()
+    KCM.conv1x1_cmajor_q8([KCM.conv3x3_cmajor_q8(x, q3, 0.01, out_scale=0.02)],
+                          q1, 0.02)
+    KC.conv5x5_q8(xn, _qconv(rng, 8, 8, 5, cuda), 0.01)
+    y = KPM.conv3x3_pm_q8(xn.reshape(1, 36, 8), _qconv(rng, 8, 8, 3, cuda),
+                          0.01, 6, 6)
+    KPM.conv1x1_pm_q8([y], _qconv(rng, 8, 8, 1, cuda), 0.01)
+    counts = launch_counts()
+    assert (counts["conv3x3_cmajor_q8"], counts["conv1x1_cmajor_q8"],
+            counts["conv5x5_q8"], counts["conv3x3_pm_q8"],
+            counts["conv1x1_pm_q8"], counts["conv3x3_q8"],
+            counts["conv1x1_q8"]) == (1, 1, 1, 1, 1, 1, 1)
+    with pytest.raises(ValueError):                  # float64
+        KCM.conv3x3_cmajor_q8(x.double(), q3, 0.01)
+    with pytest.raises(ValueError):                  # not contiguous
+        KCM.conv3x3_cmajor_q8(x.transpose(2, 3), q3, 0.01)
+    with pytest.raises(ValueError):                  # 1x1 weights in K13
+        KCM.conv3x3_cmajor_q8(x, q1, 0.01)
+    with pytest.raises(ValueError):                  # mixed section dtypes
+        KCM.conv1x1_cmajor_q8([x[:, :4].contiguous(),
+                               x[:, 4:].float().contiguous()], q1, 0.01)
+    with pytest.raises(ValueError):                  # 3x3 weights in K4-5x5
+        KC.conv5x5_q8(xn, _qconv(rng, 8, 8, 3, cuda), 0.01)
+    with pytest.raises(ValueError):                  # H * W mismatch
+        KPM.conv3x3_pm_q8(xn.reshape(1, 36, 8), _qconv(rng, 8, 8, 3, cuda),
+                          0.01, 6, 5)
+    with pytest.raises(ValueError):                  # f32 sections C % 4
+        KC.conv1x1_q8([torch.zeros((1, 6, 6, 6), device=cuda)],
+                      _qconv(rng, 6, 8, 1, cuda), 0.01)
