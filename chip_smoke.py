@@ -120,8 +120,9 @@ conv3x3_pm_q8 / conv1x1_pm_q8 on K4 / K5) and the "xla_q8" mode:
   7f. times_q8_rest: K13 / K14 summed over kernel_bench's 3x3 / 1x1 shapes
      at batch 8 (bf16 in and out; cuDNN bf16 and f32 conv + bias + SiLU
      beside); the pixel-major pair over one xla_q8 served forward at batch
-     4 (cuDNN f32 beside); conv5x5_q8 over the 18 block-diagonal calls
-     (cuDNN's f32 depthwise and K7 beside)
+     4 (cuDNN f32 beside); conv5x5_q8 over the 18 block-diagonal calls (the
+     dense F.conv2d of the same block-diagonal weights, f32 and bf16,
+     cuDNN's f32 depthwise and K7 beside)
 
 and, outside inference_mode, training cfg/rep_yolo.yaml at 640 px, batch 8
 as cli.train builds it (build_training: seeded init, synthetic batches from
@@ -130,8 +131,8 @@ on with select-all: 9 convs a step on K9; cuDNN's default algorithm choice,
 as cli.train runs:
 
   9. kernels_wgrad_vs_plain: K9 wgrad3x3 at the nine routed shapes, seeded
-     x and dY, rtol 1e-4 / atol 1e-4 x max|dW| against the plain version;
-     the error against cuDNN's wgrad as a report
+     x and dY, rtol 1e-4 / atol 1e-4 x max|dW| against the plain version,
+     two calls identical; the error against cuDNN's wgrad as a report
   10. times_wgrad: K9 per shape and summed per step (profiler device time,
      CUDA events around a cold call as a check) beside the plain version,
      conv2d_weight and the bound (the least operation count)
@@ -140,7 +141,8 @@ as cli.train runs:
      one step's grads with K9 against the plain autograd path (cuDNN
      wgrad), per parameter rtol 1e-3 / atol 1e-3 x max|g|; host ms,
      device ms by category and busy share under torch.profiler, peak memory
-  12. train_overfit: 20 steps on one batch, warmup off: the loss falls
+  12. train_overfit: 20 steps on one batch, warmup off, cuDNN held to
+     deterministic algorithms: the loss falls
   13. train_cli: python -m rep_yolo_tpu_torch.cli.train --data synthetic:16
      --epochs 1 (batch 8, 640 px, no augment, no autoanchor, no eval) exits
      0 with finite step lines
@@ -1821,6 +1823,9 @@ Q8_REST_TOL = ("int8 identical but for +-1 LSB on <= 1e-4 of the elements; "
 # int8 DER chain, tests/test_conv_kernel.py:179-183)
 XLQ_PLAIN_REL = 1e-4
 XLQ_FLOAT_REL, XLQ_FLOAT_CORR = 0.15, 0.99
+# the dense 5x5's other yardsticks: the dense conv in bf16, the depthwise
+# conv (the function of the calls' weights, not of the kernel) and K7
+DENSE_EXTRA_KEYS = ("library_bf16_ms", "library_depthwise_ms", "k7_ms")
 BENCH_BATCH = 8          # the kernel benches' batch here
 BENCH_ITERS = 5          # back-to-back calls per timed run (standalone: 20)
 S_IN_BENCH = 0.5 / 127.0
@@ -2150,8 +2155,9 @@ def phase_times_q8_rest(torch, dev, counts, errs, dw, xlq_engine, x4):
       batch whose launches are the rows';
     - the pixel-major pair: every call of one "xla_q8" served forward at
       batch 4 (``xlq_engine`` on ``x4``), against the f32 cuDNN conv;
-    - the dense 5x5: the 18 block-diagonal calls (``dw``), against cuDNN's
-      f32 depthwise conv, K7 beside.
+    - the dense 5x5: the 18 block-diagonal calls (``dw``), against the dense
+      conv of the same weights (cuDNN f32, TF32 off), with the bf16 one, the
+      depthwise conv and K7 beside.
 
     ``counts``: {kernel: launches of its main path}."""
     import torch.nn.functional as F
@@ -2233,21 +2239,31 @@ def phase_times_q8_rest(torch, dev, counts, errs, dw, xlq_engine, x4):
                                 "calls_per_forward": 0, **t}
         row["calls_per_forward"] += 1
         add_times(agg[name], row)
-    # row 9, dense: the 18 block-diagonal calls, K7 beside
-    dense_rows, k7_ms = [], 0.0
+    # row 9, dense: the 18 block-diagonal calls against the dense conv of the
+    # same weights (f32, TF32 off; bf16 beside), the depthwise conv and K7
+    dense_rows, extra = [], dict.fromkeys(DENSE_EXTRA_KEYS, 0.0)
     for a, bd in dw:
         x = a["x"]
         C = bd.c_out
         xf = x.permute(0, 3, 1, 2).float().contiguous()
+        wd = bd.w_q.float().permute(0, 3, 1, 2)[:, :C].contiguous()
         wf = a["qd"].w_q.float().reshape(C, 1, 5, 5)
+        xb, wdb, bb = xf.bfloat16(), wd.bfloat16(), bd.bias.bfloat16()
         t = rest_times(
             torch, lambda: KC.conv5x5_q8(x, bd, a["s_in"], a["act"],
                                          a["out_scale"]),
             lambda: KC.conv5x5_q8_plain(x, bd, a["s_in"], a["act"],
                                         a["out_scale"]),
-            lambda: F.conv2d(xf, wf, a["qd"].bias, padding=2, groups=C))
+            lambda: F.conv2d(xf, wd, bd.bias, padding=2))
+        t["library_bf16_ms"] = device_ms(
+            torch, lambda: F.conv2d(xb, wdb, bb, padding=2), reps=5,
+            whole=False)
+        t["library_depthwise_ms"] = device_ms(
+            torch, lambda: F.conv2d(xf, wf, a["qd"].bias, padding=2,
+                                    groups=C), reps=5, whole=False)
         t["k7_ms"] = device_ms(torch, lambda: KNF.dwconv5x5_q8(**a))
-        k7_ms += t["k7_ms"]
+        for k in DENSE_EXTRA_KEYS:
+            extra[k] += t[k]
         nbytes = (x.numel() * (1 + (4 if a["out_scale"] is None else 1))
                   + bd.w_q.numel() + 8 * C)
         ops = 2.0 * 25 * C * x.numel()          # the dense sum it computes
@@ -2265,7 +2281,8 @@ def phase_times_q8_rest(torch, dev, counts, errs, dw, xlq_engine, x4):
              "F.conv2d (cuDNN, bf16, channels_last, with the bias) then "
              "F.silu: kernel_bench's xla"),
             ("conv5x5_q8", "conv_flat", "conv_flat.py:548",
-             "F.conv2d(groups=C), cuDNN f32 depthwise"),
+             "F.conv2d, the dense 5x5 of the block-diagonal weights (cuDNN, "
+             "f32, TF32 off, with the bias)"),
             ("conv3x3_pm_q8", "conv_flat", "conv_pm.py:184",
              "F.conv2d (cuDNN, f32, TF32 off, with the bias)"),
             ("conv1x1_pm_q8", "conv_flat", "conv_pm.py:260",
@@ -2277,7 +2294,7 @@ def phase_times_q8_rest(torch, dev, counts, errs, dw, xlq_engine, x4):
         if "library_f32_ms" in agg[name]:
             row["library_f32_ms"] = agg[name]["library_f32_ms"]
         if name == "conv5x5_q8":
-            row["k7_ms"] = k7_ms
+            row.update(extra)
         kernels.append(row)
     emit({"phase": "times_q8_rest", "ok": True,
           "note": f"K13 / K14 summed over kernel_bench's 3x3 / 1x1 shapes at "
@@ -2291,6 +2308,9 @@ def phase_times_q8_rest(torch, dev, counts, errs, dw, xlq_engine, x4):
                   "1,979 TOP/s (the dense 5x5: all 25 C^2 products a pixel)",
           "per_forward": {n: {k: v for k, v in agg[n].items()} for n in names},
           "checks_k13_k14": checks, "tolerance": Q8_REST_TOL,
+          "dense5x5_yardsticks": extra,
+          "previous_design_ms": {"conv1x1_cmajor_q8":
+                                 PREVIOUS_MS["conv1x1_cmajor_q8"]},
           "per_shape": per_shape, "pm_calls": list(timed.values()),
           "dense5x5": dense_rows})
     return kernels
@@ -2310,6 +2330,11 @@ WGRAD_SHAPES = [(8, 20, 20, 512, 512, 2), (8, 40, 40, 128, 64, 2),
                 (8, 80, 80, 128, 256, 1), (8, 40, 40, 256, 512, 1),
                 (8, 20, 20, 512, 1024, 1)]
 WGRAD_PER_STEP = sum(s[-1] for s in WGRAD_SHAPES)
+# ms of the designs that K9 (direct FFMA sum) and K14 (32-channel M tiles,
+# staged a value at a time) had before their current ones, as this script
+# measured them on one H100 80GB HBM3 at 700 W (PERF.md, kernel table): K9
+# per train step, K14 over kernel_bench's 1x1 shapes at batch 8
+PREVIOUS_MS = {"wgrad3x3": 6.166, "conv1x1_cmajor_q8": 3.312}
 TRAIN_BATCH = 8
 
 
@@ -2342,19 +2367,22 @@ def wgrad_case(torch, shape, dev, seed):
 
 def phase_kernels_wgrad(torch, dev, errs):
     """K9 against its plain version at the nine flagship shapes: |got - ref|
-    <= 1e-4 |ref| + 1e-4 max|ref|; the error against cuDNN's wgrad
-    (conv2d_weight, TF32 off) as a report."""
+    <= 1e-4 |ref| + 1e-4 max|ref|, and a second call equal to the first bit
+    for bit; the error against cuDNN's wgrad (conv2d_weight, TF32 off) as a
+    report."""
     rows = []
     for i, shape in enumerate(WGRAD_SHAPES):
         kfn, pfn, lib, _, _ = wgrad_case(torch, shape, dev, 300 + i)
-        got, ref, cud = kfn(), pfn(), lib()
+        got, again, ref, cud = kfn(), kfn(), pfn(), lib()
         torch.cuda.synchronize()
         scale = float(ref.abs().max())
         err = float((got - ref).abs().max())
-        ok = bool(((got - ref).abs() <= 1e-4 * ref.abs()
-                   + 1e-4 * scale).all())
+        same = bool(torch.equal(got, again))
+        ok = same and bool(((got - ref).abs() <= 1e-4 * ref.abs()
+                            + 1e-4 * scale).all())
         r = {"shape": list(shape[:5]), "convs_per_step": shape[5],
              "max_abs_err": err, "ref_absmax": scale,
+             "repeats_bit_for_bit": same,
              "err_vs_cudnn": float((got - cud).abs().max())}
         rows.append(r)
         if not ok:
@@ -2362,7 +2390,8 @@ def phase_kernels_wgrad(torch, dev, errs):
                                  f"{r}")
         errs["wgrad3x3"] = max(errs.get("wgrad3x3", 0.0), err)
     emit({"phase": "kernels_wgrad_vs_plain", "ok": True,
-          "tolerance": "rtol 1e-4, atol 1e-4 x max|dW|", "shapes": rows})
+          "tolerance": "rtol 1e-4, atol 1e-4 x max|dW|; two calls identical",
+          "shapes": rows})
 
 
 def train_setup(torch, dev, cfg=CFG, size=SIZE, batch=TRAIN_BATCH, n=16,
@@ -2436,7 +2465,7 @@ def _grad_check(torch, model, state, step, batch):
 
 def _train_category(name: str) -> str:
     low = name.lower()
-    if "wgrad3x3" in low or "wgrad_reduce" in low:
+    if "wgrad3x3" in low:
         return "K9 wgrad3x3"
     if "wgrad" in low:
         return "cuDNN wgrad"
@@ -2486,7 +2515,7 @@ def profiled_train(torch, fn, reps: int):
             continue            # the ranges' own spans on the device
         if e.device_type == torch.autograd.DeviceType.CUDA and us > 0:
             names[e.key] = names.get(e.key, 0.0) + us / 1e3 / reps
-            k9_seen += e.count if "wgrad3x3_kernel" in e.key else 0
+            k9_seen += e.count if "wgrad3x3_gemm" in e.key else 0
         elif e.key in TRAIN_RANGES:
             tot = getattr(e, "device_time_total", None)
             if tot is None:
@@ -2560,16 +2589,28 @@ def phase_train_step(torch, dev, size=SIZE, cfg=CFG, batch=TRAIN_BATCH,
 def phase_train_overfit(torch, dev, size=SIZE, cfg=CFG, batch=TRAIN_BATCH,
                         steps=20):
     """20 optimizer steps on one repeated batch, warmup off: the loss must
-    fall."""
+    fall. cuDNN is held to deterministic algorithms (no autotuning) for the
+    phase, so a run repeats its losses: under its nondeterministic ones the
+    20th loss once ended above the first. Both settings are restored
+    after."""
     import numpy as np
 
-    model, state, step, batches = train_setup(torch, dev, cfg, size, batch,
-                                              n=batch, warmup=False)
-    totals = [float(step(state, *batches[0])["total"]) for _ in range(steps)]
+    was = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        model, state, step, batches = train_setup(torch, dev, cfg, size,
+                                                  batch, n=batch,
+                                                  warmup=False)
+        totals = [float(step(state, *batches[0])["total"])
+                  for _ in range(steps)]
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = was
     if not (np.isfinite(totals).all() and totals[-1] < totals[0]):
         raise AssertionError(f"the loss did not fall: {totals}")
     emit({"phase": "train_overfit", "ok": True, "steps": steps,
-          "total": totals})
+          "cudnn_deterministic": True, "total": totals})
 
 
 def phase_train_cli(torch, timeout=900):
@@ -2657,6 +2698,7 @@ def phase_times_wgrad(torch, dev):
                   "back-to-back calls (L2-warm); bound_ms: the least "
                   "operations (wgrad_ops), bound_direct_ms: the direct sum",
           "per_shape": per_shape,
+          "previous_design_ms": PREVIOUS_MS["wgrad3x3"],
           "per_step": {k: agg[k] for k in agg if k not in ("bytes", "ops")}})
     return agg
 

@@ -3,8 +3,9 @@ and the autograd function that routes a conv's backward to it.
 
 Replaces ``rep_yolo_tpu/ops/pallas/wgrad_kernel.py:wgrad3x3_nhwc`` and its
 custom vjp ``conv3x3_pallas_wgrad``. Source: ``csrc/wgrad.cu`` (K9
-``wgrad3x3``: dW (O, 9C) = dY (O, P) . im2col(X) (P, 9C), im2col read on the
-fly from the NCHW map, split-K over P reduced in a fixed order).
+``wgrad3x3``: Winograd F(3x3, 2x2), its 16 products per 2x2 tile of dY as 16
+GEMMs on the TF32 tensor cores in 3xTF32, split-K over the tiles reduced in
+a fixed order).
 
 Tensors are the network's: x (B, C, H, W) and dY (B, O, H, W) float32, dW
 (O, C, 3, 3) (OIHW). The wrapper takes the plain version for CPU tensors
@@ -27,9 +28,9 @@ def _lib():
     lib = D.load_kernel("wgrad")
     if not getattr(lib, "_typed", False):
         vp, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.wgrad3x3_splits.argtypes = [i32] * 5
-        lib.wgrad3x3_splits.restype = i32
-        lib.wgrad3x3.argtypes = [vp] * 4 + [i32] * 6 + [vp]
+        lib.wgrad3x3_workspace.argtypes = [i32] * 5
+        lib.wgrad3x3_workspace.restype = ctypes.c_longlong
+        lib.wgrad3x3.argtypes = [vp] * 4 + [i32] * 5 + [vp]
         lib.wgrad3x3.restype = i32
         lib._typed = True
     return lib
@@ -60,12 +61,11 @@ def wgrad3x3(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     O = dy.shape[1]
     x, dy = x.contiguous(), dy.contiguous()
     lib = _lib()
-    splits = lib.wgrad3x3_splits(B, C, H, W, O)
     dw = torch.empty((O, C, 3, 3), device=x.device, dtype=torch.float32)
-    ws = torch.empty((splits * O * 9 * C if splits > 1 else 1,),
+    ws = torch.empty((lib.wgrad3x3_workspace(B, C, H, W, O),),
                      device=x.device, dtype=torch.float32)
     err = lib.wgrad3x3(D.ptr(x), D.ptr(dy), D.ptr(dw), D.ptr(ws), B, C, H, W,
-                       O, splits, D.stream_handle(x))
+                       O, D.stream_handle(x))
     D.check_launch("wgrad3x3", err)
     LAUNCHES["wgrad3x3"] += 1
     return dw

@@ -14,7 +14,8 @@ outputs identical but for +-1 LSB on at most 1e-4 of the elements (CUDA's
 expf against torch's sigmoid), float32 outputs atol = rtol = 1e-5, pools
 (K6, K8) identical;
 K9 wgrad3x3: |dW - plain| <= 1e-4 |plain| + 1e-4 max|plain| (sums of up to
-51,200 products in another order); K10 / K11 (conv3x3_cmajor,
+51,200 products in another order, as Winograd tiles in 3xTF32), and two
+calls identical; K10 / K11 (conv3x3_cmajor,
 conv1x1_cmajor): float32 atol = rtol = 1e-4, bfloat16 at most one bfloat16
 ulp from the plain version or within 1e-3 max|plain| where the value is near
 zero (both sum in float32 in another order, then round once); K13 / K14
@@ -290,12 +291,14 @@ def test_q8_wrappers_count_launches_and_refuse_bad_input(cuda):
 
 
 # (B, H, W, C, O): the nine convs of a flagship train step at 640 px, batch
-# 8, that the select-all route sends to K9, and an odd shape (H, W not a
-# multiple of anything, C = 24)
+# 8, that the select-all route sends to K9, and odd shapes (H, W odd, so the
+# 2x2 tiles of dY are padded; C and O off the 64 x 64 GEMM tiles; few tiles
+# for the split-K)
 WGRAD_SHAPES = [(8, 20, 20, 512, 512), (8, 40, 40, 128, 64),
                 (8, 80, 80, 64, 32), (8, 20, 20, 256, 128),
                 (8, 80, 80, 128, 256), (8, 40, 40, 256, 512),
-                (8, 20, 20, 512, 1024), (3, 13, 21, 24, 40)]
+                (8, 20, 20, 512, 1024), (3, 13, 21, 24, 40),
+                (2, 9, 7, 70, 130), (1, 1, 3, 5, 3), (4, 33, 31, 100, 36)]
 
 
 def _wgrad_close(got, ref):
@@ -311,6 +314,17 @@ def test_wgrad3x3_matches_plain(cuda, shape):
     x = torch.randn((B, C, H, W), generator=g).to(cuda)
     dy = torch.randn((B, O, H, W), generator=g).to(cuda)
     _wgrad_close(KW.wgrad3x3(x, dy), KW.wgrad3x3_plain(x, dy))
+
+
+@pytest.mark.parametrize("shape", [(8, 80, 80, 64, 32), (3, 13, 21, 24, 40)])
+def test_wgrad3x3_repeats_bit_for_bit(cuda, shape):
+    """The split-K partials are added in a fixed order: two calls on the
+    same inputs give the same dW."""
+    B, H, W, C, O = shape
+    g = torch.Generator().manual_seed(7)
+    x = torch.randn((B, C, H, W), generator=g).to(cuda)
+    dy = torch.randn((B, O, H, W), generator=g).to(cuda)
+    assert torch.equal(KW.wgrad3x3(x, dy), KW.wgrad3x3(x, dy))
 
 
 def test_conv3x3_wgrad_grads_match_autograd(cuda):
@@ -478,6 +492,46 @@ def test_conv1x1_cmajor_q8_matches_plain(cuda, secs, c_out, h, w, dtype,
     args = (qw, 0.01, "relu" if dtype == torch.int8 else "silu", out_scale)
     _q8_out_close(KCM.conv1x1_cmajor_q8(xs, *args),
                   KCM.conv1x1_cmajor_q8_plain(xs, *args))
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.float32,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("out_scale", [None, 0.05])
+@pytest.mark.parametrize("secs,c_out,h,w", [
+    ((20, 36, 44), 130, 16, 24),   # 2 M tiles of 128, the last 2 rows
+    ((40, 12, 28), 24, 6, 6),      # 36 px: int8 / bf16 planes misaligned
+    ((100,), 512, 20, 20),         # 4 M tiles, 4 chunks, the last 32 wide
+    ((24, 8), 64, 17, 9),          # M tile 64, a ragged pixel tile
+])
+def test_conv1x1_cmajor_q8_tiles_and_staging(cuda, secs, c_out, h, w, dtype,
+                                             out_scale):
+    """K14's M tiles (64 / 128 output channels, rows past O masked), its
+    16-byte staging (scalar where a plane is not 16-byte aligned) and its
+    16-byte stores, against the plain version."""
+    rng = np.random.default_rng(sum(secs) + c_out + h)
+    qw = _cmq(rng, sum(secs), c_out, 1, cuda)
+    xs = [_map(rng, (2, c, h, w), dtype, cuda) for c in secs]
+    args = (qw, 0.01, "silu", out_scale)
+    _q8_out_close(KCM.conv1x1_cmajor_q8(xs, *args),
+                  KCM.conv1x1_cmajor_q8_plain(xs, *args))
+
+
+def test_conv1x1_cmajor_q8_unaligned_section_start(cuda):
+    """A section that starts 1 element into its storage takes the scalar
+    staging; the result is the plain version's."""
+    rng = np.random.default_rng(11)
+    qw = _cmq(rng, 48, 40, 1, cuda)
+    out = []
+    for dtype in (torch.int8, torch.bfloat16, torch.float32):
+        a = _map(rng, (2, 48, 8, 16), dtype, cuda)
+        buf = torch.zeros(a.numel() + 1, dtype=dtype, device=cuda)
+        buf[1:] = a.reshape(-1)
+        xs = [buf[1:].view(a.shape)]
+        assert xs[0].is_contiguous() and xs[0].data_ptr() % 16
+        out.append((KCM.conv1x1_cmajor_q8(xs, qw, 0.01, "silu"),
+                    KCM.conv1x1_cmajor_q8_plain(xs, qw, 0.01, "silu")))
+    for got, ref in out:
+        _q8_out_close(got, ref)
 
 
 @pytest.mark.parametrize("c_in,c_out,h,w,out_scale,out_dtype", [

@@ -9,7 +9,14 @@
   calls are recorded while ``jax.eval_shape`` traces a train-mode apply; the
   default select routes the same single conv on both sides; a routed block's
   gradients equal the unrouted block's;
-- the optimizer group of every flagship parameter against JAX ``group_of``.
+- the optimizer group of every flagship parameter against JAX ``group_of``;
+- K9's arithmetic (``csrc/wgrad.cu``) in plain torch: Winograd F(3x3, 2x2)
+  (the transforms of dY's 2x2 tiles and X's 4x4 patches, odd H / W padded,
+  the 16 products summed over the tiles, the output transform) in float64
+  against ``wgrad3x3_plain`` (1e-10 relative) and the Pallas kernel (``TOL``);
+  and its 3xTF32 products (``cvt.rna`` to TF32 bit for bit, float32 sums) at
+  a flagship reduction length, P = 51,200: inside the card's gate (1e-4
+  |dW| + 1e-4 max|dW|), where hi-only TF32 is outside it.
 
 Inputs are made from numpy seeds and handed to both packages.
 """
@@ -33,6 +40,11 @@ from rep_yolo_tpu_torch.utils.weights import state_dict_from_jax
 
 FLAGSHIP = "cfg/rep_yolo.yaml"
 TOL = dict(rtol=1e-4, atol=1e-4)
+# F(3x3, 2x2) for the weight gradient, as csrc/wgrad.cu holds it: Vy = G dY_t
+# G^T, Ux = B^T X_t B, dW = A^T (sum_t Vy * Ux) A
+WINO_G = ((1, 0), (.5, .5), (.5, -.5), (0, -1))
+WINO_BT = ((1, 0, -1, 0), (0, 1, 1, 0), (0, -1, 1, 0), (0, 1, 0, -1))
+WINO_AT = ((1, 1, 1, 0), (0, 1, -1, 0), (0, 1, 1, 1))
 
 
 def _nchw(a):
@@ -173,3 +185,112 @@ def test_flagship_optimizer_groups_match_jax(flagship):
     got = param_groups(flagship["model"].net)
     assert got == want
     assert sorted(set(got.values())) == [0, 1, 2, 3]
+
+
+def _winograd_tiles(x, dy):
+    """Vy (16, O, T) and Ux (16, C, T) of x (B, C, H, W) and dY (B, O, H, W)
+    in their dtype; tile t = (n * TH + ty) * TW + tx, dY zero-padded to even
+    H, W, and X's patch of tile t the 4x4 window of the zero-padded x at
+    (2ty, 2tx)."""
+    B_, C, H, W = x.shape
+    O = dy.shape[1]
+    th, tw = -(-H // 2), -(-W // 2)
+    d = torch.nn.functional.pad(dy, (0, 2 * tw - W, 0, 2 * th - H))
+    d = d.reshape(B_, O, th, 2, tw, 2).permute(0, 1, 2, 4, 3, 5)
+    xp = torch.nn.functional.pad(x, (1, 2 * tw - W + 1, 1, 2 * th - H + 1))
+    p = xp.unfold(2, 4, 2).unfold(3, 4, 2)            # (B, C, th, tw, 4, 4)
+    g, bt = (torch.tensor(m, dtype=x.dtype) for m in (WINO_G, WINO_BT))
+    vy = g @ d @ g.T
+    ux = bt @ p @ bt.T
+    return (vy.permute(4, 5, 1, 0, 2, 3).reshape(16, O, -1),
+            ux.permute(4, 5, 1, 0, 2, 3).reshape(16, C, -1))
+
+
+def _winograd_output(m):
+    """dW (O, C, 3, 3) = A^T M A of the summed products M (16, O, C)."""
+    at = torch.tensor(WINO_AT, dtype=m.dtype)
+    mm = m.permute(1, 2, 0).reshape(m.shape[1], m.shape[2], 4, 4)
+    return at @ mm @ at.T
+
+
+def _winograd_wgrad(x, dy):
+    vy, ux = _winograd_tiles(x, dy)
+    return _winograd_output(torch.einsum("kot,kct->koc", vy, ux))
+
+
+@pytest.mark.parametrize("shape", [(2, 8, 16, 8, 8), (1, 12, 12, 16, 8),
+                                   (3, 13, 21, 6, 5), (1, 1, 3, 4, 2),
+                                   (2, 7, 8, 3, 9)])
+def test_winograd_pipeline_matches_plain_in_float64(shape):
+    B_, H, W, C, O = shape
+    rng = np.random.default_rng(sum(shape) + 1)
+    x = torch.from_numpy(rng.normal(size=(B_, C, H, W)))
+    dy = torch.from_numpy(rng.normal(size=(B_, O, H, W)))
+    vy, ux = _winograd_tiles(x, dy)
+    assert vy.shape == (16, O, B_ * -(-H // 2) * -(-W // 2))
+    ref = KW.wgrad3x3_plain(x, dy)
+    got = _winograd_wgrad(x, dy)
+    assert got.dtype == torch.float64
+    torch.testing.assert_close(got, ref, rtol=1e-10,
+                               atol=1e-10 * float(ref.abs().max()))
+
+
+@pytest.mark.parametrize("shape", [(2, 8, 16, 8, 8), (1, 9, 11, 12, 8)])
+def test_winograd_pipeline_matches_pallas_kernel(shape):
+    B_, H, W, C, O = shape
+    rng = np.random.default_rng(sum(shape))
+    x = rng.normal(size=(B_, H, W, C)).astype(np.float32)
+    dy = rng.normal(size=(B_, H, W, O)).astype(np.float32)
+    ref = np.asarray(JW.wgrad3x3_nhwc(jnp.asarray(x), jnp.asarray(dy)))
+    got = _winograd_wgrad(_nchw(x).double(), _nchw(dy).double())
+    np.testing.assert_allclose(got.numpy().transpose(2, 3, 1, 0), ref, **TOL)
+
+
+def _tf32_rna(a):
+    """float32 -> TF32 (10-bit mantissa) as cvt.rna.tf32.f32 rounds: to
+    nearest, ties away from zero, bit for bit."""
+    u = np.ascontiguousarray(a, np.float32).view(np.uint32)
+    return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _card_gate_excess(got, ref):
+    """max over dW of |got - ref| - (1e-4 |ref| + 1e-4 max|ref|): the card's
+    gate (chip_smoke.py, test_torch_kernels_cuda.py) holds where <= 0."""
+    tol = 1e-4 * np.abs(ref) + 1e-4 * np.abs(ref).max()
+    return float((np.abs(got - ref) - tol).max())
+
+
+def test_3xtf32_winograd_holds_the_card_gate_at_flagship_length():
+    """The products K9 runs on the tensor cores, emulated: Vy and Ux in
+    float32, each split into hi = tf32(a), lo = tf32(a - hi); per tile
+    lo*hi' + hi*lo' + hi*hi' added in float32 one after the other over all
+    T = 12,800 tiles of (8, 80, 80) (P = 51,200, the l40 conv's), then the
+    output transform. Against float64: inside the gate; hi*hi' alone
+    (1xTF32) is far outside it."""
+    B_, H, W, C, O = 8, 80, 80, 4, 4
+    rng = np.random.default_rng(51200)
+    x = torch.from_numpy(rng.normal(size=(B_, C, H, W)).astype(np.float32))
+    dy = torch.from_numpy(rng.normal(size=(B_, O, H, W)).astype(np.float32))
+    ref = KW.wgrad3x3_plain(x.double(), dy.double()).numpy()
+    vy, ux = (t.numpy() for t in _winograd_tiles(x, dy))     # float32
+    vh, uh = _tf32_rna(vy), _tf32_rna(ux)
+    vl, ul = _tf32_rna(vy - vh), _tf32_rna(ux - uh)
+
+    def prod(a, b):       # (16, O, C, T) float32; TF32 x TF32 is exact here
+        return a[:, :, None, :] * b[:, None, :, :]
+
+    def dw(terms):
+        seq = np.stack(terms, -1).reshape(16, O, C, -1)   # per tile, in order
+        m = np.cumsum(seq, -1, dtype=np.float32)[..., -1]
+        return _winograd_output(torch.from_numpy(m)).numpy()
+
+    three = dw([prod(vl, uh), prod(vh, ul), prod(vh, uh)])
+    one = dw([prod(vh, uh)])
+    assert _card_gate_excess(three, ref) <= 0
+    assert _card_gate_excess(one, ref) > 0
+    # and by a margin: 3xTF32's error is float32's own (its sums, ~1e-5 of
+    # max|dW| here), under a quarter of the gate's 1e-4 max|dW|; 1xTF32's
+    # is TF32's 2^-11 per product, over twice the gate's
+    scale = np.abs(ref).max()
+    assert np.abs(three - ref).max() < 0.25e-4 * scale
+    assert np.abs(one - ref).max() > 2e-4 * scale
