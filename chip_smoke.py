@@ -181,6 +181,11 @@ after it):
      --dw5-exact (K12): exit 0, and mAP within 1e-6 of a direct evaluate on
      DetectionDataset.from_path of that directory with the same flags (no
      image decoder on the machine: says so and runs nothing)
+  21. serving_ckpt: serve --ckpt of that best (parsed as the CLI parses it),
+     float32 and bfloat16 der_fast, batch 4: raw maps against best's EMA
+     loaded through read_checkpoint (float32 1e-4 max|ref|; bfloat16 2e-2
+     and corr > 0.999 against the cast model on cuDNN), 24 K10 / 28 K11
+     launches per der_fast forward, one served call each
 
 Then the kernels line {"kernels": [...]} (K1-K14, conv5x5_q8 and the two
 pixel-major rows; K3 again at K = 8192, K2 again for the row-3 route) and,
@@ -1079,7 +1084,7 @@ def _category(name: str) -> str:
         return "int8 depthwise kernel (K7)"
     if "spp_pools_q8" in low:
         return "int8 SPP pyramid kernel (K8)"
-    if any(s in low for s in ("conv3x3_bf16", "conv1x1_bf16",
+    if any(s in low for s in ("conv3x3_wgmma", "conv1x1_wgmma",
                               "conv3x3_f32_kernel", "conv1x1_f32_kernel")):
         return "channel-major conv kernels (K10, K11)"
     if "nms_mask" in low or "nms_scan" in low:
@@ -1159,7 +1164,7 @@ def l2_flush(torch):
 
 
 def device_ms(torch, fn, reps: int = 10, warmup: int = 3,
-              whole: bool = True) -> float:
+              whole: bool = True, windows: int = 1) -> float:
     """Device ms per call of ``fn`` from a cold L2 (each call follows an
     ``l2_flush``, so its inputs come from HBM as in a served forward): the
     sum of its kernels' device times under the profiler, without the
@@ -1168,7 +1173,10 @@ def device_ms(torch, fn, reps: int = 10, warmup: int = 3,
     window that lost as many flush events as kernel events would still hold
     a whole multiple in all. ``whole=False`` is for a ``fn`` whose library
     calls launch a varying number of kernels: the median of three windows,
-    none of them checked for dropped events."""
+    none of them checked for dropped events. ``windows`` > 1: the median of
+    that many whole windows, for a window whose event counts are whole but
+    whose time is not (a batch-128 1x1 once read half its CUDA-event
+    time)."""
     flush, skip = l2_flush(torch)
 
     def call():
@@ -1181,8 +1189,10 @@ def device_ms(torch, fn, reps: int = 10, warmup: int = 3,
         return statistics.median(
             sum(ms for k, ms in profiled(torch, call, reps)[1].items()
                 if k not in skip) for _ in range(3))
-    _, names, _ = profiled_whole(torch, call, reps, per_name=True)
-    return sum(ms for k, ms in names.items() if k not in skip)
+    return statistics.median(
+        sum(ms for k, ms in profiled_whole(torch, call, reps,
+                                           per_name=True)[1].items()
+            if k not in skip) for _ in range(windows))
 
 
 def _profile_once(torch, engine, x, reps, whole=True):
@@ -1760,7 +1770,9 @@ def phase_times_cm(torch, dev, counts, errs, batches=(4, 128)):
     CUDA-event ms, the plain version, the library call (the cuDNN bfloat16
     conv with the bias, then SiLU; for K11 after a torch.cat) and the bound
     over the bfloat16 tensor-core peak; summed per forward (each shape times
-    its calls per forward). The kernels line's rows are batch 4's."""
+    its calls per forward). The kernels line's rows are batch 4's; the
+    mma.sync design's times stand in this phase's line, not in the kernels
+    line, which holds only what this run measured."""
     from rep_yolo_tpu_torch.ops.kernels import reset_launch_counts
 
     agg = {b: {n: {} for n in CM_PER_FORWARD} for b in batches}
@@ -1769,7 +1781,8 @@ def phase_times_cm(torch, dev, counts, errs, batches=(4, 128)):
         for i, row in enumerate(der_cm_shapes()):
             name, kfn, pfn, lib, nbytes, ops = cm_case(
                 torch, row, b, dev, 500 + i, torch.bfloat16)
-            t = {"ms": device_ms(torch, kfn), "event_ms": cuda_ms(kfn, runs=10),
+            t = {"ms": device_ms(torch, kfn, windows=3),
+                 "event_ms": cuda_ms(kfn, runs=10),
                  "plain_ms": device_ms(torch, pfn, whole=False),
                  "library_ms": device_ms(torch, lib, whole=False)}
             t.update(zip(("bound_ms", "bound_by"),
@@ -1788,18 +1801,24 @@ def phase_times_cm(torch, dev, counts, errs, batches=(4, 128)):
         row["library_call"] = ("F.conv2d (cuDNN, bf16, with the bias) then "
                                "F.silu" + (", after a torch.cat of the "
                                            "sections" if "1x1" in name else ""))
+        if len(batches) > 1:
+            row[f"ms_batch{batches[1]}"] = agg[batches[1]][name]["ms"]
         kernels.append(row)
     emit({"phase": "times_cm", "ok": True, "dtype": "bfloat16",
           "note": f"per forward at {SIZE} px: each shape times its calls per "
                   "forward; ms, plain_ms, library_ms: device time under the "
-                  "profiler from a cold L2, 10 calls after 3 warm-ups (plain "
-                  "and library: median of 3 windows); event_ms: CUDA events, "
-                  "median of 10 runs of 10 back-to-back calls (L2-warm); "
-                  "bound_ms: bytes over 3.35 TB/s or FLOPs over 989 TFLOP/s",
+                  "profiler from a cold L2, 10 calls after 3 warm-ups, "
+                  "median of 3 windows; event_ms: CUDA events, median of 10 "
+                  "runs of 10 back-to-back calls (L2-warm); bound_ms: bytes "
+                  "over 3.35 TB/s or FLOPs over 989 TFLOP/s; "
+                  "previous_design_ms: the mma.sync design's ms per forward "
+                  "by batch, as this script measured it before (PERF.md)",
           "per_forward": {str(b): {n: {k: v for k, v in agg[b][n].items()}
                                    for n in CM_PER_FORWARD}
                           for b in batches},
-          "launches_per_forward": CM_PER_FORWARD, "per_shape": per_shape})
+          "launches_per_forward": CM_PER_FORWARD,
+          "previous_design_ms": {n: PREVIOUS_MS_CM[n] for n in CM_PER_FORWARD},
+          "per_shape": per_shape})
     return kernels
 
 
@@ -2335,6 +2354,10 @@ WGRAD_PER_STEP = sum(s[-1] for s in WGRAD_SHAPES)
 # measured them on one H100 80GB HBM3 at 700 W (PERF.md, kernel table): K9
 # per train step, K14 over kernel_bench's 1x1 shapes at batch 8
 PREVIOUS_MS = {"wgrad3x3": 6.166, "conv1x1_cmajor_q8": 3.312}
+# K10 / K11 per forward at batch 4 and 128 in their mma.sync design, before
+# wgmma, as this script measured them on the same card
+PREVIOUS_MS_CM = {"conv3x3_cmajor": {"4": 2.326, "128": 51.39},
+                  "conv1x1_cmajor": {"4": 1.379, "128": 30.09}}
 TRAIN_BATCH = 8
 
 
@@ -3133,6 +3156,70 @@ def phase_test_cli(torch, dev, run, timeout=600):
           "data": str(root), "tolerance": tol, "runs": rows})
 
 
+def phase_serving_ckpt(torch, dev, run, batch=4):
+    """``serve --ckpt`` of the ``best`` that phase 18 wrote, parsed as the
+    CLI parses it, in float32 and in bfloat16 with der_fast: raw maps per
+    level against the same checkpoint loaded through ``read_checkpoint`` as
+    ``cli.test`` loads it (float32 within 1e-4 max|ref|; bfloat16 der_fast
+    against the cast reference on cuDNN within E2E_REL / E2E_CORR), 24 K10
+    and 28 K11 launches in the der_fast forward, and one served call each."""
+    import numpy as np
+
+    from rep_yolo_tpu_torch.models.model import RepYOLO
+    from rep_yolo_tpu_torch.ops.kernels import launch_counts, \
+        reset_launch_counts
+    from rep_yolo_tpu_torch.serve import build_engine, parse_args
+    from rep_yolo_tpu_torch.train.checkpoint import read_checkpoint
+
+    best = str(run / "best")
+    args = parse_args(["--cfg", CFG, "--ckpt", best, "--img-size",
+                       str(SIZE), "--max-batch", str(batch), "--conf",
+                       "0.001"])
+    ref = RepYOLO.from_config(CFG, device=dev).load_state(
+        read_checkpoint(best)["ema"]).fuse()
+    imgs = np.random.default_rng(3).uniform(
+        0, 1, (batch, SIZE, SIZE, 3)).astype(np.float32)
+    x = torch.from_numpy(imgs).to(dev)
+    want = ref.apply(x)
+    out = {"phase": "serving_ckpt", "ckpt": best, "batch": batch}
+    ok = True
+    for mode in ("float32", "bf16_der_fast"):
+        bf16 = mode != "float32"
+        if bf16:
+            ref.cast(torch.bfloat16)
+            want = ref.apply(x.bfloat16())
+        engine = build_engine(args.cfg, args.weights, args.img_size,
+                              args.max_batch, args.conf, args.iou, dev,
+                              fast=args.fast, ckpt=args.ckpt,
+                              dtype=torch.bfloat16 if bf16 else torch.float32,
+                              der_fast="bf16" if bf16 else None)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        got = engine.model.apply(x.bfloat16() if bf16 else x)
+        torch.cuda.synchronize()
+        counts = {k: launch_counts()[k] for k in CM_PER_FORWARD}
+        dets = engine(imgs)
+        engine.close()
+        levels = [rel_corr(a, b) for a, b in zip(got, want)]
+        if bf16:
+            good = counts == CM_PER_FORWARD and all(
+                r < E2E_REL and c > E2E_CORR for r, c in levels)
+            tol = {"rel": E2E_REL, "corr": E2E_CORR}
+        else:
+            good = all(r <= 1e-4 for r, _ in levels)
+            tol = {"rel": 1e-4}
+        ok = ok and good
+        out[mode] = {"rel_max_err_per_level": [r for r, _ in levels],
+                     "corr_per_level": [c for _, c in levels],
+                     "tolerance": tol, "launches_per_forward": counts,
+                     "detections_per_image": [len(d) for d in dets],
+                     "ok": good}
+    out["ok"] = ok
+    emit(out)
+    if not ok:
+        raise AssertionError(f"serve --ckpt check failed: {out}")
+
+
 def eval_rows(counts, errs, dw_agg, attn_agg, attn_err,
               nms_t) -> list[dict]:
     """The kernels line's rows of the evaluation path, each timed at
@@ -3239,6 +3326,7 @@ def main(argv=None) -> int:
     with torch.inference_mode():
         counts_eval = phase_eval_modes(torch, dev, run)
         phase_test_cli(torch, dev, run)
+        phase_serving_ckpt(torch, dev, run)
         phase_profiler_after_training(torch, dev)
         # last: after its batch-128 profiler windows the profiler loses a
         # device event in every later window, of every kernel alike

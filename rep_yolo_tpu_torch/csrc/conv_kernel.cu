@@ -1,5 +1,5 @@
-// Channel-major float convolutions of the DER blocks' "bf16" deploy path,
-// for Hopper.
+// Channel-major convolutions of the DER blocks' "bf16" deploy path, for
+// Hopper (sm_90a).
 //
 // K10 conv3x3_cmajor replaces rep_yolo_tpu/ops/pallas/conv_kernel.py:
 // conv3x3_cmajor (kernel _conv3_kernel): a 3x3 stride-1 conv with zero
@@ -9,72 +9,89 @@
 // block's concat [x1, x4_1, x4_3] is read section by section and never
 // materialised).
 //
-// Layout: NCHW (B, C, H, W), as the port's float network holds its maps;
-// the output (B, O, H, W) is in x's dtype, bfloat16 or float32. The sums are
-// float32; the epilogue y = acc + bias, then y * sigmoid(y), is float32 and
-// rounds once to the output dtype (the JAX _epilogue). The weights arrive
-// packed once per model by the wrapper (ops/kernels/conv_kernel.py), with
-// the output channels padded to a multiple of BM = 32 and the input
-// channels to the chunk size with zeros (exact).
+// Layout: NCHW (B, C, H, W) in, (B, O, H, W) out, in x's dtype (bfloat16
+// or float32). The sums are float32; the epilogue y = acc + bias, then
+// y * sigmoid(y) with expf, is float32 and rounds once (the JAX _epilogue).
+// The weights arrive packed once per model by the wrapper
+// (ops/kernels/conv_kernel.py) in the order the kernels read them.
 //
-// Both are implicit GEMMs, M = output channels, N = output pixels, K = taps
-// x input channels. A block of 4 warps computes 32 output channels x 128
-// pixels (3x3: an 8 x 16 tile of the map, 1x1: 128 consecutive pixels of
-// H*W), staging per chunk of input channels the input tile (for the 3x3
-// with its one-pixel halo, zero outside the map) and the weights in shared
-// memory.
+// What bounds them on this card: a 3x3 does 18 C O FLOPs a pixel against
+// 2 (C + O) bytes, 216 FLOP/byte at the DER's thinnest (24 -> 24, 48 -> 48
+// at 320 / 160 px) and up to 1150 at l7 (256 -> 256 at 40 px), against the
+// 295 FLOP/byte at which the bf16 tensor cores (989 TFLOP/s) rather than
+// HBM (3.35 TB/s) set the floor; the 1x1s do 2 C O against 2 (C + O), 16-340
+// FLOP/byte, bound by their bytes but for l7 cv1 (768 -> 512). So the thin
+// maps need the input read about once and whole sectors written, and the
+// wide ones (128-512 channels at 80 / 40 px) the tensor cores' wgmma rate.
 //
-// - bfloat16: tensor cores, mma.sync m16n8k16 with float32 accumulation.
-//   Each warp holds 32 channels x 32 pixels (2 x 4 fragments). The input
-//   tile is stored as 32-bit words of channel pairs (c, c+1) of one pixel,
-//   so a B fragment register is one shared load, and the plane pitch and
-//   weight row pitch are padded so that fragment loads are free of bank
-//   conflicts. K is padded to a multiple of 16 (C = 24 runs as 32).
-// - float32: FFMA; a thread holds 8 output channels x 4 pixels (weights
-//   broadcast per warp, pixels on consecutive lanes), as K4 does with dp4a.
+// bfloat16: implicit GEMMs on wgmma.mma_async m64nNk16 (float32
+// accumulators), pixels on M and output channels on N, both operands read
+// by the tensor cores from shared memory through descriptors without
+// swizzle (a core matrix is 8 rows x 16 bytes stored as 128 contiguous
+// bytes). Two warpgroups a block, each MI x 64 positions by BN channels.
+// - Pixels on M, because N may be any multiple of 8: O = 24 / 48 pad
+//   nothing, and one block holds up to 128 (3x3) or 256 (1x1) output
+//   channels, so l7 cv1's O = 512 stages its input twice (32 channels a
+//   block, as before: 16 times). Output channels on M would waste most of
+//   a 64-row tile at O = 24 / 48.
+// - The input is staged K-major, one 16-byte row per pixel holding 8
+//   channels: a thread loads 16 bytes (8 pixels of one channel) of 8
+//   channels and transposes them with __byte_perm. A pixel being 16 bytes,
+//   a 3x3 tap's shift is a descriptor offset: the block computes its tile
+//   over the halo'd row width SW = TW + 2 (two extra positions a row,
+//   computed and dropped), and position m reads staged position
+//   m + u SW + v for tap (u, v). The halo'd tile is staged once per 16
+//   input channels for all nine taps and all BN output channels.
+// - The weights, packed as [k16 step][O / 8][2][8 o][8 k] (B's core
+//   matrices in order), come in by 16-byte cp.async.
+// - A ring of four stages: a chunk's input is loaded into registers two
+//   chunks ahead and stored to its stage one chunk ahead, its weights
+//   copied two chunks ahead, all while the current chunk's wgmma group
+//   runs; wgmma.wait_group 1 and one block barrier a chunk free the stage
+//   that the chunk three back used.
+// - Epilogue: bias and SiLU in float32 on the accumulators, one rounding,
+//   the tile in shared memory, then 16-byte stores of 8 consecutive pixels
+//   of one output channel.
+// - Tiles are fixed per shape by the C entries (not timed). 3x3: BN = 24 /
+//   48 over 256 positions, two blocks an SM; 64 over 512; 128 over 256
+//   (larger O in tiles of 128). 1x1: BN = 24 / 48 over 256 pixels with 32
+//   input channels a chunk, two blocks an SM; 64 / 128 over 256 and 256
+//   over 128 with 64 channels a chunk. The 3x3 row width TW (a multiple of
+//   8, at most 96) is the one that wastes the fewest positions. Maps whose
+//   W (3x3) or H*W (1x1) is not a multiple of 8, or unaligned tensors,
+//   take the same kernels with scalar loads and stores.
+// - What holds it back: at the wide shapes every block stages the weights
+//   of its BN channels anew from L2 for its 128-512 positions (two
+//   warpgroups' float32 accumulators cap the tile at 256 x 128); at the thin
+//   ones the float32 SiLU (expf and an IEEE division a value), the staging
+//   transposes and the products each take a like share and overlap little
+//   (tools/cm_split.py times the kernel with each part cut).
 //
-// Bound on this card: at the DER shapes (C, O <= 256 at 40-320 px) each
-// conv does 2 * O * k*k*C FLOPs per pixel against (C + O) * 2 bytes per
-// pixel in bfloat16, 110-460 FLOP/byte, near or below the 295 FLOP/byte at
-// which the bf16 tensor cores stop being the limit, so most calls are bound
-// by their bytes. This simple version reads its inputs with 2- and 4-byte
-// loads, re-reads the 3x3 halo (1.4x) and stages without double buffering;
-// TMA and wgmma are later work. The TPU kernel's 128-lane padded width, the
-// flattened-row lane slabs and the row tiles were Mosaic's constraints and
-// have no counterpart here.
+// float32: FFMA; a thread holds 8 output channels x 4 pixels (weights
+// broadcast per warp, pixels on consecutive lanes), as K4 does with dp4a.
+//
+// The TPU kernel's 128-lane padded width, the flattened-row lane slabs and
+// the row tiles were Mosaic's constraints and have no counterpart here.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 namespace {
 
-constexpr int NT = 128;        // threads per block: 4 warps
-constexpr int BM = 32;         // output channels per block
-constexpr int TH = 8;          // 3x3 output tile: 8 rows x 16 columns
+constexpr int NT = 128;        // float32 kernels: 4 warps
+constexpr int BM = 32;         // float32 kernels: output channels per block
+constexpr int TH = 8;          // float32 3x3 output tile: 8 rows x 16 columns
 constexpr int TW = 16;
 constexpr int SH = TH + 2;     // the halo'd input tile
 constexpr int SW = TW + 2;
-constexpr int TP = 128;        // 1x1: pixels per block
+constexpr int TP = 128;        // float32 1x1: pixels per block
 
 __device__ __forceinline__ float epilogue(float acc, float b, int act) {
     float y = acc + b;
     return act ? y / (1.0f + expf(-y)) : y;
-}
-
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
-                                         const uint32_t* b) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-        "{%0, %1, %2, %3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // Channel c of image b among up to three sections (c < C0 + C1 + C2).
@@ -89,216 +106,619 @@ __device__ __forceinline__ const T* section_plane(
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16, tensor cores
+// device primitives: wgmma, cp.async, proxy fences
 // ---------------------------------------------------------------------------
 
-constexpr int KC3 = 16;                  // 3x3: input channels per chunk
-constexpr int PLANE3 = 200;              // words per channel pair (>= SH*SW,
-                                         // 8 mod 32: conflict-free B loads)
-constexpr int WK3 = 9 * KC3;             // weights per channel per chunk
-constexpr int WP3 = WK3 + 8;             // row pitch (bf16): 76 words
-
-// x (B, C, H, W); w (Opad, nchunks * 144) with k = chunk*144 + tap*16 + c,
-// tap = u*3 + v; grid (tiles, Opad / 32, B).
-template <int ACT>
-__global__ void __launch_bounds__(NT)
-conv3x3_bf16_kernel(const uint16_t* __restrict__ x,
-                    const __nv_bfloat16* __restrict__ w,
-                    const float* __restrict__ bias, __nv_bfloat16* __restrict__ y,
-                    int C, int H, int W, int O, int nchunks, int tiles_x) {
-    __shared__ uint32_t s_x[KC3 / 2 * PLANE3];
-    __shared__ __align__(16) __nv_bfloat16 s_w[BM * WP3];
-
-    const int ob = blockIdx.y, b = blockIdx.z;
-    const int ty0 = (blockIdx.x / tiles_x) * TH;
-    const int tx0 = (blockIdx.x % tiles_x) * TW;
-    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-    const int g = lane >> 2, t = lane & 3;
-    const long long HW = (long long)H * W;
-    const uint16_t* xb = x + (long long)b * C * HW;
-    const long long wrow = (long long)nchunks * WK3;
-    const __nv_bfloat16* wb = w + (long long)ob * BM * wrow;
-    const uint32_t* s_w32 = reinterpret_cast<const uint32_t*>(s_w);
-
-    float acc[2][4][4];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
-
-    for (int ch = 0; ch < nchunks; ++ch) {
-        const int c0 = ch * KC3;
-        __syncthreads();
-        for (int e = tid; e < KC3 / 2 * SH * SW; e += NT) {
-            const int p = e / (SH * SW), rem = e - p * (SH * SW);
-            const int r = rem / SW, q = rem - r * SW;
-            const int gy = ty0 - 1 + r, gx = tx0 - 1 + q, c = c0 + 2 * p;
-            uint32_t lo = 0, hi = 0;
-            if (gy >= 0 && gy < H && gx >= 0 && gx < W) {
-                const uint16_t* src = xb + (long long)c * HW
-                                      + (long long)gy * W + gx;
-                if (c < C) lo = src[0];
-                if (c + 1 < C) hi = src[HW];
-            }
-            s_x[p * PLANE3 + r * SW + q] = lo | (hi << 16);
-        }
-        for (int e = tid; e < BM * (WK3 / 8); e += NT) {
-            const int o = e / (WK3 / 8), j = e - o * (WK3 / 8);
-            const uint4* src = reinterpret_cast<const uint4*>(
-                wb + (long long)o * wrow + (long long)ch * WK3) + j;
-            reinterpret_cast<uint4*>(s_w + o * WP3)[j] = *src;
-        }
-        __syncthreads();
-#pragma unroll
-        for (int tap = 0; tap < 9; ++tap) {
-            const int u = tap / 3, v = tap - 3 * u;
-            uint32_t a[2][4];
-#pragma unroll
-            for (int i = 0; i < 2; ++i) {
-                const uint32_t* r0 = s_w32 + (i * 16 + g) * (WP3 / 2)
-                                     + tap * (KC3 / 2) + t;
-                const uint32_t* r8 = r0 + 8 * (WP3 / 2);
-                a[i][0] = r0[0];
-                a[i][1] = r8[0];
-                a[i][2] = r0[4];
-                a[i][3] = r8[4];
-            }
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-                const int pr = 2 * warp + (j >> 1), pc = (j & 1) * 8 + g;
-                const uint32_t* sp = s_x + (pr + u) * SW + pc + v;
-                const uint32_t bf[2] = {sp[t * PLANE3], sp[(t + 4) * PLANE3]};
-                mma_bf16(acc[0][j], a[0], bf);
-                mma_bf16(acc[1][j], a[1], bf);
-            }
-        }
-    }
-
-    const bool pairs = (W & 1) == 0;
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-            const int oy = ty0 + 2 * warp + (j >> 1);
-            const int ox = tx0 + (j & 1) * 8 + t * 2;
-            if (oy >= H || ox >= W) continue;
-#pragma unroll
-            for (int h = 0; h < 2; ++h) {
-                const int o = ob * BM + i * 16 + g + h * 8;
-                if (o >= O) continue;
-                const float bo = bias[o];
-                const float v0 = epilogue(acc[i][j][2 * h], bo, ACT);
-                const float v1 = epilogue(acc[i][j][2 * h + 1], bo, ACT);
-                __nv_bfloat16* dst = y + ((long long)b * O + o) * HW
-                                     + (long long)oy * W + ox;
-                if (pairs) {
-                    *reinterpret_cast<uint32_t*>(dst) = pack_bf16x2(v0, v1);
-                } else {
-                    dst[0] = __float2bfloat16_rn(v0);
-                    if (ox + 1 < W) dst[1] = __float2bfloat16_rn(v1);
-                }
-            }
-        }
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+    return (uint32_t)__cvta_generic_to_shared(p);
 }
 
-constexpr int KC1 = 32;                  // 1x1: input channels per stage
-constexpr int PLANE1 = TP + 8;           // words per channel pair (8 mod 32)
-constexpr int WP1 = KC1 + 8;             // row pitch (bf16): 20 words
+// Descriptor of a K-major wgmma operand without swizzle: the start address,
+// LBO (bytes between the two core matrices along K) and SBO (bytes between
+// core matrices along M or N), each >> 4; base offset and layout type 0.
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+    return (uint64_t)((addr >> 4) & 0x3FFF)
+           | (uint64_t)((lbo >> 4) & 0x3FFF) << 16
+           | (uint64_t)((sbo >> 4) & 0x3FFF) << 32;
+}
 
-// Sections x0..x2 (B, C_s, H, W) with even C_s and even H*W; w (Opad, Kp),
-// Kp = C0 + C1 + C2 rounded up to 16; grid (ceil(HW / 128), Opad / 32, B).
-template <int ACT>
-__global__ void __launch_bounds__(NT)
-conv1x1_bf16_kernel(const uint16_t* __restrict__ x0,
-                    const uint16_t* __restrict__ x1,
-                    const uint16_t* __restrict__ x2, int C0, int C1, int C2,
-                    const __nv_bfloat16* __restrict__ w,
-                    const float* __restrict__ bias,
-                    __nv_bfloat16* __restrict__ y, int HW, int O, int Kp) {
-    __shared__ uint32_t s_x[KC1 / 2 * PLANE1];
-    __shared__ __align__(16) __nv_bfloat16 s_w[BM * WP1];
+__device__ __forceinline__ void wgmma_fence() {
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
 
-    const int ob = blockIdx.y, b = blockIdx.z;
-    const int p0 = blockIdx.x * TP;
-    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-    const int g = lane >> 2, t = lane & 3;
-    const int Ct = C0 + C1 + C2;
-    const __nv_bfloat16* wb = w + (long long)ob * BM * Kp;
-    const uint32_t* s_w32 = reinterpret_cast<const uint32_t*>(s_w);
+__device__ __forceinline__ void wgmma_commit() {
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
 
-    float acc[2][4][4];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+    asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
 
-    for (int k0 = 0; k0 < Kp; k0 += KC1) {
-        const int nk = min(KC1, Kp - k0);        // 32, or 16 at the end
-        __syncthreads();
-        for (int e = tid; e < nk / 2 * (TP / 2); e += NT) {
-            const int p = e / (TP / 2), q = e - p * (TP / 2);
-            const int c = k0 + 2 * p, pix = p0 + 2 * q;
-            uint32_t lo = 0, hi = 0;            // two pixels of c, of c + 1
-            if (pix < HW && c < Ct) {
-                const uint16_t* src = section_plane(x0, x1, x2, C0, C1, C2, b,
-                                                    c, (long long)HW) + pix;
-                lo = *reinterpret_cast<const uint32_t*>(src);
-                hi = *reinterpret_cast<const uint32_t*>(src + HW);
-            }
-            s_x[p * PLANE1 + 2 * q] = __byte_perm(lo, hi, 0x5410);
-            s_x[p * PLANE1 + 2 * q + 1] = __byte_perm(lo, hi, 0x7632);
-        }
-        for (int e = tid; e < BM * (nk / 8); e += NT) {
-            const int o = e / (nk / 8), j = e - o * (nk / 8);
-            const uint4* src = reinterpret_cast<const uint4*>(
-                wb + (long long)o * Kp + k0) + j;
-            reinterpret_cast<uint4*>(s_w + o * WP1)[j] = *src;
-        }
-        __syncthreads();
-        for (int kk = 0; kk < nk; kk += 16) {
-            uint32_t a[2][4];
+// Keeps the compiler from moving an accumulator's reads or writes across
+// the asynchronous products.
+__device__ __forceinline__ void reg_fence(float& r) {
+    asm volatile("" : "+f"(r)::"memory");
+}
+
+// Makes this thread's shared-memory writes (st.shared, cp.async) visible
+// to the tensor cores, which read through the async proxy.
+__device__ __forceinline__ void fence_proxy_async() {
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+                 ::"r"(smem_addr(dst)), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// D (64 x N, float32, the warpgroup's fragments) += A (64 x 16) B^T
+// (N x 16), bfloat16 operands in shared memory given by descriptors.
+template <int N>
+__device__ __forceinline__ void wgmma(float* d, uint64_t da, uint64_t db);
+
+template <>
+__device__ __forceinline__ void wgmma<24>(float* d, uint64_t da,
+                                           uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %14, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n24k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11"
+        "}, %12, %13, p, 1, 1, 0, 0;\n}\n"
+        :
+          "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11])
+        : "l"(da), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma<48>(float* d, uint64_t da,
+                                           uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23"
+        "}, %24, %25, p, 1, 1, 0, 0;\n}\n"
+        :
+          "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+        : "l"(da), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma<64>(float* d, uint64_t da,
+                                           uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        :
+          "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma<128>(float* d, uint64_t da,
+                                           uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+        :
+          "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(da), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma<256>(float* d, uint64_t da,
+                                           uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71, "
+        "%72, %73, %74, %75, %76, %77, %78, %79, "
+        "%80, %81, %82, %83, %84, %85, %86, %87, "
+        "%88, %89, %90, %91, %92, %93, %94, %95, "
+        "%96, %97, %98, %99, %100, %101, %102, %103, "
+        "%104, %105, %106, %107, %108, %109, %110, %111, "
+        "%112, %113, %114, %115, %116, %117, %118, %119, "
+        "%120, %121, %122, %123, %124, %125, %126, %127"
+        "}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+        :
+          "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+          "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+          "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+          "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+          "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+          "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+          "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+          "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+          "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+          "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+          "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+          "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+          "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+          "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+          "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+        : "l"(da), "l"(db), "r"(1));
+}
+
+// ---------------------------------------------------------------------------
+// end of device primitives
+// ---------------------------------------------------------------------------
+
+// ---------------------------------------------------------------------------
+// bfloat16, wgmma
+// ---------------------------------------------------------------------------
+
+constexpr int WG_NT = 256;              // threads a block: two warpgroups
+constexpr int NS = 4;                   // stages of the ring
+
+// Row j of the transpose of 8 channels x 8 pixels: pixel j's 8 channels
+// as 16 bytes. v[4 i + q]: channel i, pixels 2q (low half) and 2q + 1.
+__device__ __forceinline__ void store_row(uint8_t* dst, const uint32_t* v,
+                                          int j) {
+    uint32_t p[4];
 #pragma unroll
-            for (int i = 0; i < 2; ++i) {
-                const uint32_t* r0 = s_w32 + (i * 16 + g) * (WP1 / 2)
-                                     + kk / 2 + t;
-                const uint32_t* r8 = r0 + 8 * (WP1 / 2);
-                a[i][0] = r0[0];
-                a[i][1] = r8[0];
-                a[i][2] = r0[4];
-                a[i][3] = r8[4];
-            }
+    for (int q = 0; q < 4; ++q)
+        p[q] = __byte_perm(v[8 * q + j / 2], v[8 * q + 4 + j / 2],
+                           (j & 1) ? 0x7632 : 0x5410);
+    *reinterpret_cast<uint4*>(dst) = make_uint4(p[0], p[1], p[2], p[3]);
+}
+
+// 8 consecutive bfloat16 of a plane from pixel p on (zeros past n, or for
+// a null plane) as four words of pixel pairs.
+template <bool VEC>
+__device__ __forceinline__ void load8(const uint16_t* plane, long long p,
+                                      long long n, uint32_t* v) {
+    if (VEC) {
+        uint4 q = make_uint4(0, 0, 0, 0);
+        if (plane && p >= 0 && p < n)
+            q = *reinterpret_cast<const uint4*>(plane + p);
+        v[0] = q.x;
+        v[1] = q.y;
+        v[2] = q.z;
+        v[3] = q.w;
+    } else {
 #pragma unroll
-            for (int j = 0; j < 4; ++j) {
-                const uint32_t* sp = s_x + (kk / 2 + t) * PLANE1
-                                     + warp * 32 + j * 8 + g;
-                const uint32_t bf[2] = {sp[0], sp[4 * PLANE1]};
-                mma_bf16(acc[0][j], a[0], bf);
-                mma_bf16(acc[1][j], a[1], bf);
-            }
+        for (int k = 0; k < 4; ++k) {
+            const long long a = p + 2 * k;
+            const uint32_t lo = (plane && a >= 0 && a < n) ? plane[a] : 0;
+            const uint32_t hi =
+                (plane && a + 1 >= 0 && a + 1 < n) ? plane[a + 1] : 0;
+            v[k] = lo | (hi << 16);
         }
     }
+}
 
+// x (B, C, H, W) bfloat16; w [ceil(C / 16)][9][og][2][8][8] (k = 16 chunk
+// + 8 half + last index, o = 8 group + the 8 o); grid (tiles, ceil(O / BN),
+// B). A block computes output rows [y0, y0 + th) x columns [x0, x0 + tw)
+// for BN output channels, over MB = 128 MI positions m = r sw + c (c < tw
+// and r < th kept). Shared memory per stage: the input, two planes of 8
+// channels x pl pixels (16 bytes each), staged rows y0 - 1 .. y0 + th, columns
+// x0 - 1 .. x0 + tw; then the weights of the chunk's 9 taps, BN x 32 bytes
+// each.
+template <int BN, int MI, int MINB, bool VEC>
+__global__ void __launch_bounds__(WG_NT, MINB)
+conv3x3_wgmma_kernel(const uint16_t* __restrict__ x,
+                     const __nv_bfloat16* __restrict__ w,
+                     const float* __restrict__ bias,
+                     __nv_bfloat16* __restrict__ y, int C, int H, int W,
+                     int O, int og, int nchunks, int tw, int th, int tiles_x,
+                     int act) {
+    constexpr int MB = 128 * MI;
+    extern __shared__ __align__(128) uint8_t smem[];
+    const int sw = tw + 2, pl = MB + 2 * sw + 2;
+    const int abytes = 2 * pl * 16, stage = abytes + 9 * BN * 32;
+    const int y0 = (blockIdx.x / tiles_x) * th;
+    const int x0 = (blockIdx.x % tiles_x) * tw;
+    const int j0 = blockIdx.y * (BN / 8), b = blockIdx.z;
+    const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3;
+    const int lane = tid & 31;
+    const long long HW = (long long)H * W;
+    const uint16_t* xb = x + (long long)b * C * HW;
+
+    // this thread's staging item: plane g (8 channels) x staged row rr x
+    // 8 pixels from image column xs (rows fastest across lanes)
+    const int nr = th + 2, nk = tw / 8 + 2;
+    const bool has_item = tid < 2 * nr * nk;
+    const int rr = tid % nr, kq = (tid / nr) % nk, g = tid / (nr * nk);
+    const int gy = y0 - 1 + rr, xs = x0 - 8 + 8 * kq;
+    const bool row_in = has_item && gy >= 0 && gy < H;
+    uint32_t v[32];
+
+    auto load = [&](int ch) {
+        const int c0 = ch * 16 + g * 8;
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+        for (int i = 0; i < 8; ++i) {
+            const uint16_t* plane = (row_in && c0 + i < C)
+                ? xb + (long long)(c0 + i) * HW + (long long)gy * W : nullptr;
+            load8<VEC>(plane, xs, W, v + 4 * i);
+        }
+    };
+    auto store = [&](int s) {
+        if (!has_item) return;
+        uint8_t* a = smem + s * stage + g * pl * 16;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-            const int pix = p0 + warp * 32 + j * 8 + t * 2;
-            if (pix >= HW) continue;
+        for (int j = 0; j < 8; ++j) {
+            const int cc = 8 * kq + j - 7;
+            if (cc >= 0 && cc < sw) store_row(a + (rr * sw + cc) * 16, v, j);
+        }
+    };
+    auto weights = [&](int ch, int s) {
+        uint8_t* d = smem + s * stage + abytes;
+        for (int e = tid; e < 9 * BN * 2; e += WG_NT) {
+            const int q = e & 15, jj = (e >> 4) % (BN / 8);
+            const int tap = (e >> 4) / (BN / 8);
+            if (j0 + jj < og)
+                cp_async16(d + (tap * (BN / 8) + jj) * 256 + q * 16,
+                           w + ((long long)(ch * 9 + tap) * og + j0 + jj) * 128
+                               + q * 8);
+        }
+    };
+
+    float acc[MI][BN / 2];
 #pragma unroll
-            for (int h = 0; h < 2; ++h) {
-                const int o = ob * BM + i * 16 + g + h * 8;
-                if (o >= O) continue;
-                const float bo = bias[o];
-                __nv_bfloat16* dst = y + ((long long)b * O + o) * HW + pix;
-                *reinterpret_cast<uint32_t*>(dst) = pack_bf16x2(
-                    epilogue(acc[i][j][2 * h], bo, ACT),
-                    epilogue(acc[i][j][2 * h + 1], bo, ACT));
+    for (int i = 0; i < MI; ++i)
+#pragma unroll
+        for (int k = 0; k < BN / 2; ++k) acc[i][k] = 0.0f;
+
+    // chunk 0 staged; chunk 1's input in registers, its weights in flight
+    load(0);
+    weights(0, 0);
+    cp_async_commit();
+    store(0);
+    if (nchunks > 1) {
+        load(1);
+        weights(1, 1);
+        cp_async_commit();
+        cp_async_wait<1>();
+    } else {
+        cp_async_wait<0>();
+    }
+    fence_proxy_async();
+    __syncthreads();
+    for (int ch = 0; ch < nchunks; ++ch) {
+        const int s = ch % NS;
+        const uint32_t a0 = smem_addr(smem + s * stage), b0 = a0 + abytes;
+#pragma unroll
+        for (int i = 0; i < MI; ++i)
+#pragma unroll
+            for (int k = 0; k < BN / 2; ++k) reg_fence(acc[i][k]);
+        wgmma_fence();
+#pragma unroll
+        for (int tap = 0; tap < 9; ++tap) {
+            const int shift = (tap / 3) * sw + tap % 3;
+            const uint64_t db = gmma_desc(b0 + tap * BN * 32, 128, 256);
+#pragma unroll
+            for (int i = 0; i < MI; ++i) {
+                const int m = (wg * MI + i) * 64 + shift;
+                wgmma<BN>(acc[i], gmma_desc(a0 + m * 16, pl * 16, 128), db);
             }
         }
+        wgmma_commit();
+#pragma unroll
+        for (int i = 0; i < MI; ++i)
+#pragma unroll
+            for (int k = 0; k < BN / 2; ++k) reg_fence(acc[i][k]);
+        // while they run: chunk ch + 1's input from registers to its
+        // stage, chunk ch + 2's loads and weights into the stage chunk
+        // ch - 2 used (its products were waited for, and the block passed
+        // a barrier since)
+        if (ch + 1 < nchunks) store((ch + 1) % NS);
+        if (ch + 2 < nchunks) {
+            load(ch + 2);
+            weights(ch + 2, (ch + 2) % NS);
+            cp_async_commit();
+            cp_async_wait<1>();
+        } else {
+            cp_async_wait<0>();
+        }
+        fence_proxy_async();
+        // chunk ch - 1's products are done: its stage takes chunk ch + 3
+        wgmma_wait<1>();
+        __syncthreads();
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < MI; ++i)
+#pragma unroll
+        for (int k = 0; k < BN / 2; ++k) reg_fence(acc[i][k]);
+    __syncthreads();
+
+    // epilogue: the tile [BN][th][tw] in shared memory (plane pitch np,
+    // 8 mod 32: conflict-free writes), then 16-byte rows of 8 pixels
+    __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(smem);
+    const int np = (th * tw + 31) / 32 * 32 + 8;
+    const int g4 = lane >> 2, t4 = lane & 3;
+#pragma unroll
+    for (int i = 0; i < MI; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            const int m = (wg * MI + i) * 64 + warp * 16 + g4 + 8 * h;
+            const int r = m / sw, c = m - r * sw;
+            if (r >= th || c >= tw) continue;
+#pragma unroll
+            for (int jn = 0; jn < BN / 8; ++jn)
+#pragma unroll
+                for (int e2 = 0; e2 < 2; ++e2) {
+                    const int n = 8 * jn + 2 * t4 + e2, o = 8 * j0 + n;
+                    const float bo = o < O ? bias[o] : 0.0f;
+                    e[n * np + r * tw + c] = __float2bfloat16_rn(
+                        epilogue(acc[i][4 * jn + 2 * h + e2], bo, act));
+                }
+        }
+    __syncthreads();
+    const int rows8 = tw / 8, per_n = th * rows8;
+    for (int idx = tid; idx < BN * per_n; idx += WG_NT) {
+        const int n = idx / per_n, rem = idx - n * per_n;
+        const int r = rem / rows8, c = 8 * (rem - r * rows8);
+        const int o = 8 * j0 + n, oy = y0 + r, ox = x0 + c;
+        if (o >= O || oy >= H || ox >= W) continue;
+        const __nv_bfloat16* src = e + n * np + r * tw + c;
+        __nv_bfloat16* dst = y + ((long long)b * O + o) * HW
+                             + (long long)oy * W + ox;
+        if (VEC) {
+            *reinterpret_cast<uint4*>(dst) =
+                *reinterpret_cast<const uint4*>(src);
+        } else {
+            for (int q = 0; q < 8 && ox + q < W; ++q) dst[q] = src[q];
+        }
+    }
+}
+
+// Sections x0..x2 (B, C_s, H, W) bfloat16; w [ceil(Ct / 16)][og][2][8][8]
+// (k = 16 step + 8 half + last index); grid (ceil(HW / MB), ceil(O / BN),
+// B). A block computes MB = 128 MI consecutive pixels for BN output
+// channels; a stage holds 16 KS input channels, 2 KS planes of MB pixels
+// (pitch MB + 1: conflict-free staging stores), and their weights.
+template <int BN, int MI, int KS, int MINB, bool VEC>
+__global__ void __launch_bounds__(WG_NT, MINB)
+conv1x1_wgmma_kernel(const uint16_t* __restrict__ x0,
+                     const uint16_t* __restrict__ x1,
+                     const uint16_t* __restrict__ x2, int C0, int C1, int C2,
+                     const __nv_bfloat16* __restrict__ w,
+                     const float* __restrict__ bias,
+                     __nv_bfloat16* __restrict__ y, int HW, int O, int og,
+                     int ksteps, int act) {
+    constexpr int MB = 128 * MI, PL = MB + 1, NP = 2 * KS;
+    constexpr int ABYTES = NP * PL * 16;
+    constexpr int STAGE = ABYTES + KS * BN * 32;
+    constexpr int NI = NP * MB / 8;                 // staging items
+    constexpr int IPT = (NI + WG_NT - 1) / WG_NT;   // a thread
+    extern __shared__ __align__(128) uint8_t smem[];
+    const int p0 = blockIdx.x * MB, j0 = blockIdx.y * (BN / 8);
+    const int b = blockIdx.z;
+    const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3;
+    const int lane = tid & 31;
+    const int Ct = C0 + C1 + C2;
+    const int nchunks = (ksteps + KS - 1) / KS;
+    uint32_t v[IPT][32];
+
+    // item e: plane g = e % NP (channels across lanes) x 8 pixels from
+    // p0 + 8 (e / NP)
+    auto load = [&](int ch) {
+#pragma unroll
+        for (int it = 0; it < IPT; ++it) {
+            const int e = tid + it * WG_NT;
+            const int c0 = ch * 16 * KS + 8 * (e % NP);
+            const long long p = p0 + 8 * (e / NP);
+#pragma unroll
+            for (int i = 0; i < 8; ++i) {
+                const uint16_t* plane = (e < NI && c0 + i < Ct)
+                    ? section_plane(x0, x1, x2, C0, C1, C2, b, c0 + i,
+                                    (long long)HW)
+                    : nullptr;
+                load8<VEC>(plane, p, HW, v[it] + 4 * i);
+            }
+        }
+    };
+    auto store = [&](int s) {
+#pragma unroll
+        for (int it = 0; it < IPT; ++it) {
+            const int e = tid + it * WG_NT;
+            if (e >= NI) continue;
+            uint8_t* a =
+                smem + s * STAGE + ((e % NP) * PL + 8 * (e / NP)) * 16;
+#pragma unroll
+            for (int j = 0; j < 8; ++j) store_row(a + j * 16, v[it], j);
+        }
+    };
+    auto weights = [&](int ch, int s) {
+        uint8_t* d = smem + s * STAGE + ABYTES;
+        const int nks = min(KS, ksteps - ch * KS);
+        for (int e = tid; e < nks * BN * 2; e += WG_NT) {
+            const int q = e & 15, jj = (e >> 4) % (BN / 8);
+            const int ks = (e >> 4) / (BN / 8);
+            if (j0 + jj < og)
+                cp_async16(d + (ks * (BN / 8) + jj) * 256 + q * 16,
+                           w + ((long long)(ch * KS + ks) * og + j0 + jj) * 128
+                               + q * 8);
+        }
+    };
+
+    float acc[MI][BN / 2];
+#pragma unroll
+    for (int i = 0; i < MI; ++i)
+#pragma unroll
+        for (int k = 0; k < BN / 2; ++k) acc[i][k] = 0.0f;
+
+    // chunk 0 staged; chunk 1's input in registers, its weights in flight
+    load(0);
+    weights(0, 0);
+    cp_async_commit();
+    store(0);
+    if (nchunks > 1) {
+        load(1);
+        weights(1, 1);
+        cp_async_commit();
+        cp_async_wait<1>();
+    } else {
+        cp_async_wait<0>();
+    }
+    fence_proxy_async();
+    __syncthreads();
+    for (int ch = 0; ch < nchunks; ++ch) {
+        const int s = ch % NS;
+        const int nks = min(KS, ksteps - ch * KS);
+        const uint32_t a0 = smem_addr(smem + s * STAGE), b0 = a0 + ABYTES;
+#pragma unroll
+        for (int i = 0; i < MI; ++i)
+#pragma unroll
+            for (int k = 0; k < BN / 2; ++k) reg_fence(acc[i][k]);
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks) {
+            if (ks >= nks) break;
+            const uint64_t db = gmma_desc(b0 + ks * BN * 32, 128, 256);
+#pragma unroll
+            for (int i = 0; i < MI; ++i) {
+                const int m = 2 * ks * PL + (wg * MI + i) * 64;
+                wgmma<BN>(acc[i], gmma_desc(a0 + m * 16, PL * 16, 128), db);
+            }
+        }
+        wgmma_commit();
+#pragma unroll
+        for (int i = 0; i < MI; ++i)
+#pragma unroll
+            for (int k = 0; k < BN / 2; ++k) reg_fence(acc[i][k]);
+        // while they run: chunk ch + 1's input from registers to its
+        // stage, chunk ch + 2's loads and weights into the stage chunk
+        // ch - 2 used (its products were waited for, and the block passed
+        // a barrier since)
+        if (ch + 1 < nchunks) store((ch + 1) % NS);
+        if (ch + 2 < nchunks) {
+            load(ch + 2);
+            weights(ch + 2, (ch + 2) % NS);
+            cp_async_commit();
+            cp_async_wait<1>();
+        } else {
+            cp_async_wait<0>();
+        }
+        fence_proxy_async();
+        // chunk ch - 1's products are done: its stage takes chunk ch + 3
+        wgmma_wait<1>();
+        __syncthreads();
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < MI; ++i)
+#pragma unroll
+        for (int k = 0; k < BN / 2; ++k) reg_fence(acc[i][k]);
+    __syncthreads();
+
+    // epilogue: the tile [BN][MB] (pitch MB + 8), then 16-byte rows
+    constexpr int MP = MB + 8;
+    __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(smem);
+    const int g4 = lane >> 2, t4 = lane & 3;
+#pragma unroll
+    for (int i = 0; i < MI; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            const int m = (wg * MI + i) * 64 + warp * 16 + g4 + 8 * h;
+#pragma unroll
+            for (int jn = 0; jn < BN / 8; ++jn)
+#pragma unroll
+                for (int e2 = 0; e2 < 2; ++e2) {
+                    const int n = 8 * jn + 2 * t4 + e2, o = 8 * j0 + n;
+                    const float bo = o < O ? bias[o] : 0.0f;
+                    e[n * MP + m] = __float2bfloat16_rn(
+                        epilogue(acc[i][4 * jn + 2 * h + e2], bo, act));
+                }
+        }
+    __syncthreads();
+    for (int idx = tid; idx < BN * (MB / 8); idx += WG_NT) {
+        const int n = idx / (MB / 8), m = 8 * (idx - n * (MB / 8));
+        const int o = 8 * j0 + n;
+        const long long p = p0 + m;
+        if (o >= O || p >= HW) continue;
+        const __nv_bfloat16* src = e + n * MP + m;
+        __nv_bfloat16* dst = y + ((long long)b * O + o) * HW + p;
+        if (VEC) {
+            *reinterpret_cast<uint4*>(dst) =
+                *reinterpret_cast<const uint4*>(src);
+        } else {
+            for (int q = 0; q < 8 && p + q < HW; ++q) dst[q] = src[q];
+        }
+    }
 }
 
 // ---------------------------------------------------------------------------
@@ -456,6 +876,97 @@ conv1x1_f32_kernel(const float* __restrict__ x0, const float* __restrict__ x1,
 
 }  // namespace
 
+namespace {
+
+constexpr int SMEM_MAX = 232448;        // a block's shared memory on sm_90
+
+bool aligned16(const void* p) {
+    return ((uintptr_t)p & 15) == 0;
+}
+
+// The 3x3 tile for a block of mb positions: the row width tw (a multiple
+// of 8, at most 96) and th rows with th (tw + 2) <= mb and at most 256
+// staging items, wasting the fewest positions over the map (the wider on
+// a tie).
+void pick_tile(int H, int W, int mb, int& tw, int& th, int& tx, int& ty) {
+    double best = -1.0;
+    for (int t = std::min((W + 7) / 8 * 8, 96); t >= 8; t -= 8) {
+        const int h = std::min(mb / (t + 2), 128 / (t / 8 + 2) - 2);
+        if (h < 1) continue;
+        const int cx = (W + t - 1) / t, cy = (H + h - 1) / h;
+        const double eff = (double)H * W / ((double)cx * cy * mb);
+        if (eff > best * 1.0001) {
+            best = eff;
+            tw = t;
+            th = h;
+            tx = cx;
+            ty = cy;
+        }
+    }
+}
+
+// Lets ``kernel`` take up to SMEM_MAX bytes of dynamic shared memory (once
+// per kernel: ``done``).
+template <typename K>
+int allow_smem(K kernel, int smem, bool& done) {
+    if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
+    if (done) return 0;
+    const int err = (int)cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
+    done = err == 0;
+    return err;
+}
+
+template <int BN, int MI, int MINB>
+int conv3x3_bf16(const void* x, const void* w, const void* bias, void* y,
+                 int B, int C, int H, int W, int O, int act,
+                 cudaStream_t stream) {
+    constexpr int MB = 128 * MI;
+    int tw = 8, th = 1, tx = 1, ty = 1;
+    pick_tile(H, W, MB, tw, th, tx, ty);
+    const int pl = MB + 2 * (tw + 2) + 2;
+    const int stage = 2 * pl * 16 + 9 * BN * 32;
+    const int np = (th * tw + 31) / 32 * 32 + 8;
+    const int smem = std::max(NS * stage, BN * np * 2);
+    const bool vec = W % 8 == 0 && aligned16(x) && aligned16(y);
+    static bool done[2];
+    auto kernel = vec ? conv3x3_wgmma_kernel<BN, MI, MINB, true>
+                      : conv3x3_wgmma_kernel<BN, MI, MINB, false>;
+    const int err = allow_smem(kernel, smem, done[vec]);
+    if (err) return err;
+    dim3 grid(tx * ty, (O + BN - 1) / BN, B);
+    kernel<<<grid, WG_NT, smem, stream>>>(
+        (const uint16_t*)x, (const __nv_bfloat16*)w, (const float*)bias,
+        (__nv_bfloat16*)y, C, H, W, O, (O + 7) / 8, (C + 15) / 16, tw, th,
+        tx, act);
+    return (int)cudaGetLastError();
+}
+
+template <int BN, int MI, int KS, int MINB>
+int conv1x1_bf16(const void* x0, const void* x1, const void* x2, int C0,
+                 int C1, int C2, const void* w, const void* bias, void* y,
+                 int B, int HW, int O, int act, cudaStream_t stream) {
+    constexpr int MB = 128 * MI;
+    const int stage = 2 * KS * (MB + 1) * 16 + KS * BN * 32;
+    const int smem = std::max(NS * stage, BN * (MB + 8) * 2);
+    const bool vec = HW % 8 == 0 && aligned16(x0) && aligned16(y)
+                     && (C1 == 0 || aligned16(x1))
+                     && (C2 == 0 || aligned16(x2));
+    static bool done[2];
+    auto kernel = vec ? conv1x1_wgmma_kernel<BN, MI, KS, MINB, true>
+                      : conv1x1_wgmma_kernel<BN, MI, KS, MINB, false>;
+    const int err = allow_smem(kernel, smem, done[vec]);
+    if (err) return err;
+    dim3 grid((HW + MB - 1) / MB, (O + BN - 1) / BN, B);
+    kernel<<<grid, WG_NT, smem, stream>>>(
+        (const uint16_t*)x0, (const uint16_t*)x1, (const uint16_t*)x2, C0, C1,
+        C2, (const __nv_bfloat16*)w, (const float*)bias, (__nv_bfloat16*)y,
+        HW, O, (O + 7) / 8, (C0 + C1 + C2 + 15) / 16, act);
+    return (int)cudaGetLastError();
+}
+
+}  // namespace
+
 // K10. x (B, C, H, W) and y (B, O, H, W) in bfloat16 (bf16 = 1) or float32;
 // w packed by the wrapper for that dtype; bias (O,) float32; act 1 = SiLU.
 extern "C" int conv3x3_cmajor(const void* x, const void* w, const void* bias,
@@ -463,36 +974,32 @@ extern "C" int conv3x3_cmajor(const void* x, const void* w, const void* bias,
                               int bf16, int act, void* stream_ptr) {
     cudaStream_t stream = (cudaStream_t)stream_ptr;
     if (B <= 0 || C <= 0 || H <= 0 || W <= 0 || O <= 0) return 0;
+    if (bf16) {
+        if (O <= 24) return conv3x3_bf16<24, 2, 2>(x, w, bias, y, B, C, H, W,
+                                                   O, act, stream);
+        if (O <= 48) return conv3x3_bf16<48, 2, 2>(x, w, bias, y, B, C, H, W,
+                                                   O, act, stream);
+        if (O <= 64) return conv3x3_bf16<64, 4, 1>(x, w, bias, y, B, C, H, W,
+                                                   O, act, stream);
+        return conv3x3_bf16<128, 2, 1>(x, w, bias, y, B, C, H, W, O, act,
+                                       stream);
+    }
     const int tiles_x = (W + TW - 1) / TW;
     dim3 grid(tiles_x * ((H + TH - 1) / TH), (O + BM - 1) / BM, B);
-    if (bf16) {
-        const int nchunks = (C + KC3 - 1) / KC3;
-        if (act)
-            conv3x3_bf16_kernel<1><<<grid, NT, 0, stream>>>(
-                (const uint16_t*)x, (const __nv_bfloat16*)w,
-                (const float*)bias, (__nv_bfloat16*)y, C, H, W, O, nchunks,
-                tiles_x);
-        else
-            conv3x3_bf16_kernel<0><<<grid, NT, 0, stream>>>(
-                (const uint16_t*)x, (const __nv_bfloat16*)w,
-                (const float*)bias, (__nv_bfloat16*)y, C, H, W, O, nchunks,
-                tiles_x);
-    } else {
-        const int Cp = (C + KCF3 - 1) / KCF3 * KCF3;
-        if (act)
-            conv3x3_f32_kernel<1><<<grid, NT, 0, stream>>>(
-                (const float*)x, (const float*)w, (const float*)bias,
-                (float*)y, C, H, W, O, Cp, tiles_x);
-        else
-            conv3x3_f32_kernel<0><<<grid, NT, 0, stream>>>(
-                (const float*)x, (const float*)w, (const float*)bias,
-                (float*)y, C, H, W, O, Cp, tiles_x);
-    }
+    const int Cp = (C + KCF3 - 1) / KCF3 * KCF3;
+    if (act)
+        conv3x3_f32_kernel<1><<<grid, NT, 0, stream>>>(
+            (const float*)x, (const float*)w, (const float*)bias, (float*)y,
+            C, H, W, O, Cp, tiles_x);
+    else
+        conv3x3_f32_kernel<0><<<grid, NT, 0, stream>>>(
+            (const float*)x, (const float*)w, (const float*)bias, (float*)y,
+            C, H, W, O, Cp, tiles_x);
     return (int)cudaGetLastError();
 }
 
 // K11. Sections x0..x2 (B, C_s, H, W) (C_s = 0 for an absent one), y (B, O,
-// H, W), in bfloat16 (bf16 = 1: every C_s and H*W even) or float32.
+// H, W), in bfloat16 (bf16 = 1) or float32.
 extern "C" int conv1x1_cmajor(const void* x0, const void* x1, const void* x2,
                               int C0, int C1, int C2, const void* w,
                               const void* bias, void* y, int B, int HW, int O,
@@ -500,30 +1007,29 @@ extern "C" int conv1x1_cmajor(const void* x0, const void* x1, const void* x2,
     cudaStream_t stream = (cudaStream_t)stream_ptr;
     const int Ct = C0 + C1 + C2;
     if (B <= 0 || Ct <= 0 || HW <= 0 || O <= 0) return 0;
+    if (bf16) {
+        if (O <= 24) return conv1x1_bf16<24, 2, 2, 2>(
+            x0, x1, x2, C0, C1, C2, w, bias, y, B, HW, O, act, stream);
+        if (O <= 48) return conv1x1_bf16<48, 2, 2, 2>(
+            x0, x1, x2, C0, C1, C2, w, bias, y, B, HW, O, act, stream);
+        if (O <= 64) return conv1x1_bf16<64, 2, 4, 1>(
+            x0, x1, x2, C0, C1, C2, w, bias, y, B, HW, O, act, stream);
+        if (O <= 128) return conv1x1_bf16<128, 2, 4, 1>(
+            x0, x1, x2, C0, C1, C2, w, bias, y, B, HW, O, act, stream);
+        return conv1x1_bf16<256, 1, 4, 1>(x0, x1, x2, C0, C1, C2, w, bias, y,
+                                          B, HW, O, act, stream);
+    }
     dim3 grid((HW + TP - 1) / TP, (O + BM - 1) / BM, B);
     const int Kp = (Ct + 15) / 16 * 16;
-    if (bf16) {
-        const uint16_t *a0 = (const uint16_t*)x0, *a1 = (const uint16_t*)x1,
-                       *a2 = (const uint16_t*)x2;
-        if (act)
-            conv1x1_bf16_kernel<1><<<grid, NT, 0, stream>>>(
-                a0, a1, a2, C0, C1, C2, (const __nv_bfloat16*)w,
-                (const float*)bias, (__nv_bfloat16*)y, HW, O, Kp);
-        else
-            conv1x1_bf16_kernel<0><<<grid, NT, 0, stream>>>(
-                a0, a1, a2, C0, C1, C2, (const __nv_bfloat16*)w,
-                (const float*)bias, (__nv_bfloat16*)y, HW, O, Kp);
-    } else {
-        const float *a0 = (const float*)x0, *a1 = (const float*)x1,
-                    *a2 = (const float*)x2;
-        if (act)
-            conv1x1_f32_kernel<1><<<grid, NT, 0, stream>>>(
-                a0, a1, a2, C0, C1, C2, (const float*)w, (const float*)bias,
-                (float*)y, HW, O, Kp);
-        else
-            conv1x1_f32_kernel<0><<<grid, NT, 0, stream>>>(
-                a0, a1, a2, C0, C1, C2, (const float*)w, (const float*)bias,
-                (float*)y, HW, O, Kp);
-    }
+    const float *a0 = (const float*)x0, *a1 = (const float*)x1,
+                *a2 = (const float*)x2;
+    if (act)
+        conv1x1_f32_kernel<1><<<grid, NT, 0, stream>>>(
+            a0, a1, a2, C0, C1, C2, (const float*)w, (const float*)bias,
+            (float*)y, HW, O, Kp);
+    else
+        conv1x1_f32_kernel<0><<<grid, NT, 0, stream>>>(
+            a0, a1, a2, C0, C1, C2, (const float*)w, (const float*)bias,
+            (float*)y, HW, O, Kp);
     return (int)cudaGetLastError();
 }

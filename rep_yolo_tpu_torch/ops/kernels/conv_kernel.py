@@ -6,7 +6,8 @@ Replaces ``rep_yolo_tpu/ops/pallas/conv_kernel.py``: ``conv3x3_cmajor`` (K10
 (K11 ``conv1x1_cmajor``, over 1-3 input sections read in place of their
 concat), each followed by bias and SiLU or no activation. They run the DER
 blocks' ``"bf16"`` deploy path (``DERBlock.forward_cm``). Source:
-``csrc/conv_kernel.cu``.
+``csrc/conv_kernel.cu``: in bfloat16 implicit GEMMs on ``wgmma`` (pixels
+on M, output channels on N), in float32 FFMA.
 
 Activations are NCHW, bfloat16 or float32; the output is in x's dtype. The
 sums and the epilogue are float32 with one rounding at the end; the bias is
@@ -36,7 +37,8 @@ from rep_yolo_tpu_torch.ops.kernels.conv_flat import QConv
 
 LAUNCHES = {"conv3x3_cmajor": 0, "conv1x1_cmajor": 0,
             "conv3x3_cmajor_q8": 0, "conv1x1_cmajor_q8": 0}
-_BM = 32            # output channels per block of the kernels
+_BM = 32            # output channels per block of the float32 and int8 kernels
+_NG = 8             # bfloat16: output channels per core-matrix row group
 _ACTS = {"silu": 1, None: 0}
 _DTYPES = (torch.bfloat16, torch.float32)
 
@@ -63,13 +65,18 @@ class CMConv:
     the model holds it, ``bias`` (O,) float32. ``packed(dtype)`` is the
     kernels' copy in that dtype, made at the first launch and kept:
 
-    - bfloat16, 3x3: (Opad, nchunks * 144), k = chunk * 144 + tap * 16 + c
-      over chunks of 16 input channels, tap = u * 3 + v;
-    - bfloat16, 1x1: (Opad, Cp), Cp = C rounded up to 16;
+    - bfloat16, 3x3: (Cp / 16, 9, Opad / 8, 2, 8, 8): [chunk][tap][o // 8]
+      [half][o % 8][c % 8] with c = 16 chunk + 8 half + c % 8, tap = u * 3
+      + v, Opad = O rounded up to 8 (the wgmma B operand's core matrices,
+      8 output channels x 8 input channels, in the order the kernel reads
+      them: one k16 step per (chunk, tap));
+    - bfloat16, 1x1: (Cp / 16, Opad / 8, 2, 8, 8), the same over k16
+      steps of the input channels;
     - float32, 3x3: (Opad / 32, Cp, 9, 32), Cp = C rounded up to 8;
     - float32, 1x1: (Opad / 32, Cp, 32), Cp = C rounded up to 16;
 
-    Opad = O rounded up to 32; the padding is zeros."""
+    bfloat16: Cp = C rounded up to 16; float32: Opad = O rounded up to 32.
+    The padding is zeros."""
 
     def __init__(self, weight: torch.Tensor, bias: torch.Tensor | None):
         self.weight = weight.detach()
@@ -91,15 +98,15 @@ class CMConv:
     def packed(self, dtype: torch.dtype) -> torch.Tensor:
         if dtype not in self._packed:
             O, C, k, _ = self.weight.shape
-            opad = _up(O, _BM)
-            cp = _up(C, 8 if (k == 3 and dtype == torch.float32) else 16)
+            bf16 = dtype == torch.bfloat16
+            opad = _up(O, _NG if bf16 else _BM)
+            cp = _up(C, 8 if (k == 3 and not bf16) else 16)
             w = torch.zeros((opad, cp, k * k), dtype=dtype,
                             device=self.weight.device)
             w[:O, :C] = self.weight.reshape(O, C, k * k).to(dtype)
-            if dtype == torch.bfloat16:
-                if k == 3:                    # (Opad, chunk, tap, c)
-                    w = w.reshape(opad, cp // 16, 16, 9).permute(0, 1, 3, 2)
-                w = w.reshape(opad, -1)
+            if bf16:                          # (c16, tap, o8, half, o, c)
+                w = w.reshape(opad // _NG, _NG, cp // 16, 2, 8, k * k) \
+                    .permute(2, 5, 0, 3, 1, 4)
             else:                             # (Opad/32, c, tap, 32)
                 w = w.reshape(opad // _BM, _BM, cp, k * k).permute(0, 2, 3, 1)
             self._packed[dtype] = w.contiguous()
@@ -191,10 +198,8 @@ def conv1x1_cmajor_plain(xs, cw: CMConv,
 
 
 def conv1x1_cmajor(xs, cw: CMConv, act: str | None = "silu") -> torch.Tensor:
-    """K11. CPU tensors take ``conv1x1_cmajor_plain``. In bfloat16 every
-    section's channel count and H*W must be even and its data 4-byte
-    aligned (pairs of channels and of pixels are read as one 32-bit
-    word)."""
+    """K11. CPU tensors take ``conv1x1_cmajor_plain``. The sections are
+    read in place, each from its own tensor."""
     xs = _sections(xs)
     if xs[0].device.type == "cpu":
         return conv1x1_cmajor_plain(xs, cw, act)
@@ -205,11 +210,6 @@ def conv1x1_cmajor(xs, cw: CMConv, act: str | None = "silu") -> torch.Tensor:
     B, _, H, W = xs[0].shape
     cs = [t.shape[1] for t in xs]
     bf16 = xs[0].dtype == torch.bfloat16
-    if bf16 and (any(c % 2 for c in cs) or (H * W) % 2
-                 or any(t.data_ptr() % 4 for t in xs)):
-        raise ValueError(f"conv1x1_cmajor: bfloat16 needs even section "
-                         f"channels, an even H*W and 4-byte aligned "
-                         f"sections, got {cs}, {H}x{W}")
     y = torch.empty((B, cw.c_out, H, W), dtype=xs[0].dtype,
                     device=xs[0].device)
     ptrs = [D.ptr(t) for t in xs] + [None] * (3 - len(xs))

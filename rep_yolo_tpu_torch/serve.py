@@ -16,7 +16,14 @@ Protocol (stdlib only):
            "ms": float}
   GET /v1/health -> {"status": "ok", "device": ..., ...}
 
-Run:  python -m rep_yolo_tpu_torch.serve --weights tests/golden/model_weights.npz [--fast int8]
+Weights: ``--ckpt`` a checkpoint ``.npz`` of either package (a
+``TrainState``, served with its EMA weights, such as ``cli.train``'s
+``best`` / ``last``; or a variables tree, such as the JAX
+``strip_to_deploy`` + ``save_checkpoint``; ``train.checkpoint.read_weights``
+tells them apart by their keys); ``--weights`` a reference-keyed ``.npz``
+(``tests/golden/model_weights.npz``); neither: a seeded random init.
+
+Run:  python -m rep_yolo_tpu_torch.serve --ckpt runs/train/exp/best [--fast int8]
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ from rep_yolo_tpu_torch.device import resolve_device
 from rep_yolo_tpu_torch.models.model import RepYOLO
 from rep_yolo_tpu_torch.ops.nms import Detections, non_max_suppression
 from rep_yolo_tpu_torch.ops.quant import calibrate, enable_int8_fast_path
+from rep_yolo_tpu_torch.train.checkpoint import read_weights
 from rep_yolo_tpu_torch.utils.weights import load_reference_npz
 
 
@@ -106,9 +114,13 @@ def build_engine(cfg: str, weights: str | None, img_size: int,
                  device=None, fast: str | None = None,
                  calib: torch.Tensor | None = None,
                  dtype: torch.dtype = torch.float32,
-                 der_fast: str | None = None) -> Engine:
-    """Build, load (a reference-keyed .npz, else a seeded init), fuse and
-    warm the engine. float32 by default: TF32 is turned off for cuDNN and
+                 der_fast: str | None = None,
+                 ckpt: str | None = None) -> Engine:
+    """Build, load, fuse and warm the engine. The weights: ``ckpt``, a
+    checkpoint ``.npz`` of either package (``read_weights``: a
+    ``TrainState``'s EMA weights or a variables tree), or ``weights``, a
+    reference-keyed ``.npz``, not both; else a seeded init. float32 by
+    default: TF32 is turned off for cuDNN and
     matmuls, as the JAX server runs its convs at full f32 precision; cuDNN
     keeps to deterministic algorithms, so a request repeated gives the same
     detections. ``fast="int8"`` calibrates on ``calib`` (NHWC images in
@@ -129,6 +141,9 @@ def build_engine(cfg: str, weights: str | None, img_size: int,
     regular path, as the JAX package does)."""
     if fast not in (None, "int8"):
         raise ValueError(f"unknown fast path {fast!r}")
+    if weights and ckpt:
+        raise ValueError("give the weights as weights= (reference-keyed) or "
+                         "ckpt= (a checkpoint), not both")
     if dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"unknown serving dtype {dtype}")
     if fast == "int8" and (dtype != torch.float32 or der_fast is not None):
@@ -140,7 +155,9 @@ def build_engine(cfg: str, weights: str | None, img_size: int,
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cudnn.deterministic = True
     model = RepYOLO.from_config(cfg, device=dev)
-    if weights:
+    if ckpt:
+        model.load_state(read_weights(ckpt))
+    elif weights:
         model.load_state(load_reference_npz(weights))
     else:
         model.init(torch.Generator().manual_seed(0))
@@ -219,8 +236,14 @@ def make_server(engine: Engine, host: str = "0.0.0.0",
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--cfg", default="cfg/rep_yolo.yaml")
-    p.add_argument("--weights", default=None,
-                   help="reference-keyed .npz (default: seeded random init)")
+    src = p.add_mutually_exclusive_group()
+    src.add_argument("--ckpt", default=None,
+                     help="checkpoint .npz of either package: a TrainState "
+                          "(its EMA weights are served) or a variables tree "
+                          "(strip_to_deploy + save_checkpoint)")
+    src.add_argument("--weights", default=None,
+                     help="reference-keyed .npz (neither: seeded random "
+                          "init)")
     p.add_argument("--img-size", type=int, default=640)
     p.add_argument("--max-batch", type=int, default=8)
     p.add_argument("--conf", type=float, default=0.25)
@@ -240,9 +263,10 @@ def main(argv=None):
     args = parse_args(argv)
     engine = build_engine(args.cfg, args.weights, args.img_size,
                           args.max_batch, args.conf, args.iou, args.device,
-                          fast=args.fast)
+                          fast=args.fast, ckpt=args.ckpt)
     srv = make_server(engine, args.host, args.port)
-    print(f"serving on {args.host}:{srv.server_address[1]} (size "
+    served = args.ckpt or args.weights or "a seeded random init"
+    print(f"serving {served} on {args.host}:{srv.server_address[1]} (size "
           f"{args.img_size}, max batch {args.max_batch}, {engine.device}, "
           f"{args.fast or 'float32'})")
     srv.serve_forever()

@@ -13,7 +13,11 @@ inverse, ``train_state_to_jax``). The JAX package's orbax directories are
 not read (they need orbax): save with its ``.npz`` fallback.
 
 Cadence (``cli.train``): ``last`` every epoch, ``best`` on a fitness gain,
-``epoch_NNN`` snapshots. ``strip_to_deploy`` takes the EMA weights.
+``epoch_NNN`` snapshots. ``strip_to_deploy`` takes the EMA weights;
+``save_checkpoint`` of its state dict (with ``net=``) writes the JAX
+variables tree {params, batch_stats}, as the JAX ``save_checkpoint`` of
+its ``strip_to_deploy`` does. ``read_weights`` gives the weights to serve
+from either form, of either package (``serve --ckpt``).
 """
 
 from __future__ import annotations
@@ -22,11 +26,13 @@ import json
 import os
 from pathlib import Path
 from types import SimpleNamespace
+from typing import Mapping
 
 import numpy as np
 import torch
 
-from rep_yolo_tpu_torch.utils.weights import (state_dict_from_jax,
+from rep_yolo_tpu_torch.utils.weights import (float_leaf, state_dict_from_jax,
+                                              state_dict_to_jax,
                                               train_state_from_jax,
                                               train_state_to_jax)
 
@@ -58,21 +64,28 @@ def _unflatten(flat) -> dict:
     return out
 
 
-def save_checkpoint(path: str | Path, state, meta: dict | None = None):
+def save_checkpoint(path: str | Path, state, meta: dict | None = None,
+                    net: torch.nn.Module | None = None):
     """Write a port ``TrainState`` as ``<path>.npz`` (the JAX form) and
-    ``meta`` as ``<path>.json``."""
+    ``meta`` as ``<path>.json``. A bare state dict (``strip_to_deploy``'s)
+    is written as the JAX variables tree {params, batch_stats}; it needs
+    ``net``, the train-form network it belongs to, for the JAX paths."""
     path = Path(path).resolve()
+    if isinstance(state, Mapping):
+        if net is None:
+            raise ValueError("save_checkpoint: a bare state dict needs net=, "
+                             "the train-form network it belongs to")
+        tree = state_dict_to_jax(net, state)
+    else:
+        tree = train_state_to_jax(state)
     path.parent.mkdir(parents=True, exist_ok=True)
-    np.savez(str(path.with_suffix(".npz")),
-             **_flatten(train_state_to_jax(state)))
+    np.savez(str(path.with_suffix(".npz")), **_flatten(tree))
     if meta is not None:
         path.with_suffix(".json").write_text(json.dumps(meta, indent=2))
 
 
-def read_checkpoint(path: str | Path) -> dict:
-    """A checkpoint of either package -> the port's trees:
-    ``train_state_from_jax``'s {"state", "momentum", "second", "ema",
-    "step", "ema_updates"} and {"acc", "acc_n"}."""
+def _read_npz(path: str | Path) -> dict:
+    """``<path>.npz`` as {key: array}; an orbax directory raises."""
     path = Path(path).resolve()
     orbax_dir = Path(str(path.with_suffix("")) + ".orbax")
     if orbax_dir.exists():
@@ -81,7 +94,14 @@ def read_checkpoint(path: str | Path) -> dict:
             "read: save it in the JAX package's .npz form (its "
             "save_checkpoint without orbax, or np.savez of _flatten(state))")
     with np.load(str(path.with_suffix(".npz"))) as z:
-        tree = _unflatten({k: z[k] for k in z.files})
+        return {k: z[k] for k in z.files}
+
+
+def read_checkpoint(path: str | Path) -> dict:
+    """A checkpoint of either package -> the port's trees:
+    ``train_state_from_jax``'s {"state", "momentum", "second", "ema",
+    "step", "ema_updates"} and {"acc", "acc_n"}."""
+    tree = _unflatten(_read_npz(path))
     opt, ema = tree["2"], tree["3"]
     jax_state = SimpleNamespace(
         params=tree["0"], batch_stats=tree.get("1", {}),
@@ -92,6 +112,39 @@ def read_checkpoint(path: str | Path) -> dict:
     out["acc"] = state_dict_from_jax({"params": tree.get("5", {})})
     out["acc_n"] = int(tree.get("6", 0))
     return out
+
+
+_TRAIN_STATE = {"0", "1", "2", "3", "4", "5", "6"}
+_VARIABLES = {"params", "batch_stats"}
+
+
+def read_weights(path: str | Path) -> dict[str, np.ndarray]:
+    """The weights to serve from a checkpoint ``.npz`` of either package,
+    its form told by its top-level keys:
+
+    - a ``TrainState`` ("0" params, "1" batch_stats, "2" opt, "3" ema
+      (updates, variables), ...): its EMA weights, as
+      ``read_checkpoint(path)["ema"]`` gives them (the JAX ``cli/detect.py``
+      serves ``state.ema.variables``);
+    - a variables tree ("params", "batch_stats"), as ``strip_to_deploy``
+      then ``save_checkpoint`` write it in either package:
+      ``state_dict_from_jax`` of it, bfloat16 leaves (``half=True``) cast
+      up to float32 first.
+
+    Anything else raises ``ValueError`` naming the keys found."""
+    flat = _read_npz(path)
+    top = {k.split("/", 1)[0] for k in flat}
+    if {"0", "3"} <= top <= _TRAIN_STATE:
+        return state_dict_from_jax(_unflatten(
+            {k: v for k, v in flat.items() if k.startswith("3/1/")})["3"]["1"])
+    if "params" in top and top <= _VARIABLES:
+        return state_dict_from_jax(
+            _unflatten({k: float_leaf(v) for k, v in flat.items()}))
+    raise ValueError(
+        f"{Path(path).with_suffix('.npz')}: neither a TrainState checkpoint "
+        f"(top-level keys 0-6, 3 = ema) nor a variables tree (params, "
+        f"batch_stats); its top-level keys are {sorted(top)} (e.g. "
+        f"{sorted(flat)[:4]})")
 
 
 def load_checkpoint(path: str | Path, state):

@@ -30,6 +30,23 @@ _DEAD = re.compile(r"(^|\.)(cv3_1|cv3_2|res)\.|\.anchors$|\.anchor_grid$"
                    r"|num_batches_tracked$")
 
 
+def bf16_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A bfloat16 tensor as the 2-byte void array that ``np.savez`` writes
+    for a JAX bfloat16 leaf (numpy has no bfloat16)."""
+    return t.detach().cpu().contiguous().view(torch.int16).numpy().view(
+        np.dtype("V2"))
+
+
+def float_leaf(a: np.ndarray) -> np.ndarray:
+    """A leaf as read from an ``.npz``: a bfloat16 one (2-byte void, as JAX
+    bfloat16 arrays are saved) cast up to float32, others as they are."""
+    a = np.asarray(a)
+    if a.dtype.kind == "V" and a.dtype.itemsize == 2:
+        return (np.ascontiguousarray(a).view(np.uint16).astype(np.uint32)
+                << 16).view(np.float32)
+    return a
+
+
 def load_reference_npz(path) -> dict[str, np.ndarray]:
     with np.load(path) as z:
         return {k: z[k] for k in z.files}
@@ -203,14 +220,18 @@ def state_dict_to_jax(net: torch.nn.Module, state: Mapping,
                       collections=("params", "batch_stats")) -> dict:
     """A train-form state dict (or a params-keyed one: momentum, grads)
     -> {collection: nested dict of numpy arrays} as the JAX package holds
-    its variables; ``state_dict_from_jax`` of it gives ``state`` back."""
+    its variables; ``state_dict_from_jax`` of it gives ``state`` back.
+    bfloat16 tensors become 2-byte void arrays (``bf16_to_numpy``)."""
     out: dict = {c: {} for c in collections}
     for key, (coll, path) in jax_paths(net).items():
         if coll not in out or key not in state:
             continue
         t = state[key]
-        a = (t.detach().cpu().numpy() if torch.is_tensor(t)
-             else np.asarray(t))
+        if torch.is_tensor(t):
+            a = (bf16_to_numpy(t) if t.dtype == torch.bfloat16
+                 else t.detach().cpu().numpy())
+        else:
+            a = np.asarray(t)
         if path[-1] == "kernel" and a.ndim == 4:
             a = a.transpose(2, 3, 1, 0)          # OIHW -> HWIO
         elif path[-1].startswith(("ia_", "im_")):

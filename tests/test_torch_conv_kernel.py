@@ -121,13 +121,14 @@ def test_cmconv_packed_layout(dtype, c_in, c_out, k):
     w = torch.randn((c_out, c_in, k, k))
     p = K.CMConv(w, None).packed(dtype).float()
     w = w.to(dtype).float().reshape(c_out, c_in, k * k)
-    opad = -(-c_out // 32) * 32
     if dtype == torch.bfloat16:
-        cp = -(-c_in // 16) * 16
-        if k == 3:           # (Opad, chunk * 144 + tap * 16 + c)
-            p = p.reshape(opad, cp // 16, 9, 16).permute(0, 1, 3, 2)
-        full = p.reshape(opad, cp, k * k)
+        # (c16, tap, o8, half, o, c): wgmma B core matrices of 8 output x
+        # 8 input channels, a k16 step per (chunk of 16 channels, tap)
+        opad, cp = -(-c_out // 8) * 8, -(-c_in // 16) * 16
+        assert p.shape == (cp // 16, k * k, opad // 8, 2, 8, 8)
+        full = p.permute(2, 4, 0, 3, 5, 1).reshape(opad, cp, k * k)
     else:                    # (Opad / 32, c, tap, 32)
+        opad = -(-c_out // 32) * 32
         cp = -(-c_in // (8 if k == 3 else 16)) * (8 if k == 3 else 16)
         full = p.reshape(opad // 32, cp, k * k, 32).permute(0, 3, 1, 2) \
             .reshape(opad, cp, k * k)

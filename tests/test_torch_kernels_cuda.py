@@ -18,7 +18,8 @@ K9 wgrad3x3: |dW - plain| <= 1e-4 |plain| + 1e-4 max|plain| (sums of up to
 calls identical; K10 / K11 (conv3x3_cmajor,
 conv1x1_cmajor): float32 atol = rtol = 1e-4, bfloat16 at most one bfloat16
 ulp from the plain version or within 1e-3 max|plain| where the value is near
-zero (both sum in float32 in another order, then round once); K13 / K14
+zero (both sum in float32 in another order, then round once), two bfloat16
+calls identical; K13 / K14
 (conv3x3_cmajor_q8, conv1x1_cmajor_q8), conv5x5_q8 and the pixel-major
 wrappers (conv_pm, on K4 / K5): int8 as the int8 kernels, bfloat16 at most
 one bfloat16 ulp (the same exact s32 sums and float32 epilogue, rounded
@@ -428,11 +429,61 @@ def test_cmajor_wrappers_count_launches_and_refuse_bad_input(cuda):
         KCM.conv3x3_cmajor(x.transpose(2, 3), cw3)
     with pytest.raises(ValueError):                  # channels
         KCM.conv3x3_cmajor(x[:, :4].contiguous(), cw3)
-    with pytest.raises(ValueError):                  # odd bf16 section
-        KCM.conv1x1_cmajor([x[:, :3].contiguous(), x[:, :5].contiguous()],
-                           cw1)
+    # odd bfloat16 sections (an odd H*W too) take the kernel's scalar loads
+    xo = [x[:, :3, :5, :5].contiguous(), x[:, :5, :5, :5].contiguous() + 1]
+    _cm_close(KCM.conv1x1_cmajor(xo, cw1), KCM.conv1x1_cmajor_plain(xo, cw1))
     with pytest.raises(ValueError):                  # 1x1 weights in K10
         KCM.conv3x3_cmajor(x, cw1)
+
+
+# the wgmma kernels' tiles: output channels on and off the BN tiles (24,
+# 48, 64, 128; 256 for the 1x1), input channels off the 16-channel chunks,
+# maps not a multiple of the pixel tile, W not a multiple of 8 (scalar
+# loads and stores), batches of 2 to 24
+@pytest.mark.parametrize("c_in,c_out,h,w,batch", [
+    (48, 24, 40, 40, 2), (40, 48, 20, 36, 2), (72, 130, 40, 40, 16),
+    (256, 256, 40, 40, 16), (256, 256, 40, 40, 2), (24, 64, 33, 80, 24),
+    (130, 256, 20, 36, 2)])
+def test_conv3x3_cmajor_bf16_tiles(cuda, c_in, c_out, h, w, batch):
+    cw = _cm_conv(c_in, c_out, 3, c_in + c_out, cuda)
+    g = torch.Generator().manual_seed(h + w)
+    x = torch.randn((batch, c_in, h, w), generator=g).to(cuda,
+                                                         torch.bfloat16)
+    _cm_close(KCM.conv3x3_cmajor(x, cw), KCM.conv3x3_cmajor_plain(x, cw))
+
+
+@pytest.mark.parametrize("secs,c_out,h,w,batch", [
+    ((24, 40, 16), 24, 40, 40, 2), ((48,), 48, 20, 36, 2),
+    ((30, 2, 100), 130, 40, 40, 24), ((128, 64, 64), 256, 40, 40, 16),
+    ((96, 96, 96), 512, 20, 36, 2), ((144,), 64, 17, 24, 2),
+    ((144,), 64, 80, 80, 8)])
+def test_conv1x1_cmajor_bf16_tiles(cuda, secs, c_out, h, w, batch):
+    cw = _cm_conv(sum(secs), c_out, 1, c_out + h, cuda)
+    g = torch.Generator().manual_seed(w)
+    xs = [torch.randn((batch, c, h, w), generator=g).to(cuda, torch.bfloat16)
+          for c in secs]
+    _cm_close(KCM.conv1x1_cmajor(xs, cw), KCM.conv1x1_cmajor_plain(xs, cw))
+
+
+def test_conv1x1_cmajor_bf16_l7_cv1_batch8(cuda):
+    """DER l7's cv1 at 640 px: [x1, x4_1, x4_3] (3 x 256) -> 512 at 40 px,
+    batch 8, two blocks of 256 output channels."""
+    cw = _cm_conv(768, 512, 1, 11, cuda)
+    g = torch.Generator().manual_seed(12)
+    xs = [torch.randn((8, 256, 40, 40), generator=g).to(cuda, torch.bfloat16)
+          for _ in range(3)]
+    _cm_close(KCM.conv1x1_cmajor(xs, cw), KCM.conv1x1_cmajor_plain(xs, cw))
+
+
+def test_cmajor_bf16_calls_repeat_bit_for_bit(cuda):
+    """No atomics and a fixed order of sums: two calls are identical."""
+    g = torch.Generator().manual_seed(13)
+    cw3, cw1 = _cm_conv(48, 48, 3, 14, cuda), _cm_conv(144, 128, 1, 15, cuda)
+    x = torch.randn((4, 48, 80, 80), generator=g).to(cuda, torch.bfloat16)
+    xs = [x, x + 1, x - 1]
+    assert torch.equal(KCM.conv3x3_cmajor(x, cw3), KCM.conv3x3_cmajor(x, cw3))
+    assert torch.equal(KCM.conv1x1_cmajor(xs, cw1),
+                       KCM.conv1x1_cmajor(xs, cw1))
 
 
 # ---------------------------------------------------------------------------
