@@ -62,8 +62,11 @@ and for the int8 path:
   7b. times_q8: K4-K6 per backbone shape, and K4-K8 per distinct neck call
      of 5c, beside the plain version, the bound and the PyTorch yardstick
      (the f32 cuDNN conv of the same shape; for K7 the f32 depthwise conv;
-     for K8 the sequence of three F.max_pool2d and a torch.cat); summed per
-     forward and, for the neck, per layer
+     for K8 the sequence of three F.max_pool2d and a torch.cat), and the
+     calls that compute the convs' sums exactly (K5: torch._int_mm of the
+     materialised concat; K4: cuDNN's bf16 conv of the int8-valued map);
+     summed per forward (the backbone apart too) and, for the neck, per
+     layer
   8. served_ab: one served batch of 4, the four engines in turns (the
      three above and the bfloat16 one of 5d)
 
@@ -120,9 +123,10 @@ conv3x3_pm_q8 / conv1x1_pm_q8 on K4 / K5) and the "xla_q8" mode:
   7f. times_q8_rest: K13 / K14 summed over kernel_bench's 3x3 / 1x1 shapes
      at batch 8 (bf16 in and out; cuDNN bf16 and f32 conv + bias + SiLU
      beside); the pixel-major pair over one xla_q8 served forward at batch
-     4 (cuDNN f32 beside); conv5x5_q8 over the 18 block-diagonal calls (the
-     dense F.conv2d of the same block-diagonal weights, f32 and bf16,
-     cuDNN's f32 depthwise and K7 beside)
+     4 (cuDNN f32 beside, and as in 7b torch._int_mm for conv1x1_pm_q8
+     and the bf16 conv for conv3x3_pm_q8); conv5x5_q8 over the 18
+     block-diagonal calls (the dense F.conv2d of the same block-diagonal
+     weights, f32 and bf16, cuDNN's f32 depthwise and K7 beside)
 
 and, outside inference_mode, training cfg/rep_yolo.yaml at 640 px, batch 8
 as cli.train builds it (build_training: seeded init, synthetic batches from
@@ -361,9 +365,76 @@ def backbone_q8_shapes():
     return rows
 
 
+LIB_KEYS = ("library_int_mm_ms", "library_bf16_ms")
+
+
+def same_function_yardsticks(torch, name, xs, qw, stride, s_in) -> dict:
+    """The PyTorch calls that compute a conv kernel's sums exactly, on its
+    inputs materialised before the timed window: ``library_int_mm_ms``
+    (K5, row 12) ``torch._int_mm``, the int8 x int8 -> int32 GEMM of the
+    concat; ``library_bf16_ms`` (K4, rows 11 and 15) cuDNN's bf16 conv of
+    the int8-valued map, channels_last, without the bias (exact while
+    |sum| < 2^24). {key: fn, or None where the call refuses the shape, with
+    the reason under key + "_refused"}."""
+    import torch.nn.functional as F
+
+    from rep_yolo_tpu_torch.ops.quant import quantize
+
+    xq = [t if t.dtype == torch.int8 else quantize(t.float(), s_in)
+          for t in xs]
+    if name in ("conv1x1_q8", "conv1x1_pm_q8"):
+        a = torch.cat(xq, -1).reshape(-1, sum(t.shape[-1] for t in xq))
+        wq = qw.w_q.reshape(qw.c_out, -1)
+        reason = None
+        for b in (wq.t(), wq.t().contiguous()):
+            try:
+                torch._int_mm(a, b)
+                torch.cuda.synchronize()
+                return {"library_int_mm_ms": lambda b=b: torch._int_mm(a, b)}
+            except RuntimeError as e:
+                reason = str(e).strip().splitlines()[0][:160]
+        return {"library_int_mm_ms": None,
+                "library_int_mm_ms_refused": reason}
+    cl = torch.channels_last
+    C = xq[0].shape[-1]
+    xb = xq[0].permute(0, 3, 1, 2).to(torch.bfloat16).contiguous(
+        memory_format=cl)
+    wb = qw.w_q[..., :C].permute(0, 3, 1, 2).to(torch.bfloat16).contiguous(
+        memory_format=cl)
+    return {"library_bf16_ms": lambda: F.conv2d(xb, wb, None, stride=stride,
+                                                padding=qw.k // 2)}
+
+
+def time_yardsticks(torch, t: dict, extra: dict) -> None:
+    """Adds the device ms of ``extra``'s calls (``same_function_
+    yardsticks``) to the times ``t`` of one shape: one checked profiler
+    window each, from a cold L2, as the kernel's own ``ms``."""
+    for k, fn in extra.items():
+        t[k] = fn if k.endswith("_refused") or fn is None else \
+            device_ms(torch, fn)
+
+
+def add_yardsticks(agg: dict, t: dict, n: int = 1, sig=None) -> None:
+    """Sums the yardsticks of ``LIB_KEYS`` over the calls that took them,
+    with the kernel's own ms over the same calls (key + "_kernel_ms"), and
+    lists the calls a yardstick refused (key + "_refused")."""
+    for k in LIB_KEYS:
+        if k not in t:
+            continue
+        agg.setdefault(k, 0.0)
+        agg.setdefault(k + "_kernel_ms", 0.0)
+        if t[k] is None:
+            agg.setdefault(k + "_refused", []).append(
+                f"{sig}: {t.get(k + '_refused')}")
+        else:
+            agg[k] += n * t[k]
+            agg[k + "_kernel_ms"] += n * t["ms"]
+
+
 def q8_case(torch, row, batch, dev, seed):
     """Inputs and calls of one backbone shape: (kernel fn, plain fn,
-    f32 cuDNN fn or None, out_scale, bytes, ops). Random weights at
+    f32 cuDNN fn or None, out_scale, bytes, ops, a function that returns
+    the same-function yardsticks). Random weights at
     1/sqrt(fan_in), random int8 maps at s_in = 1/127; out_scale puts the
     plain float output's absmax at 127."""
     import torch.nn.functional as F
@@ -381,7 +452,7 @@ def q8_case(torch, row, batch, dev, seed):
         B, H, W, C = x.shape
         lib = lambda: x.reshape(B, H // 2, 2, W // 2, 2, C).amax((2, 4))  # noqa
         return (lambda: KP.max_pool2_q8(x), lambda: KP.max_pool2_q8_plain(x),
-                lib, None, nbytes, 0.0)
+                lib, None, nbytes, 0.0, dict)
     k = 3 if kern == "conv3x3_q8" else 1
     cin = sum(cins)
     w = torch.randn((cout, cin, k, k), generator=g, device=dev) \
@@ -413,7 +484,9 @@ def q8_case(torch, row, batch, dev, seed):
     ops = 2.0 * batch * ho * ho * cout * cin * k * k
     lib = lambda: F.conv2d(xf, w, b, stride=stride, padding=k // 2)  # noqa
     return (lambda: run(kfn, out_s), lambda: run(pfn, out_s), lib, out_s,
-            nbytes, ops)
+            nbytes, ops,
+            lambda: same_function_yardsticks(torch, kern, xs, qw, stride,
+                                             s_in))
 
 
 Q8_KERNELS = ("conv3x3_q8", "conv1x1_q8", "max_pool2_q8", "dwconv5x5_q8",
@@ -476,9 +549,11 @@ def record_q8_calls(model, x):
 
 def call_case(torch, name, args):
     """A recorded int8 kernel call: (kernel fn, plain fn, PyTorch yardstick
-    fn, out_scale, bytes, int8 ops, signature). The yardstick runs the f32
-    function of the same shape: the cuDNN conv, the depthwise conv, the
-    amax pool, or for the SPP pyramid three F.max_pool2d and a torch.cat."""
+    fn, out_scale, bytes, int8 ops, signature, a function that returns the
+    same-function yardsticks). The yardstick runs the f32 function of the
+    same shape: the cuDNN conv, the depthwise conv, the amax pool, or for
+    the SPP pyramid three F.max_pool2d and a torch.cat; the same-function
+    ones (K4, K5) are ``same_function_yardsticks``."""
     import torch.nn.functional as F
 
     mod = q8_module(name)
@@ -505,7 +580,7 @@ def call_case(torch, name, args):
             # 3 levels x 2 separable passes x 4 byte maxima per element
             nbytes, ops = x.numel() * 5.0, 24.0 * x.numel()
         sig = (name, tuple(x.shape))
-        return kcall, pcall, lib, None, nbytes, ops, sig
+        return kcall, pcall, lib, None, nbytes, ops, sig, dict
     if name == "dwconv5x5_f32w_q8":
         # K12's float32 weights (input scales folded in) on the int8 values
         x, qd = args["x"], args["qd"]
@@ -517,7 +592,7 @@ def call_case(torch, name, args):
                   + 4 * qd.w.numel() + 4 * C)
         ops = 2.0 * 25 * x.numel()
         sig = (name, tuple(x.shape), args["act"], out_s is None)
-        return kcall, pcall, lib, out_s, nbytes, ops, sig
+        return kcall, pcall, lib, out_s, nbytes, ops, sig, dict
     if name == "dwconv5x5_q8":
         x, qd = args["x"], args["qd"]
         C = qd.c
@@ -528,7 +603,7 @@ def call_case(torch, name, args):
         nbytes = x.numel() * (1 + out_b) + qd.w_q.numel() + 8 * C
         ops = 2.0 * 25 * x.numel()
         sig = (name, tuple(x.shape), args["act"], out_s is None)
-        return kcall, pcall, lib, out_s, nbytes, ops, sig
+        return kcall, pcall, lib, out_s, nbytes, ops, sig, dict
     qw = args["qw"]
     if name == "conv3x3_q8":
         xs, stride, k = [args["x"]], args["stride"], 3
@@ -549,7 +624,9 @@ def call_case(torch, name, args):
     ops = 2.0 * B * ho * wo * qw.c_out * cin * k * k
     sig = (name, tuple(tuple(t.shape) for t in xs), str(xs[0].dtype),
            qw.c_out, stride, args["act"], out_s is None, pool)
-    return kcall, pcall, lib, out_s, nbytes, ops, sig
+    return kcall, pcall, lib, out_s, nbytes, ops, sig, (
+        lambda: same_function_yardsticks(torch, name, xs, qw, stride,
+                                         args["s_in"]))
 
 
 def q8_diff(torch, got, ref, out_scale):
@@ -638,7 +715,7 @@ def phase_kernels_q8(torch, dev, errs):
     """K4-K6 against their plain versions at every backbone shape."""
     rows = []
     for i, row in enumerate(backbone_q8_shapes()):
-        kfn, pfn, _, out_s, _, _ = q8_case(torch, row, 4, dev, 100 + i)
+        kfn, pfn, _, out_s, _, _, _ = q8_case(torch, row, 4, dev, 100 + i)
         got, ref = kfn(), pfn()
         torch.cuda.synchronize()
         err, off1, off_more = q8_diff(torch, got, ref, out_s)
@@ -1135,13 +1212,17 @@ def profiled_whole(torch, fn, reps: int, tries: int = 5,
     with ``per_name``, of each kernel name's events. The profiler now and
     then drops some or all of a window's events (about one window in a
     hundred on the card, a one-call window among them), so such a window is
-    measured again."""
+    measured again; after a window with no device event at all, a pause
+    first (one chip run lost every event of five windows in a row)."""
     for _ in range(tries):
         wall, names, events = profiled(torch, fn, reps, counts=per_name)
         whole = (all(n % reps == 0 for n in events.values()) if per_name
                  else events % reps == 0)
         if events and whole:
             return wall, names, events
+        if not events:
+            torch.cuda.synchronize()
+            time.sleep(0.5)
     raise AssertionError(f"the profiler recorded {events} device events "
                          f"for {reps} calls in each of {tries} tries")
 
@@ -1276,6 +1357,14 @@ def kernel_row(name, source, replaces, launches, err, agg, peak) -> dict:
             "library_ms": agg["library_ms"], "event_ms": agg["event_ms"]}
 
 
+def copy_yardsticks(row: dict, agg: dict) -> None:
+    """The same-function yardsticks' sums (``add_yardsticks``) into a
+    kernels-line row."""
+    for k, v in agg.items():
+        if k.startswith(LIB_KEYS):
+            row[k] = v
+
+
 def phase_times(torch, dev, counts, errs):
     from rep_yolo_tpu_torch.ops.kernels import axial_attention as KA
     from rep_yolo_tpu_torch.ops.kernels import nms as KN
@@ -1357,12 +1446,17 @@ def phase_times_q8(torch, dev, counts, errs, calls):
 
     agg = {n: {} for n in Q8_KERNELS}
     per_shape = []
+    backbone = {n: {} for n in Q8_KERNELS}
     for i, row in enumerate(backbone_q8_shapes()):
-        kfn, pfn, lib, _, nbytes, ops = q8_case(torch, row, 4, dev, 200 + i)
+        kfn, pfn, lib, _, nbytes, ops, extra = q8_case(torch, row, 4, dev,
+                                                       200 + i)
         t = kernel_times(torch, kfn, pfn, lib)
+        time_yardsticks(torch, t, extra())
         t.update(zip(("bound_ms", "bound_by"), bound(nbytes, ops, INT8_PEAK)),
                  bytes=nbytes, ops=ops)
-        add_times(agg[row[1]], t, row[-1])
+        for a in (agg[row[1]], backbone[row[1]]):
+            add_times(a, t, row[-1])
+            add_yardsticks(a, t, row[-1], row[0])
         per_shape.append({"shape": row[0], "kernel": row[1],
                           "calls_per_forward": row[-1], **t})
     # the neck: each distinct call once, then summed per forward and layer
@@ -1371,9 +1465,11 @@ def phase_times_q8(torch, dev, counts, errs, calls):
     for layer, name, args in calls:
         if layer < NECK_FIRST:
             continue
-        kfn, pfn, lib, _, nbytes, ops, sig = call_case(torch, name, args)
+        kfn, pfn, lib, _, nbytes, ops, sig, extra = call_case(torch, name,
+                                                              args)
         if sig not in timed:
             t = kernel_times(torch, kfn, pfn, lib)
+            time_yardsticks(torch, t, extra())
             t.update(zip(("bound_ms", "bound_by"),
                          bound(nbytes, ops, INT8_PEAK)),
                      bytes=nbytes, ops=ops)
@@ -1382,6 +1478,7 @@ def phase_times_q8(torch, dev, counts, errs, calls):
         row = timed[sig]
         row["calls_per_forward"] += 1
         add_times(agg[name], row)
+        add_yardsticks(agg[name], row, 1, f"l{layer} {sig[1:]}")
         add_times(by_layer.setdefault((layer, name), {}), row)
     reset_launch_counts()
     kernels = []
@@ -1398,6 +1495,7 @@ def phase_times_q8(torch, dev, counts, errs, calls):
         if name == "spp_pools_q8":
             row["library_call"] = ("a sequence: three F.max_pool2d and a "
                                    "torch.cat on the f32 map")
+        copy_yardsticks(row, agg[name])
         kernels.append(row)
     layers = [{"layer": layer, "kernel": name,
                **{k: v for k, v in t.items() if k != "bound_by"}}
@@ -1407,7 +1505,13 @@ def phase_times_q8(torch, dev, counts, errs, calls):
                   "calls per forward): the backbone's shapes on random "
                   "weights and maps, the neck's calls on the served "
                   "forward's own; library_ms = the f32 cuDNN conv (TF32 "
-                  "off) of the same shape, for K7 the f32 depthwise conv, "
+                  "off) of the same shape; beside it library_int_mm_ms "
+                  "(K5: torch._int_mm of the materialised concat) and "
+                  "library_bf16_ms (K4: cuDNN's bf16 conv of the int8-"
+                  "valued map, channels_last), each over the calls it "
+                  "takes, with the kernel's ms over the same calls (_kernel_"
+                  "ms) and the calls it refuses (_refused); for K7 the f32 "
+                  "depthwise conv, "
                   "for K6 one amax over the (B, H/2, 2, W/2, 2, C) view, for "
                   "K8 three F.max_pool2d and a torch.cat (a sequence, not "
                   "one call); ms, plain_ms, library_ms: device time under "
@@ -1415,7 +1519,13 @@ def phase_times_q8(torch, dev, counts, errs, calls):
                   "event_ms: CUDA events, median of 20 runs of 10 "
                   "back-to-back calls (L2-warm)",
           "per_shape": per_shape, "neck_calls": list(timed.values()),
-          "neck_by_layer": layers})
+          "neck_by_layer": layers,
+          "backbone_per_forward": {
+              n: {k: v for k, v in a.items() if k not in ("bytes", "ops")}
+              for n, a in backbone.items() if a},
+          "previous_design_ms": {"conv1x1_q8": PREVIOUS_MS["conv1x1_q8"],
+                                 "conv1x1_q8_backbone":
+                                     PREVIOUS_MS["conv1x1_q8_backbone"]}})
     return kernels
 
 
@@ -1429,7 +1539,7 @@ def phase_kernels_neck(torch, engine, x, errs):
     for layer, name, args in calls:
         if layer < NECK_FIRST:
             continue
-        kfn, pfn, _, out_s, _, _, sig = call_case(torch, name, args)
+        kfn, pfn, _, out_s, _, _, sig, _ = call_case(torch, name, args)
         got, ref = kfn(), pfn()
         torch.cuda.synchronize()
         err, off1, off_more = q8_diff(torch, got, ref, out_s)
@@ -2247,6 +2357,9 @@ def phase_times_q8_rest(torch, dev, counts, errs, dw, xlq_engine, x4):
             pfn = getattr(KPM, name + "_plain")
             t = rest_times(torch, lambda: kfn(**a), lambda: pfn(**a),
                            lambda: F.conv2d(xf, wf, qw.bias, padding=k // 2))
+            nhwc = [u.reshape(Bq, *hw, -1) for u in xs]
+            time_yardsticks(torch, t, same_function_yardsticks(
+                torch, name.replace("_pm", ""), nhwc, qw, 1, a["s_in"]))
             npix = Bq * hw[0] * hw[1]
             nbytes = (sum(u.numel() * u.element_size() for u in xs)
                       + qw.w_q.numel() + 8 * qw.c_out
@@ -2258,6 +2371,7 @@ def phase_times_q8_rest(torch, dev, counts, errs, dw, xlq_engine, x4):
                                 "calls_per_forward": 0, **t}
         row["calls_per_forward"] += 1
         add_times(agg[name], row)
+        add_yardsticks(agg[name], row, 1, sig[1:])
     # row 9, dense: the 18 block-diagonal calls against the dense conv of the
     # same weights (f32, TF32 off; bf16 beside), the depthwise conv and K7
     dense_rows, extra = [], dict.fromkeys(DENSE_EXTRA_KEYS, 0.0)
@@ -2314,6 +2428,8 @@ def phase_times_q8_rest(torch, dev, counts, errs, dw, xlq_engine, x4):
             row["library_f32_ms"] = agg[name]["library_f32_ms"]
         if name == "conv5x5_q8":
             row.update(extra)
+        else:
+            copy_yardsticks(row, agg[name])
         kernels.append(row)
     emit({"phase": "times_q8_rest", "ok": True,
           "note": f"K13 / K14 summed over kernel_bench's 3x3 / 1x1 shapes at "
@@ -2324,12 +2440,17 @@ def phase_times_q8_rest(torch, dev, counts, errs, dw, xlq_engine, x4):
                   "time under the profiler from a cold L2; event_ms: CUDA "
                   "events, median of 5 runs of 5 back-to-back calls "
                   "(L2-warm); bound_ms: bytes over 3.35 TB/s or int8 ops over "
-                  "1,979 TOP/s (the dense 5x5: all 25 C^2 products a pixel)",
+                  "1,979 TOP/s (the dense 5x5: all 25 C^2 products a pixel); "
+                  "the pixel-major pair's same-function yardsticks: "
+                  "library_int_mm_ms (row 12, torch._int_mm of the "
+                  "materialised concat) and library_bf16_ms (row 11, cuDNN's "
+                  "bf16 conv of the int8-valued map), as in times_q8",
           "per_forward": {n: {k: v for k, v in agg[n].items()} for n in names},
           "checks_k13_k14": checks, "tolerance": Q8_REST_TOL,
           "dense5x5_yardsticks": extra,
-          "previous_design_ms": {"conv1x1_cmajor_q8":
-                                 PREVIOUS_MS["conv1x1_cmajor_q8"]},
+          "previous_design_ms": {
+              k: PREVIOUS_MS[k] for k in ("conv1x1_cmajor_q8",
+                                          "conv1x1_pm_q8")},
           "per_shape": per_shape, "pm_calls": list(timed.values()),
           "dense5x5": dense_rows})
     return kernels
@@ -2349,11 +2470,16 @@ WGRAD_SHAPES = [(8, 20, 20, 512, 512, 2), (8, 40, 40, 128, 64, 2),
                 (8, 80, 80, 128, 256, 1), (8, 40, 40, 256, 512, 1),
                 (8, 20, 20, 512, 1024, 1)]
 WGRAD_PER_STEP = sum(s[-1] for s in WGRAD_SHAPES)
-# ms of the designs that K9 (direct FFMA sum) and K14 (32-channel M tiles,
-# staged a value at a time) had before their current ones, as this script
+# ms of the designs that K9 (direct FFMA sum), K14 (32-channel M tiles,
+# staged a value at a time), K5 (dp4a, 32 output channels a block) and K12
+# (a byte a staging load) had before their current ones, as this script
 # measured them on one H100 80GB HBM3 at 700 W (PERF.md, kernel table): K9
-# per train step, K14 over kernel_bench's 1x1 shapes at batch 8
-PREVIOUS_MS = {"wgrad3x3": 6.166, "conv1x1_cmajor_q8": 3.312}
+# per train step, K14 over kernel_bench's 1x1 shapes at batch 8, K5 per
+# served int8 forward at batch 4 (and its 28 backbone calls), row 12 per
+# xla_q8 forward at batch 4, K12 per forward at batch 8
+PREVIOUS_MS = {"wgrad3x3": 6.166, "conv1x1_cmajor_q8": 3.312,
+               "conv1x1_q8": 3.949, "conv1x1_q8_backbone": 1.445,
+               "conv1x1_pm_q8": 1.330, "dwconv5x5_f32w_q8": 0.634}
 # K10 / K11 per forward at batch 4 and 128 in their mma.sync design, before
 # wgmma, as this script measured them on the same card
 PREVIOUS_MS_CM = {"conv3x3_cmajor": {"4": 2.326, "128": 51.39},
@@ -2831,7 +2957,7 @@ def phase_kernels_eval(torch, dev, errs, x):
                              f"{DW5_PER_FORWARD}")
     dw_rows = []
     for layer, name, args in calls:
-        kfn, pfn, _, out_s, _, _, sig = call_case(torch, name, args)
+        kfn, pfn, _, out_s, _, _, sig, _ = call_case(torch, name, args)
         ok, r = _q8_gate(torch, kfn(), pfn(), out_s)
         dw_rows.append({"layer": layer, "signature": str(sig[1:]), **r})
         if not ok:
@@ -2897,7 +3023,7 @@ def phase_times_eval(torch, dev, calls):
 
     agg, timed = {}, {}
     for layer, name, args in calls:
-        kfn, pfn, lib, _, nbytes, ops, sig = call_case(torch, name, args)
+        kfn, pfn, lib, _, nbytes, ops, sig, _ = call_case(torch, name, args)
         if sig not in timed:
             t = kernel_times(torch, kfn, pfn, lib)
             t.update(zip(("bound_ms", "bound_by"), bound(nbytes, ops)),
@@ -2944,6 +3070,8 @@ def phase_times_eval(torch, dev, calls):
                   "20 runs of 10 back-to-back calls (L2-warm)",
           "dwconv5x5_f32w_q8": list(timed.values()),
           "dwconv5x5_f32w_q8_per_forward": {k: agg[k] for k in TIME_KEYS},
+          "previous_design_ms": {"dwconv5x5_f32w_q8":
+                                 PREVIOUS_MS["dwconv5x5_f32w_q8"]},
           "axial_attend_row3": attn_shapes,
           "axial_attend_row3_per_forward": {
               m: {k: a[k] for k in TIME_KEYS} for m, a in attn.items()},

@@ -1,4 +1,4 @@
-// Int8 convolutions of the int8 backbone region, for Hopper.
+// Int8 convolutions of the int8 backbone region, for Hopper (sm_90a).
 //
 // K4 conv3x3_q8 replaces rep_yolo_tpu/ops/pallas/conv_flat.py:conv3x3_flat_q8
 // (kernels _conv3_flat_q8_kernel / _pipe / _whole) and the stem's s2d form
@@ -14,30 +14,34 @@
 // this NHWC layout, so those rows need only ReLU (q8_common.cuh), a bfloat16
 // store beside the float32 and int8 ones, and float input for K5.
 //
-// Layout: channels-last int8 (B, H, W, C), C a multiple of 4, so a 4-channel
-// pack is one 32-bit word that __dp4a multiplies against a weight pack. K4
-// also takes float32 input (any C) and quantizes it while staging it, padding
-// the channels to a multiple of 4 with zeros (exact: the weights there are 0);
+// Layout: channels-last int8 (B, H, W, C), C a multiple of 4. K4 also takes
+// float32 input (any C) and quantizes it while staging it, padding the
+// channels to a multiple of 4 with zeros (exact: the weights there are 0);
 // K5 takes float32 sections whose channels are multiples of 4.
-// The weights arrive packed by the wrapper, per block of TO = 32 output
-// channels and chunk of KC input channels, as [tap][KC/4][TO] words, so a
-// block stages them with one contiguous copy.
-//
-// Both kernels: a block of 4 warps computes 128 output pixels x 32 output
-// channels; a thread holds 4 pixels x 8 channels of s32 sums. Per chunk of KC
-// input channels the block stages the (halo'd) input tile and the weights in
-// shared memory; each step of the inner loop is 4 input words (one per pixel,
-// consecutive lanes on consecutive words) and 8 weight words (two broadcast
-// 16-byte loads) for 32 dp4a. The input tile is stored pixel-major with an
-// odd word pitch, so both the staging writes and the lane reads are free of
-// bank conflicts.
 //
 // Epilogue (q8_common.cuh), in the JAX package's operation order and
 // rounding: y = acc * (s_w * s_in) + bias, SiLU or ReLU, then int8 at
 // clip(rint(y * (1/out_scale))), float32, or bfloat16 rounded once from the
 // float32 value (the JAX y.astype(bf16)). With the pool, the max of the
 // window's four f32 values is requantized: requant is monotone, so this equals
-// conv, requant, then pool.
+// conv, requant, then pool. The s32 sums are exact in any order.
+//
+// Bound on this card: at the served shapes the int8 work is 2 * MACs ops over
+// the 1,979 TOP/s of the int8 tensor cores, and the bytes are the int8
+// activations; bytes bound every K5 call and most K4 calls.
+//
+// K4 (dp4a): the weights arrive packed by the wrapper, per block of TO = 32
+// output channels and chunk of KC input channels, as [tap][KC/4][TO] words,
+// so a block stages them with one contiguous copy. A block of 4 warps
+// computes 128 output pixels x 32 output channels; a thread holds 4 pixels x
+// 8 channels of s32 sums. Per chunk of KC input channels the block stages the
+// halo'd input tile and the weights in shared memory; each step of the inner
+// loop is 4 input words (one per pixel, consecutive lanes on consecutive
+// words) and 8 weight words (two broadcast 16-byte loads) for 32 dp4a. The
+// input tile is stored pixel-major with an odd word pitch, so both the
+// staging writes and the lane reads are free of bank conflicts. The dp4a
+// pipe runs at about 1/16 of the int8 tensor cores; K4's move onto K5's
+// wgmma machinery (taps as descriptor offsets, as K10 does them) is next.
 //
 // K4 at stride 2 also runs on int8 input: the PAN downsamples of the neck
 // (neck_flat.py:conv3x3s2_flat_q8, which the TPU reached by space-to-depth
@@ -45,16 +49,51 @@
 // input rows 2i-1..2i+1 and columns 2j-1..2j+1: pad 1 on top and left, which
 // for even H, W is the lattice's SAME conv.
 //
-// Bound on this card: at the served shapes the int8 work is 2 * MACs ops over
-// the 1,979 TOP/s of the int8 tensor cores, and the bytes are the int8
-// activations; this simple version runs on the dp4a integer pipe, far below
-// the tensor cores (IMMA / wgmma with TMA staging is later work).
+// K5 (int8 tensor cores): an implicit GEMM on wgmma.mma_async
+// m64nNk32.s32.s8.s8 (wgmma.cuh), pixels on M and output channels on N, both
+// operands K-major in shared memory without swizzle.
+// - An NHWC pixel's channels are contiguous and so are the rows of
+//   QConv.w_q, so neither operand needs a transpose: 16 channels of a pixel
+//   are one 16-byte core-matrix row, copied as they are by cp.async (16, 8
+//   or 4 bytes a copy, the largest that divides every section's channels
+//   and address). Float32 sections go through registers instead: four
+//   16-byte loads, quantized at s_in, one 16-byte store.
+// - K is each section's channels padded to a multiple of 16 (a group), the
+//   groups of the sections in order, padded to an even count (a k32 step is
+//   two groups). The packed weights (QConv.packed_wgmma, [step][O/8][2][8]
+//   [16]) are zero in every pad, so whatever the staged bytes there hold
+//   adds nothing.
+// - A block holds BN = 24, 48, 64, 128 or 256 output channels, the smallest
+//   that holds O (256 above it), so the input is staged once for O <= 256
+//   and twice at O = 512 (the dp4a design restaged it for every 32); where
+//   that grid would be under two blocks an SM (the 20 / 40-pixel maps),
+//   narrower tiles down to 64. Two warpgroups of MI x 64 rows: MB = 128 MI
+//   = 256 rows for BN <= 48, else 128 (s32 accumulators: BN / 2 registers
+//   a 64-row tile; at 256 rows the epilogue's tile held the 64 / 128-channel
+//   tiles to one block an SM, and they ran slower).
+// - A ring of four stages of KS k32 steps (2 for BN <= 48, else 4): a
+//   chunk's input and weights are copied two chunks ahead, while the current
+//   chunk's wgmma group runs; cp.async.wait_group 1, wgmma.wait_group 1 and
+//   one barrier a chunk. A block takes min(4, chunks) stages of shared
+//   memory, so the thin 1x1s fit several blocks an SM.
+// - With the pool, the rows of a block are pooled pixels' 2x2 windows (row
+//   4 q + j is position j of pooled pixel q), so a window is four adjacent
+//   rows of the block's sums.
+// - Epilogue: the s32 sums to shared memory (the only unrolled part), then
+//   the float epilogue (and the pool's max) a value a thread, consecutive
+//   threads on consecutive channels, into a tile in the output type, then
+//   16-byte stores (a block that holds all O writes one contiguous range of
+//   y). Bound at the thin maps: the epilogue's expf and reciprocal, a value
+//   each, on the special-function units.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 #include "q8_common.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -218,130 +257,273 @@ conv3x3_q8_kernel(const void* __restrict__ x, const int32_t* __restrict__ wpk,
 }
 
 // ---------------------------------------------------------------------------
-// K5: 1x1 conv over up to 3 sections, optional 2x2/s2 max pool
+// K5: 1x1 conv over up to 3 sections, optional 2x2/s2 max pool, on wgmma
 // ---------------------------------------------------------------------------
 
+constexpr int WG_NT = 256;     // K5: two warpgroups
+constexpr int NS = 4;          // K5: stages of the ring
+constexpr int SMEM_MAX = 232448;
+
 struct Sections {
-    const void* x[3];      // (B, H, W, C_s) int8 (read as words) or float32
-    int c[3];              // channels of each section (multiples of KC)
-    int off[3];            // first global channel of each section
-    int n;
+    const void* x[3];      // (B, H, W, C_s) int8 or float32
+    int c[3];              // channels of each section
+    int g[4];              // first 16-channel group of each section; g[3]: all
 };
 
-template <bool POOL, bool F32_IN>
-__global__ void __launch_bounds__(NTHREADS)
-conv1x1_q8_kernel(Sections secs, const int32_t* __restrict__ wpk,
-                  const float* __restrict__ s_w, const float* __restrict__ bias,
-                  void* __restrict__ y, long long npix_out, int H, int W,
-                  int Ctot, int KC, int O, float s_in, float inv_s_in,
-                  float inv_out, int act, int out_mode) {
-    extern __shared__ int4 smem4[];
-    int32_t* smem = (int32_t*)smem4;
-    const int kp = KC / 4;
-    const int pitch = odd_pitch(kp);
-    constexpr int SLOTS = 32 * PPT;
-    int32_t* s_x = smem;                                   // [SLOTS][pitch]
-    int32_t* s_wt = smem + ((SLOTS * pitch + 3) & ~3);     // [kp][TO]
+// One block: MB = 128 MI rows (pixels; with the pool, pooled pixel q's 2x2
+// window as rows 4 q .. 4 q + 3) x BN output channels from n0 = BN
+// blockIdx.y. A stage holds NG = 2 KS groups of 16 channels, each a plane
+// of MB 16-byte rows (pitch PL = MB + 1 rows: conflict-free staging
+// stores), then the weights of its KS k32 steps, BN x 32 bytes each. VEC:
+// 16, 8 or 4 (int8, bytes a cp.async) or 0 (float32 through registers).
+template <int BN, int MI, int KS, int VEC>
+__global__ void __launch_bounds__(WG_NT, (BN * MI <= 128) ? 2 : 1)
+conv1x1_q8_wgmma_kernel(Sections secs, const uint8_t* __restrict__ w,
+                        const float* __restrict__ s_w,
+                        const float* __restrict__ bias, void* __restrict__ y,
+                        long long rows, int H, int W, int O, int og,
+                        int nsteps, int pool, float s_in, float inv_s_in,
+                        float inv_out, int act, int out_mode) {
+    constexpr int MB = 128 * MI, NG = 2 * KS, PL = MB + 1;
+    constexpr int ABYTES = NG * PL * 16;
+    constexpr int STAGE = ABYTES + KS * BN * 32;
+    constexpr int IPT = MB * NG / WG_NT;          // staging rows a thread
+    constexpr int EPB = (8 * BN + 127) / 128 * 128;
+    extern __shared__ __align__(128) uint8_t smem[];
+    float* s_sw = reinterpret_cast<float*>(smem);
+    float* s_b = s_sw + BN;
+    uint8_t* ring = smem + EPB;
+    const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3;
+    const int lane = tid & 31;
+    const long long r0 = (long long)blockIdx.x * MB;
+    const int j0 = blockIdx.y * (BN / 8), n0 = 8 * j0;
+    const int nchunks = (nsteps + KS - 1) / KS;
 
-    const long long tile = blockIdx.x;
-    const int ob = blockIdx.y;
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int nchunks = Ctot / KC;
-    const int H2 = H / 2, W2 = W / 2;
-
-    int32_t acc[PPT][OPT];
+    for (int i = tid; i < BN; i += WG_NT) {      // s_w * s_in, the bias
+        s_sw[i] = n0 + i < O ? __fmul_rn(s_w[n0 + i], s_in) : 0.0f;
+        s_b[i] = n0 + i < O ? bias[n0 + i] : 0.0f;
+    }
+    // this thread stages group gi of every chunk for rows tid / NG + it
+    // WG_NT / NG (consecutive lanes: consecutive 16 bytes of a pixel)
+    const int gi = tid % NG;
+    int pix[IPT];
 #pragma unroll
-    for (int j = 0; j < PPT; ++j)
-#pragma unroll
-        for (int o = 0; o < OPT; ++o) acc[j][o] = 0;
+    for (int it = 0; it < IPT; ++it) {
+        const long long r = r0 + tid / NG + it * (WG_NT / NG);
+        if (r >= rows) {
+            pix[it] = -1;
+        } else if (pool) {
+            const int H2 = H / 2, W2 = W / 2;
+            const long long q = r >> 2;
+            const int j = (int)(r & 3);
+            const long long qb = q / ((long long)H2 * W2);
+            const int rem = (int)(q - qb * H2 * W2);
+            const int qy = rem / W2, qx = rem - qy * W2;
+            pix[it] = (int)((qb * H + 2 * qy + (j >> 1)) * W + 2 * qx + (j & 1));
+        } else {
+            pix[it] = (int)r;
+        }
+    }
 
-    for (int ch = 0; ch < nchunks; ++ch) {
-        const int g0 = ch * KC;
-        int s = 0;
-        while (s + 1 < secs.n && g0 >= secs.off[s + 1]) ++s;
-        const void* xs = secs.x[s];
-        const int cw = secs.c[s] / 4;                  // words per pixel
-        const int w0 = (g0 - secs.off[s]) / 4;         // first word of the chunk
-        __syncthreads();
-        for (int idx = threadIdx.x; idx < SLOTS * kp; idx += NTHREADS) {
-            const int slot = idx / kp, p = idx - slot * kp;
-            const int j = slot >> 5, l = slot & 31;    // pixel j of lane l
-            long long pix;
-            bool ok;
-            if (POOL) {
-                const long long q = tile * 32 + l;
-                ok = q < npix_out;
-                const long long qb = q / ((long long)H2 * W2);
-                const int rem = (int)(q - qb * H2 * W2);
-                const int qy = rem / W2, qx = rem - qy * W2;
-                pix = (qb * H + 2 * qy + (j >> 1)) * W + 2 * qx + (j & 1);
+    auto stage_in = [&](int ch, int st) {
+        const int gg = ch * NG + gi;
+        if (gg >= secs.g[3]) return;
+        const int s = (gg >= secs.g[1]) + (gg >= secs.g[2]);
+        const int cs = secs.c[s], c0 = (gg - secs.g[s]) * 16;
+        uint8_t* dst = ring + st * STAGE + gi * PL * 16;
+#pragma unroll
+        for (int it = 0; it < IPT; ++it) {
+            if (pix[it] < 0) continue;
+            uint8_t* d = dst + (tid / NG + it * (WG_NT / NG)) * 16;
+            if constexpr (VEC == 0) {
+                const float* src = static_cast<const float*>(secs.x[s])
+                                   + (long long)pix[it] * cs + c0;
+                uint32_t q[4];
+#pragma unroll
+                for (int k = 0; k < 4; ++k) {
+                    q[k] = 0;
+                    if (c0 + 4 * k < cs) {
+                        const float4 f = reinterpret_cast<const float4*>(src)[k];
+                        q[k] = (quant1(f.x, inv_s_in) & 0xff)
+                               | (quant1(f.y, inv_s_in) & 0xff) << 8
+                               | (quant1(f.z, inv_s_in) & 0xff) << 16
+                               | (uint32_t)(quant1(f.w, inv_s_in) & 0xff) << 24;
+                    }
+                }
+                *reinterpret_cast<uint4*>(d) = make_uint4(q[0], q[1], q[2], q[3]);
             } else {
-                pix = tile * SLOTS + slot;
-                ok = pix < npix_out;
-            }
-            int32_t v = 0;
-            if (ok) {
-                if (F32_IN) {
-                    const float4 f = ((const float4*)xs)[pix * cw + w0 + p];
-                    v = (int32_t)((quant1(f.x, inv_s_in) & 0xff)
-                                  | ((quant1(f.y, inv_s_in) & 0xff) << 8)
-                                  | ((quant1(f.z, inv_s_in) & 0xff) << 16)
-                                  | ((uint32_t)(quant1(f.w, inv_s_in) & 0xff) << 24));
+                const uint8_t* src = static_cast<const uint8_t*>(secs.x[s])
+                                     + (long long)pix[it] * cs + c0;
+                if constexpr (VEC == 16) {
+                    cp_async16(d, src);
                 } else {
-                    v = ((const int32_t*)xs)[pix * cw + w0 + p];
+#pragma unroll
+                    for (int k = 0; k < 16 / VEC; ++k) {
+                        if (c0 + k * VEC >= cs) break;
+                        if constexpr (VEC == 8)
+                            cp_async8(d + 8 * k, src + 8 * k);
+                        else
+                            cp_async4(d + 4 * k, src + 4 * k);
+                    }
                 }
             }
-            s_x[slot * pitch + p] = v;
         }
-        const int nw = kp * TO / 4;
-        const int4* src = (const int4*)(wpk + (long long)(ob * nchunks + ch) * kp * TO);
-        for (int i = threadIdx.x; i < nw; i += NTHREADS) ((int4*)s_wt)[i] = src[i];
-        __syncthreads();
+    };
+    auto weights = [&](int ch, int st) {
+        uint8_t* d = ring + st * STAGE + ABYTES;
+        for (int e = tid; e < KS * BN * 2; e += WG_NT) {
+            const int q = e & 15, jj = (e >> 4) % (BN / 8);
+            const int ks = (e >> 4) / (BN / 8);
+            if (j0 + jj < og)
+                cp_async16(d + (ks * (BN / 8) + jj) * 256 + q * 16,
+                           w + ((long long)(ch * KS + ks) * og + j0 + jj) * 256
+                               + q * 16);
+        }
+    };
 
-        const int32_t* wa = s_wt + warp * OPT;
-        for (int p = 0; p < kp; ++p) {
-            int32_t a[PPT];
+    int32_t acc[MI][BN / 2];
 #pragma unroll
-            for (int j = 0; j < PPT; ++j) a[j] = s_x[(j * 32 + lane) * pitch + p];
-            const int4 wv0 = ((const int4*)(wa + p * TO))[0];
-            const int4 wv1 = ((const int4*)(wa + p * TO))[1];
-            const int32_t wr[OPT] = {wv0.x, wv0.y, wv0.z, wv0.w, wv1.x, wv1.y, wv1.z, wv1.w};
+    for (int i = 0; i < MI; ++i)
 #pragma unroll
-            for (int j = 0; j < PPT; ++j)
-#pragma unroll
-                for (int o = 0; o < OPT; ++o) acc[j][o] = __dp4a(a[j], wr[o], acc[j][o]);
-        }
-    }
+        for (int k = 0; k < BN / 2; ++k) acc[i][k] = 0;
 
-    const int og0 = ob * TO + warp * OPT;
-    if (og0 >= O) return;
-    float sw[OPT], bb[OPT];
-#pragma unroll
-    for (int o = 0; o < OPT; ++o) {
-        sw[o] = og0 + o < O ? s_w[og0 + o] : 0.0f;
-        bb[o] = og0 + o < O ? bias[og0 + o] : 0.0f;
-    }
-    if (POOL) {
-        const long long q = tile * 32 + lane;
-        if (q >= npix_out) return;
-        float v[OPT];
-#pragma unroll
-        for (int o = 0; o < OPT; ++o) {
-            float m = epi(acc[0][o], sw[o], s_in, bb[o], act);
-#pragma unroll
-            for (int j = 1; j < PPT; ++j) m = fmaxf(m, epi(acc[j][o], sw[o], s_in, bb[o], act));
-            v[o] = m;
-        }
-        store8(y, q, O, og0, v, inv_out, out_mode);
+    // chunk 0 staged, chunk 1's copies in flight
+    stage_in(0, 0);
+    weights(0, 0);
+    cp_async_commit();
+    if (nchunks > 1) {
+        stage_in(1, 1);
+        weights(1, 1);
+        cp_async_commit();
+        cp_async_wait<1>();
     } else {
+        cp_async_wait<0>();
+    }
+    fence_proxy_async();
+    __syncthreads();
+    for (int ch = 0; ch < nchunks; ++ch) {
+        const int st = ch % NS;
+        const uint32_t a0 = smem_addr(ring + st * STAGE), b0 = a0 + ABYTES;
 #pragma unroll
-        for (int j = 0; j < PPT; ++j) {
-            const long long pix = tile * SLOTS + j * 32 + lane;
-            if (pix >= npix_out) continue;
-            float v[OPT];
+        for (int i = 0; i < MI; ++i)
 #pragma unroll
-            for (int o = 0; o < OPT; ++o) v[o] = epi(acc[j][o], sw[o], s_in, bb[o], act);
-            store8(y, pix, O, og0, v, inv_out, out_mode);
+            for (int k = 0; k < BN / 2; ++k) reg_fence(acc[i][k]);
+        wgmma_fence();
+        // every chunk runs KS steps: the packed weights are zero past K
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks) {
+            const uint64_t db = gmma_desc(b0 + ks * BN * 32, 128, 256);
+#pragma unroll
+            for (int i = 0; i < MI; ++i) {
+                const int m = 2 * ks * PL + (wg * MI + i) * 64;
+                wgmma_s8<BN>(acc[i], gmma_desc(a0 + m * 16, PL * 16, 128), db);
+            }
+        }
+        wgmma_commit();
+#pragma unroll
+        for (int i = 0; i < MI; ++i)
+#pragma unroll
+            for (int k = 0; k < BN / 2; ++k) reg_fence(acc[i][k]);
+        // while they run: chunk ch + 2 into the stage chunk ch - 2 used
+        // (its products were waited for, and the block passed a barrier
+        // since)
+        // (ptxas 12.9 segfaults on an unconditional cp.async.wait_group 1
+        // followed by the proxy fence and wgmma.wait_group here)
+        if (ch + 2 < nchunks) {
+            stage_in(ch + 2, (ch + 2) % NS);
+            weights(ch + 2, (ch + 2) % NS);
+            cp_async_commit();
+            cp_async_wait<1>();      // chunk ch + 1 has landed
+        } else {
+            cp_async_wait<0>();
+        }
+        fence_proxy_async();
+        wgmma_wait<1>();             // chunk ch - 1's products are done
+        __syncthreads();
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < MI; ++i)
+#pragma unroll
+        for (int k = 0; k < BN / 2; ++k) reg_fence(acc[i][k]);
+    __syncthreads();
+
+    // epilogue, three passes over shared memory (kept out of the unrolled
+    // code): the s32 sums into a tile [MB][PW] (PW off 0 and 16 words mod
+    // 32: a warp's 8-byte stores take two wavefronts); then, a value a
+    // thread, consecutive threads on consecutive columns, the epilogue and
+    // (pooled) the max of rows 4 q .. 4 q + 3, in the output type into the
+    // out tile; then 16-byte stores
+    constexpr int PW = (BN % 32 == 8 || BN % 32 == 24) ? BN : BN + 8;
+    int32_t* sums = reinterpret_cast<int32_t*>(ring);
+    const int g4 = lane >> 2, t4 = lane & 3;
+#pragma unroll
+    for (int i = 0; i < MI; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            const int m = (wg * MI + i) * 64 + warp * 16 + g4 + 8 * h;
+#pragma unroll
+            for (int jn = 0; jn < BN / 8; ++jn)
+                *reinterpret_cast<int2*>(sums + m * PW + 8 * jn + 2 * t4) =
+                    make_int2(acc[i][4 * jn + 2 * h], acc[i][4 * jn + 2 * h + 1]);
+        }
+    __syncthreads();
+    const int nc = min(BN, O - n0);
+    const int es = out_mode == OUT_F32 ? 4 : out_mode == OUT_BF16 ? 2 : 1;
+    const long long o0 = pool ? r0 / 4 : r0;
+    const int nrow = (int)min((long long)(pool ? MB / 4 : MB),
+                              (pool ? rows / 4 : rows) - o0);
+    // float32 without the pool: in place (each value over its own sum);
+    // else a contiguous [nrow][nc] tile after the sums
+    const bool in_place = es == 4 && !pool;
+    uint8_t* out = in_place ? ring : ring + MB * PW * 4;
+    const int opitch = in_place ? PW * 4 : nc * es;       // bytes a row
+    // a thread keeps one column (its scale and bias in registers) and
+    // steps over rows; consecutive threads take consecutive columns
+    const int rstep = WG_NT / nc, c = tid % nc;
+    if (tid < rstep * nc) {
+        const float sws = s_sw[c], bc = s_b[c];
+#pragma unroll 4
+        for (int r = tid / nc; r < nrow; r += rstep) {
+            const int32_t* sr = sums + (pool ? 4 * r : r) * PW + c;
+            float v = epi_s(sr[0], sws, bc, act);
+            if (pool) {
+#pragma unroll
+                for (int j = 1; j < 4; ++j)
+                    v = fmaxf(v, epi_s(sr[j * PW], sws, bc, act));
+            }
+            uint8_t* d = out + r * opitch + c * es;
+            if (out_mode == OUT_F32)
+                *reinterpret_cast<float*>(d) = v;
+            else if (out_mode == OUT_BF16)
+                *reinterpret_cast<__nv_bfloat16*>(d) = __float2bfloat16_rn(v);
+            else
+                *reinterpret_cast<int8_t*>(d) = (int8_t)quant1(v, inv_out);
+        }
+    }
+    __syncthreads();
+    const int rowb = nc * es;
+    uint8_t* yb = static_cast<uint8_t*>(y) + (o0 * O + n0) * es;
+    if (nc == O && opitch == rowb) {
+        // the block's rows are one contiguous range of y (16-byte aligned:
+        // o0 is a multiple of 32) and of the out tile
+        const int total = nrow * rowb;
+        for (int f = 16 * tid; f + 16 <= total; f += 16 * WG_NT)
+            *reinterpret_cast<uint4*>(yb + f) =
+                *reinterpret_cast<const uint4*>(out + f);
+        for (int f = (total & ~15) + tid; f < total; f += WG_NT) yb[f] = out[f];
+    } else if (rowb % 16 == 0 && opitch % 16 == 0 && (O * es) % 16 == 0 &&
+               (n0 * es) % 16 == 0) {
+        const int per = rowb / 16;
+        for (int idx = tid; idx < nrow * per; idx += WG_NT) {
+            const int r = idx / per, k = idx - r * per;
+            *reinterpret_cast<uint4*>(yb + (long long)r * O * es + 16 * k) =
+                *reinterpret_cast<const uint4*>(out + r * opitch + 16 * k);
+        }
+    } else {
+        for (int idx = tid; idx < nrow * rowb; idx += WG_NT) {
+            const int r = idx / rowb, k = idx - r * rowb;
+            yb[(long long)r * O * es + k] = out[r * opitch + k];
         }
     }
 }
@@ -366,23 +548,53 @@ cudaError_t launch3(const void* x, const int32_t* wpk, const float* s_w,
     return cudaGetLastError();
 }
 
-template <bool POOL, bool F32_IN>
-cudaError_t launch1(const Sections& secs, const int32_t* wpk, const float* s_w,
-                    const float* bias, void* y, int B, int H, int W, int Ctot,
-                    int KC, int O, float s_in, float inv_s_in, float inv_out,
+template <int BN, int MI, int KS, int VEC>
+cudaError_t launch1(const Sections& secs, const void* w, const float* s_w,
+                    const float* bias, void* y, long long rows, int H, int W,
+                    int O, int pool, float s_in, float inv_s_in, float inv_out,
                     int act, int out_mode, cudaStream_t stream) {
-    const int kp = KC / 4;
-    const size_t bytes = (size_t)(((32 * PPT * (kp | 1) + 3) & ~3) + kp * TO) * 4;
-    cudaError_t err = set_smem(conv1x1_q8_kernel<POOL, F32_IN>, bytes);
-    if (err != cudaSuccess) return err;
-    const long long npix_out = POOL ? (long long)B * (H / 2) * (W / 2)
-                                    : (long long)B * H * W;
-    const long long per = POOL ? 32 : 32 * PPT;
-    dim3 grid((unsigned)((npix_out + per - 1) / per), (O + TO - 1) / TO, 1);
-    conv1x1_q8_kernel<POOL, F32_IN><<<grid, NTHREADS, bytes, stream>>>(
-        secs, wpk, s_w, bias, y, npix_out, H, W, Ctot, KC, O, s_in, inv_s_in,
-        inv_out, act, out_mode);
+    constexpr int MB = 128 * MI;
+    constexpr int STAGE = 2 * KS * (MB + 1) * 16 + KS * BN * 32;
+    constexpr int EPB = (8 * BN + 127) / 128 * 128;
+    const int nsteps = (secs.g[3] + 1) / 2;
+    const int nchunks = (nsteps + KS - 1) / KS;
+    constexpr int PW = (BN % 32 == 8 || BN % 32 == 24) ? BN : BN + 8;
+    const int es = out_mode == OUT_F32 ? 4 : out_mode == OUT_BF16 ? 2 : 1;
+    const int tile = MB * PW * 4
+                     + (es == 4 && !pool ? 0 : (pool ? MB / 4 : MB) * BN * es);
+    const int smem = EPB + std::max(std::min(NS, nchunks) * STAGE, tile);
+    if (smem > SMEM_MAX) return cudaErrorInvalidValue;
+    auto kernel = conv1x1_q8_wgmma_kernel<BN, MI, KS, VEC>;
+    static bool allowed = false;      // the attribute once, at its maximum
+    if (!allowed) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
+        if (err != cudaSuccess) return err;
+        allowed = true;
+    }
+    dim3 grid((unsigned)((rows + MB - 1) / MB), (O + BN - 1) / BN);
+    kernel<<<grid, WG_NT, smem, stream>>>(
+        secs, (const uint8_t*)w, s_w, bias, y, rows, H, W, O, (O + 7) / 8,
+        nsteps, pool, s_in, inv_s_in, inv_out, act, out_mode);
     return cudaGetLastError();
+}
+
+template <int VEC>
+cudaError_t launch1_tile(int bn, int mi, const Sections& secs, const void* w,
+                         const float* s_w, const float* bias, void* y,
+                         long long rows, int H, int W, int O, int pool,
+                         float s_in, float inv_s_in, float inv_out, int act,
+                         int out_mode, cudaStream_t stream) {
+#define L1(BN, MI, KS) launch1<BN, MI, KS, VEC>(secs, w, s_w, bias, y, rows, H, \
+                                               W, O, pool, s_in, inv_s_in,    \
+                                               inv_out, act, out_mode, stream)
+    if (bn == 24 && mi == 2) return L1(24, 2, 2);
+    if (bn == 48 && mi == 2) return L1(48, 2, 2);
+    if (bn == 64 && mi == 1) return L1(64, 1, 4);
+    if (bn == 128 && mi == 1) return L1(128, 1, 4);
+    if (bn == 256 && mi == 1) return L1(256, 1, 4);
+#undef L1
+    return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -410,38 +622,50 @@ extern "C" int conv3x3_q8(const void* x, const int32_t* wpk, const float* s_w,
 #undef L3
 }
 
-// xs: n_in (<= 3) (B, H, W, C_s) sections, int8 or (f32_in) float32; wpk
-// packed words; y (B, H, W, O) or, with pool, (B, H/2, W/2, O), int8
-// (out_mode 0), f32 (1) or bf16 (2). Returns a cudaError_t.
+// xs: n_in (<= 3) (B, H, W, C_s) sections, C_s a multiple of 4, int8 (vec
+// 16, 8 or 4: the bytes of a copy, dividing every C_s and section address)
+// or float32 (vec 0, 16-byte aligned); w K5's packed bytes
+// (QConv.packed_wgmma); y (B, H, W, O) or, with pool, (B, H/2, W/2, O),
+// 16-byte aligned, int8 (out_mode 0), f32 (1) or bf16 (2); (bn, mi) the tile
+// (24, 2), (48, 2), (64, 1), (128, 1) or (256, 1). Returns a cudaError_t.
 extern "C" int conv1x1_q8(const void* x0, const void* x1, const void* x2,
-                          int c0, int c1, int c2, int n_in, const int32_t* wpk,
-                          const float* s_w, const float* bias, void* y, int B, int H,
-                          int W, int KC, int O, int pool, int f32_in, int out_mode,
-                          float s_in, float inv_s_in, float inv_out, int act,
-                          void* stream_ptr) {
+                          int c0, int c1, int c2, int n_in, const void* w,
+                          const float* s_w, const float* bias, void* y, int B,
+                          int H, int W, int bn, int mi, int vec, int O,
+                          int pool, int out_mode, float s_in, float inv_s_in,
+                          float inv_out, int act, void* stream_ptr) {
     cudaStream_t stream = (cudaStream_t)stream_ptr;
     if (B <= 0 || H <= 0 || W <= 0 || O <= 0) return 0;
-    if (n_in < 1 || n_in > 3 || KC <= 0 || KC % 4 || KC > 64 ||
+    const long long rows = (long long)B * H * W;
+    if (n_in < 1 || n_in > 3 || rows >= (1LL << 31) ||
         (out_mode != OUT_I8 && out_mode != OUT_F32 && out_mode != OUT_BF16) ||
-        (pool && (H % 2 || W % 2)))
+        (pool && (H % 2 || W % 2)) || ((uintptr_t)y & 15) ||
+        (vec != 0 && vec != 4 && vec != 8 && vec != 16))
         return (int)cudaErrorInvalidValue;
-    Sections secs;
     const void* xp[3] = {x0, x1, x2};
     const int cs[3] = {c0, c1, c2};
-    int off = 0;
+    Sections secs;
+    int g = 0;
     for (int s = 0; s < 3; ++s) {
+        secs.g[s] = g;
         secs.x[s] = s < n_in ? xp[s] : nullptr;
         secs.c[s] = s < n_in ? cs[s] : 0;
-        secs.off[s] = off;
-        if (s < n_in) {
-            if (cs[s] <= 0 || cs[s] % KC) return (int)cudaErrorInvalidValue;
-            off += cs[s];
-        }
+        if (s >= n_in) continue;
+        const int align = vec ? vec : 16;
+        if (cs[s] <= 0 || cs[s] % 4 || (vec && cs[s] % vec) ||
+            ((uintptr_t)xp[s] % align))
+            return (int)cudaErrorInvalidValue;
+        g += (cs[s] + 15) / 16;
     }
-    secs.n = n_in;
-#define L1(P, FI) launch1<P, FI>(secs, wpk, s_w, bias, y, B, H, W, off, KC, O, s_in, \
-                                 inv_s_in, inv_out, act, out_mode, stream)
-    if (pool) return (int)(f32_in ? L1(true, true) : L1(true, false));
-    return (int)(f32_in ? L1(false, true) : L1(false, false));
-#undef L1
+    secs.g[3] = g;
+#define LT(V) launch1_tile<V>(bn, mi, secs, w, s_w, bias, y, rows, H, W, O, \
+                              pool, s_in, inv_s_in, inv_out, act, out_mode,  \
+                              stream)
+    switch (vec) {
+        case 16: return (int)LT(16);
+        case 8: return (int)LT(8);
+        case 4: return (int)LT(4);
+        default: return (int)LT(0);
+    }
+#undef LT
 }

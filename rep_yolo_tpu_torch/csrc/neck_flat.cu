@@ -31,11 +31,17 @@
 // bias and the activation, float32 out or an int8 requant. Every product and
 // sum is an explicitly rounded operation (and the file is compiled with
 // --fmad=false), so the outputs equal the plain version's bit for bit but for
-// SiLU's expf. A block stages an (8 + 4) x (32 + 4) pixel tile of 32
-// channels with its halo in shared memory (one byte a channel, so a warp's
-// loads of one pixel's channels coalesce); a thread owns one channel of one
-// output row, its 25 weights in registers, and walks the 32 columns. Bound:
-// bytes (int8 in, int8 or f32 out, the weights).
+// SiLU's expf. Bound: bytes (int8 in, int8 or f32 out, the weights); the
+// float32 products and sums (50 a value) come next. A block of 4 warps
+// stages a (ty + 4) x 24 pixel tile of 32 channels by 16-byte loads (16
+// channels of a pixel a load, all of a thread's loads before its stores;
+// byte loads where C is not a multiple of 16); a thread owns one channel of
+// 5 adjacent output columns, its 25 weights in registers, and walks down the
+// tile's input rows: each input row is read once (9 bytes, each turned into
+// float32 once) and feeds the five output rows it belongs to, whose sums stay
+// in registers until their fifth row arrives. The tile height (16, 8 or 4
+// rows) is the tallest that still gives two blocks an SM, so the small maps
+// fill the card.
 //
 // Layout: channels-last int8 (B, H, W, C); C a multiple of 4 for K7 and K8.
 
@@ -134,75 +140,137 @@ cudaError_t launch_dw(const int32_t* x, const int32_t* w, const float* s_w,
 // K12: depthwise 5x5 on float32 weights, stride 1, pad 2
 // ---------------------------------------------------------------------------
 
-constexpr int FW_TY = 8;                  // output rows of a tile
-constexpr int FW_TX = 32;                 // output columns of a tile
-constexpr int FW_C = 32;                  // channels of a tile, one a lane
-constexpr int FW_RY = FW_TY + 4, FW_RX = FW_TX + 4;
-constexpr int FW_THREADS = FW_C * FW_TY;  // a warp per output row
+constexpr int FW_NX = 5;                  // output columns a thread
+constexpr int FW_SX = 4;                  // column strips (warps) a block
+constexpr int FW_TX = FW_NX * FW_SX;      // output columns a block
+constexpr int FW_C = 32;                  // channels a block, one a lane
+constexpr int FW_THREADS = 32 * FW_SX;
+constexpr int FW_RX = FW_TX + 4;          // staged columns
+constexpr int FW_TY = 16;                 // output rows a block, at most
+constexpr int FW_ITEMS = (FW_TY + 4) * FW_RX * 2;   // 16-byte loads, at most
+constexpr int FW_IPT = (FW_ITEMS + FW_THREADS - 1) / FW_THREADS;
 
-// x (B, H, W, C) int8; w (25, C) f32, tap u * 5 + v; bias (C,);
-// y (B, H, W, C) f32 (F32_OUT) or int8 at 1 / inv_out.
-template <bool F32_OUT>
+// The float32 value of a staged int8 byte b: 2^23 + (b ^ 0x80) is
+// 2^23 + 128 + x exactly, so one logic op and one exact add.
+__device__ __forceinline__ float byte_to_float(uint32_t b) {
+    return __fadd_rn(__int_as_float(0x4B000000u | (b ^ 0x80u)), -8388736.0f);
+}
+
+// x (B, H, W, C) int8; w (25, C) f32, tap u * 5 + v; bias (C,); y (B, H,
+// W, C) f32 (F32_OUT) or int8 at 1 / inv_out. A block: ty <= FW_TY output
+// rows x FW_TX columns x FW_C channels; a thread: one channel, FW_NX
+// adjacent columns, walking the ty + 4 staged input rows. Input row r adds
+// its kernel-row-u sum to output row r - u, so each output row's five row
+// sums arrive in u order; five rows of sums are in flight (slot = row % 5).
+// VEC: C % 16 == 0 and x 16-byte aligned, so the tile is staged by 16-byte
+// loads (16 channels of a pixel a load).
+template <bool F32_OUT, bool VEC>
 __global__ void __launch_bounds__(FW_THREADS)
 dwconv5x5_f32w_kernel(const int8_t* __restrict__ x, const float* __restrict__ w,
                       const float* __restrict__ bias, void* __restrict__ y,
-                      int H, int W, int C, int tiles_x, float inv_out, int act) {
-    __shared__ int8_t s_x[FW_RY * FW_RX][FW_C];
-    const int ty0 = (blockIdx.x / tiles_x) * FW_TY;
+                      int H, int W, int C, int ty, int tiles_x, float inv_out,
+                      int act) {
+    __shared__ __align__(16) uint8_t s_x[(FW_TY + 4) * FW_RX * FW_C];
+    const int ty0 = (blockIdx.x / tiles_x) * ty;
     const int tx0 = (blockIdx.x % tiles_x) * FW_TX;
     const int c0 = blockIdx.y * FW_C, b = blockIdx.z;
-    const int nc = min(FW_C, C - c0);
-    for (int i = threadIdx.x; i < FW_RY * FW_RX * FW_C; i += FW_THREADS) {
-        const int c = i % FW_C, pix = i / FW_C;
-        const int ry = pix / FW_RX, rx = pix - ry * FW_RX;
-        const int iy = ty0 - 2 + ry, ix = tx0 - 2 + rx;
-        int8_t v = 0;
-        if (c < nc && iy >= 0 && iy < H && ix >= 0 && ix < W)
-            v = x[(((long long)b * H + iy) * W + ix) * C + c0 + c];
-        s_x[pix][c] = v;
+    const int tid = threadIdx.x, nr = ty + 4;
+    if (VEC) {
+        // every load of the thread issued before its first store
+        const int items = nr * FW_RX * 2;
+        uint4 v[FW_IPT];
+#pragma unroll
+        for (int it = 0; it < FW_IPT; ++it) {
+            const int e = tid + it * FW_THREADS;
+            const int p = e >> 1, cc = c0 + 16 * (e & 1);
+            const int iy = ty0 - 2 + p / FW_RX, ix = tx0 - 2 + p % FW_RX;
+            v[it] = make_uint4(0, 0, 0, 0);
+            if (e < items && cc < C && iy >= 0 && iy < H && ix >= 0 && ix < W)
+                v[it] = *reinterpret_cast<const uint4*>(
+                    x + (((long long)b * H + iy) * W + ix) * C + cc);
+        }
+#pragma unroll
+        for (int it = 0; it < FW_IPT; ++it) {
+            const int e = tid + it * FW_THREADS;
+            if (e < items) reinterpret_cast<uint4*>(s_x)[e] = v[it];
+        }
+    } else {
+        for (int i = tid; i < nr * FW_RX * FW_C; i += FW_THREADS) {
+            const int c = i % FW_C, p = i / FW_C;
+            const int iy = ty0 - 2 + p / FW_RX, ix = tx0 - 2 + p % FW_RX;
+            int8_t v = 0;
+            if (c0 + c < C && iy >= 0 && iy < H && ix >= 0 && ix < W)
+                v = x[(((long long)b * H + iy) * W + ix) * C + c0 + c];
+            s_x[i] = (uint8_t)v;
+        }
     }
     __syncthreads();
 
-    const int c = threadIdx.x % FW_C, ly = threadIdx.x / FW_C;
-    const int oy = ty0 + ly;
-    if (c >= nc || oy >= H) return;
+    const int lane = tid & 31, lx0 = (tid >> 5) * FW_NX;
+    const int c = c0 + lane, cl = min(c, C - 1);
     float wr[25];
 #pragma unroll
-    for (int t = 0; t < 25; ++t) wr[t] = w[(long long)t * C + c0 + c];
-    const float bc = bias[c0 + c];
-    const long long row_off = ((long long)b * H + oy) * W;
-    for (int lx = 0; lx < FW_TX && tx0 + lx < W; ++lx) {
-        float acc = 0.0f;
+    for (int t = 0; t < 25; ++t) wr[t] = w[(long long)t * C + cl];
+    const float bc = bias[cl];
+    float acc[5][FW_NX];
+    for (int r5 = 0; r5 < nr; r5 += 5) {
 #pragma unroll
-        for (int u = 0; u < 5; ++u) {
-            const int8_t* px = &s_x[(ly + u) * FW_RX + lx][c];
-            float row = __fmul_rn(wr[u * 5], (float)px[0]);
+        for (int rr = 0; rr < 5; ++rr) {
+            const int r = r5 + rr;              // staged input row
+            if (r >= nr) break;
+            const uint8_t* px = s_x + (r * FW_RX + lx0) * FW_C + lane;
+            float xv[FW_NX + 4];
 #pragma unroll
-            for (int v = 1; v < 5; ++v)
-                row = __fadd_rn(row, __fmul_rn(wr[u * 5 + v], (float)px[v * FW_C]));
-            acc = u == 0 ? row : __fadd_rn(acc, row);
+            for (int q = 0; q < FW_NX + 4; ++q) xv[q] = byte_to_float(px[q * FW_C]);
+#pragma unroll
+            for (int u = 0; u < 5; ++u) {
+                const int ly = r - u;           // the output row it feeds
+                if (ly < 0 || ly >= ty) continue;
+                const int sl = (rr - u + 5) % 5;
+#pragma unroll
+                for (int xo = 0; xo < FW_NX; ++xo) {
+                    float row = __fmul_rn(wr[u * 5], xv[xo]);
+#pragma unroll
+                    for (int v = 1; v < 5; ++v)
+                        row = __fadd_rn(row, __fmul_rn(wr[u * 5 + v], xv[xo + v]));
+                    acc[sl][xo] = u == 0 ? row : __fadd_rn(acc[sl][xo], row);
+                }
+            }
+            // output row r - 4 has all five row sums
+            const int oy = ty0 + r - 4;
+            if (r < 4 || r - 4 >= ty || oy >= H || c >= C) continue;
+            const long long row_off = ((long long)b * H + oy) * W;
+#pragma unroll
+            for (int xo = 0; xo < FW_NX; ++xo) {
+                const int ox = tx0 + lx0 + xo;
+                if (ox >= W) break;
+                float yv = __fadd_rn(acc[(rr + 1) % 5][xo], bc);
+                if (act) {
+                    const float sig = __frcp_rn(__fadd_rn(1.0f, expf(-yv)));
+                    yv = __fmul_rn(yv, sig);
+                }
+                const long long o = (row_off + ox) * C + c;
+                if (F32_OUT)
+                    static_cast<float*>(y)[o] = yv;
+                else
+                    static_cast<int8_t*>(y)[o] = (int8_t)quant1(yv, inv_out);
+            }
         }
-        float yv = __fadd_rn(acc, bc);
-        if (act) {
-            const float sig = __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-yv)));
-            yv = __fmul_rn(yv, sig);
-        }
-        const long long o = (row_off + tx0 + lx) * C + c0 + c;
-        if (F32_OUT)
-            ((float*)y)[o] = yv;
-        else
-            ((int8_t*)y)[o] = (int8_t)quant1(yv, inv_out);
     }
 }
 
-template <bool F32_OUT>
+template <bool F32_OUT, bool VEC>
 cudaError_t launch_dw_f32w(const int8_t* x, const float* w, const float* bias,
                            void* y, int B, int H, int W, int C, float inv_out,
                            int act, cudaStream_t stream) {
-    const int tiles_x = (W + FW_TX - 1) / FW_TX;
-    dim3 grid(tiles_x * ((H + FW_TY - 1) / FW_TY), (C + FW_C - 1) / FW_C, B);
-    dwconv5x5_f32w_kernel<F32_OUT><<<grid, FW_THREADS, 0, stream>>>(
-        x, w, bias, y, H, W, C, tiles_x, inv_out, act);
+    // the tallest tile (16, 8 or 4 rows) that still gives two blocks an SM
+    const int tiles_x = (W + FW_TX - 1) / FW_TX, cg = (C + FW_C - 1) / FW_C;
+    int ty = FW_TY;
+    while (ty > 4 && (long long)tiles_x * ((H + ty - 1) / ty) * cg * B < 2 * 132)
+        ty /= 2;
+    dim3 grid(tiles_x * ((H + ty - 1) / ty), cg, B);
+    dwconv5x5_f32w_kernel<F32_OUT, VEC><<<grid, FW_THREADS, 0, stream>>>(
+        x, w, bias, y, H, W, C, ty, tiles_x, inv_out, act);
     return cudaGetLastError();
 }
 
@@ -298,10 +366,12 @@ extern "C" int dwconv5x5_f32w_q8(const int8_t* x, const float* w, const float* b
     cudaStream_t stream = (cudaStream_t)stream_ptr;
     if (B <= 0 || H <= 0 || W <= 0 || C <= 0) return 0;
     if (B > 65535) return (int)cudaErrorInvalidValue;
-    return (int)(f32_out ? launch_dw_f32w<true>(x, w, bias, y, B, H, W, C, inv_out,
-                                                act, stream)
-                         : launch_dw_f32w<false>(x, w, bias, y, B, H, W, C, inv_out,
-                                                 act, stream));
+    const bool vec = C % 16 == 0 && (uintptr_t)x % 16 == 0;
+#define LD(F, V) launch_dw_f32w<F, V>(x, w, bias, y, B, H, W, C, inv_out, act, \
+                                      stream)
+    if (f32_out) return (int)(vec ? LD(true, true) : LD(true, false));
+    return (int)(vec ? LD(false, true) : LD(false, false));
+#undef LD
 }
 
 // x (B, H, W, 4*cw) int8 as words; y (B, H, W, 16*cw). The map (2 * H * W

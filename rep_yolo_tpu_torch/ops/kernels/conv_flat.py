@@ -10,7 +10,9 @@ Source: ``csrc/conv_flat.cu``.
 Activations are channels-last, ``(B, H, W, C)``: int8 at a calibrated
 per-tensor scale (C a multiple of 4), or float32 quantized inside the
 kernel at ``s_in`` (K5: section channels multiples of 4). Weights are a
-``QConv``, quantized once. The output is int8 at ``out_scale`` or, without
+``QConv``, quantized once. K4 runs on dp4a; K5 is an implicit GEMM on the
+int8 tensor cores (``wgmma``), its tile and staging granule picked by
+``k5_route``. The output is int8 at ``out_scale`` or, without
 one, float32, or bfloat16 with ``out_dtype`` (the JAX kernels emit bf16
 there; ``ops/kernels/conv_pm.py`` asks for it). The activation is SiLU,
 ReLU or none. The wrappers take the plain versions for CPU tensors only;
@@ -20,6 +22,7 @@ on a CUDA tensor they launch the kernel or raise.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -30,7 +33,12 @@ from rep_yolo_tpu_torch.ops.quant import (epilogue, quantize,
                                           quantize_weights, requant)
 
 LAUNCHES = {"conv3x3_q8": 0, "conv1x1_q8": 0, "conv5x5_q8": 0}
-_TO = 32            # output channels per block of the kernels
+_TO = 32            # output channels per block of K4
+# K5's tiles: output channels a block (BN) -> its 64-row tiles a warpgroup
+# (MI); 256 rows a block for BN <= 48, else 128 (with 256, the epilogue's
+# tile held 64 / 128 channels to one block an SM, and it ran slower)
+K5_TILES = {24: 2, 48: 2, 64: 1, 128: 1, 256: 1}
+SMS = 132           # the H100's SMs
 _ACTS = {"silu": 1, None: 0, "relu": 2}
 # the kernels' out_mode: int8 at out_scale, else float32 or bfloat16
 _OUT_MODES = {torch.float32: 1, torch.bfloat16: 2}
@@ -43,7 +51,7 @@ def _lib():
         lib.conv3x3_q8.argtypes = [vp] * 5 + [i32] * 11 + [f] * 3 + [i32, vp]
         lib.conv3x3_q8.restype = i32
         lib.conv1x1_q8.argtypes = [vp] * 3 + [i32] * 4 + [vp] * 4 \
-            + [i32] * 8 + [f] * 3 + [i32, vp]
+            + [i32] * 9 + [f] * 3 + [i32, vp]
         lib.conv1x1_q8.restype = i32
         lib._typed = True
     return lib
@@ -74,8 +82,8 @@ class QConv:
     (O,) f32. ``in_scale`` (C,) and ``perm`` (C,) fold an int8 input's
     per-channel scales (the concat's section scales) and pending channel
     permutation (GSConv's shuffle) into the float weights before they are
-    quantized (``fold_weight``). The kernels' packed copy is made at the
-    first launch and kept."""
+    quantized (``fold_weight``). The kernels' packed copies (``packed`` for
+    K4, ``packed_wgmma`` for K5) are made at the first launch and kept."""
 
     def __init__(self, weight: torch.Tensor, bias: torch.Tensor | None,
                  in_scale: torch.Tensor | None = None,
@@ -111,6 +119,38 @@ class QConv:
                 opad // _TO, _TO, k * k, cp // kc, kc // 4).permute(
                     0, 3, 2, 4, 1).contiguous()
         return self._packed[kc]
+
+    def packed_wgmma(self, cs) -> torch.Tensor:
+        """K5's operand B for input sections of ``cs`` channels: int8
+        [step][ceil(O/8)][2][8][16]. K is each section's channels padded to
+        a multiple of 16 (a group), the groups in section order, padded to
+        a multiple of 8 (four k32 steps: the kernel's chunks run whole);
+        step s holds groups 2s and 2s + 1, each as a core matrix of 8
+        output channels x 16 input channels. Zeros in every pad (and in the
+        output channels past O)."""
+        key = ("wgmma", tuple(int(c) for c in cs))
+        if key not in self._packed:
+            O = self.c_out
+            og8 = -(-O // 8) * 8
+            w = self.w_q.reshape(O, -1)
+            if self.k != 1 or sum(key[1]) != w.shape[1]:
+                raise ValueError(f"packed_wgmma: sections {key[1]} for 1x1 "
+                                 f"weights of {w.shape[1]} input channels")
+            blocks, off = [], 0
+            for c in key[1]:
+                blk = torch.zeros((og8, -(-c // 16) * 16), dtype=torch.int8,
+                                  device=w.device)
+                blk[:O, :c] = w[:, off:off + c]
+                blocks.append(blk)
+                off += c
+            pad = -sum(b.shape[1] for b in blocks) % 128
+            if pad:
+                blocks.append(torch.zeros((og8, pad), dtype=torch.int8,
+                                          device=w.device))
+            k = torch.cat(blocks, 1)
+            self._packed[key] = k.reshape(og8 // 8, 8, -1, 2, 16).permute(
+                2, 0, 3, 1, 4).contiguous()
+        return self._packed[key]
 
 
 def _chunk(channels) -> int:
@@ -273,6 +313,17 @@ def _pool2(y: torch.Tensor) -> torch.Tensor:
     return y.reshape(B, H // 2, 2, W // 2, 2, C).amax((2, 4))
 
 
+def conv1x1_q8_sums(xs, qw: QConv, s_in: float) -> torch.Tensor:
+    """K5's s32 sums, exact in float64: concat(xs, -1), int8 or quantized
+    at ``s_in``, times ``qw.w_q`` -> (..., O)."""
+    xs = list(xs) if isinstance(xs, (list, tuple)) else [xs]
+    x = torch.cat(xs, -1) if len(xs) > 1 else xs[0]
+    if x.dtype != torch.int8:
+        x = quantize(x, s_in)
+    w = qw.w_q.reshape(qw.c_out, -1)[:, :x.shape[-1]]
+    return torch.matmul(x.double(), w.double().t())
+
+
 def conv1x1_q8_plain(xs, qw: QConv, s_in: float, act: str | None = "silu",
                      out_scale: float | None = None, pool: bool = False,
                      out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
@@ -280,22 +331,53 @@ def conv1x1_q8_plain(xs, qw: QConv, s_in: float, act: str | None = "silu",
     ``s_in`` (a section's own scale folded into ``qw``) or float sections
     quantized at ``s_in``, then the exit (int8 at ``out_scale``, else
     ``out_dtype``), then (``pool``) the 2x2/s2 max pool."""
-    xs = list(xs) if isinstance(xs, (list, tuple)) else [xs]
-    x = torch.cat(xs, -1) if len(xs) > 1 else xs[0]
-    if x.dtype != torch.int8:
-        x = quantize(x, s_in)
-    w = qw.w_q.reshape(qw.c_out, -1)[:, :x.shape[-1]]
-    acc = torch.matmul(x.double(), w.double().t())
+    acc = conv1x1_q8_sums(xs, qw, s_in)
     y = _exit(epilogue(acc, qw.s_w, qw.bias, s_in, act), out_scale,
               out_dtype)
     return (_pool2(y) if pool else y).contiguous()
+
+
+def k5_route(cs, O: int, rows: int, f32_in: bool,
+             addrs=None) -> tuple[int, int, int]:
+    """K5's (BN, MI, VEC) for sections of ``cs`` channels, ``O`` output
+    channels and ``rows`` staged rows (B * H * W, the pool's four a pooled
+    pixel included). BN: the smallest of ``K5_TILES`` that holds O (256
+    above it), unless that grid is under two blocks an SM; then the
+    narrower ones down to 64: the first whose grid reaches two blocks an
+    SM, else 64. MI: BN's in ``K5_TILES``. VEC: 0 for float32 sections;
+    for int8 the bytes of one copy, 16, 8 or 4, the largest that divides
+    every section's channels and (``addrs``, the data pointers) address."""
+    low = 0                    # the addresses' low bits, together
+    for a in addrs or ():
+        low |= a & 15
+    return _k5_route(tuple(int(c) for c in cs), int(O), int(rows),
+                     bool(f32_in), low)
+
+
+@functools.lru_cache(maxsize=None)
+def _k5_route(cs, O, rows, f32_in, low) -> tuple[int, int, int]:
+    first = next((b for b in K5_TILES if O <= b), 256)
+    for bn in [b for b in sorted(K5_TILES, reverse=True)
+               if b == first or 64 <= b < first]:
+        if -(-rows // (128 * K5_TILES[bn])) * -(-O // bn) >= 2 * SMS:
+            break
+    mi = K5_TILES[bn]
+    if f32_in:
+        return bn, mi, 0
+    vec = next((v for v in (16, 8, 4)
+                if low % v == 0 and all(c % v == 0 for c in cs)), None)
+    if vec is None:
+        raise ValueError(f"conv1x1_q8: int8 sections of {list(cs)} channels "
+                         f"are not all 4-byte aligned")
+    return bn, mi, vec
 
 
 def conv1x1_q8(xs, qw: QConv, s_in: float, act: str | None = "silu",
                out_scale: float | None = None, pool: bool = False,
                out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """K5. CPU tensors take ``conv1x1_q8_plain``. The sections are all int8
-    or all float32; their channel counts are multiples of 4."""
+    or all float32; their channel counts are multiples of 4; float32
+    sections are 16-byte aligned."""
     xs = list(xs) if isinstance(xs, (list, tuple)) else [xs]
     if xs[0].device.type == "cpu":
         return conv1x1_q8_plain(xs, qw, s_in, act, out_scale, pool,
@@ -318,18 +400,22 @@ def conv1x1_q8(xs, qw: QConv, s_in: float, act: str | None = "silu",
         raise ValueError(f"conv1x1_q8: pool needs even H, W, got {H}x{W}")
     mode, dt = _out_mode("conv1x1_q8", out_scale, out_dtype)
     xs = [t.contiguous() for t in xs]
-    kc = _chunk(cs)
+    f32_in = dt_in == torch.float32
+    if f32_in and any(t.data_ptr() % 16 for t in xs):
+        raise ValueError("conv1x1_q8: float32 sections must be 16-byte "
+                         "aligned")
     O = qw.c_out
+    bn, mi, vec = k5_route(cs, O, B * H * W, f32_in,
+                           [t.data_ptr() for t in xs])
     shape = (B, H // 2, W // 2, O) if pool else (B, H, W, O)
     y = torch.empty(shape, device=xs[0].device, dtype=dt)
     s, inv_s, inv_out = _scales(s_in, out_scale)
     ptrs = [D.ptr(t) for t in xs] + [None] * (3 - len(xs))
     cs3 = cs + [0] * (3 - len(cs))
     err = _lib().conv1x1_q8(
-        *ptrs, *cs3, len(xs), D.ptr(qw.packed(kc)), D.ptr(qw.s_w),
-        D.ptr(qw.bias), D.ptr(y), B, H, W, kc, O, int(pool),
-        int(dt_in == torch.float32), mode, s, inv_s, inv_out, _ACTS[act],
-        D.stream_handle(xs[0]))
+        *ptrs, *cs3, len(xs), D.ptr(qw.packed_wgmma(cs)), D.ptr(qw.s_w),
+        D.ptr(qw.bias), D.ptr(y), B, H, W, bn, mi, vec, O, int(pool), mode,
+        s, inv_s, inv_out, _ACTS[act], D.stream_handle(xs[0]))
     D.check_launch("conv1x1_q8", err)
     LAUNCHES["conv1x1_q8"] += 1
     return y

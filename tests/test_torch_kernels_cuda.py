@@ -9,10 +9,11 @@ installed (``tests/conftest.py`` imports JAX, hence ``--noconftest``):
 Tolerances: attention f32 atol = rtol = 1e-4 (summation order differs);
 NMS keep sets identical (K up to 8192, evaluation's max_nms); the row-3
 route (the train-form attention in eval() on K2) against the einsum path
-atol = rtol = 1e-4; the int8 kernels (K12's float32 sums included): int8
-outputs identical but for +-1 LSB on at most 1e-4 of the elements (CUDA's
-expf against torch's sigmoid), float32 outputs atol = rtol = 1e-5, pools
-(K6, K8) identical;
+atol = rtol = 1e-4; the int8 kernels (K5 on the int8 tensor cores and
+K12's float32 sums included): int8 outputs identical but for +-1 LSB on at
+most 1e-4 of the elements (CUDA's expf against torch's sigmoid), float32
+outputs atol = rtol = 1e-5, bfloat16 outputs within one bfloat16 ulp
+(``_q8_out_close``), pools (K6, K8) identical;
 K9 wgrad3x3: |dW - plain| <= 1e-4 |plain| + 1e-4 max|plain| (sums of up to
 51,200 products in another order, as Winograd tiles in 3xTF32), and two
 calls identical; K10 / K11 (conv3x3_cmajor,
@@ -183,6 +184,108 @@ def test_conv1x1_q8_matches_plain(cuda, secs, c_out, h, w, pool, out_scale):
         assert torch.equal(got, unfused)
 
 
+def _sections(rng, secs, b, h, w, dtype, device, offset=0):
+    """int8 or float32 sections (b, h, w, c); int8 ones start ``offset``
+    bytes into their storage."""
+    out = []
+    for c in secs:
+        if dtype == torch.float32:
+            out.append(torch.from_numpy(rng.uniform(-1, 1, (b, h, w, c)).astype(
+                np.float32)).to(device))
+            continue
+        raw = torch.from_numpy(rng.integers(-127, 128, b * h * w * c + offset)
+                               .astype(np.int8)).to(device)
+        out.append(raw[offset:].view(b, h, w, c))
+    return out
+
+
+K5_TILES = list(KC.K5_TILES.items())
+
+
+@pytest.mark.parametrize("tile", K5_TILES)
+@pytest.mark.parametrize("out", [(0.04, torch.float32), (None, torch.float32),
+                                 (None, torch.bfloat16)])
+@pytest.mark.parametrize("secs,c_out,b,h,w,pool", [
+    ((24,), 48, 2, 7, 9, False),          # H*W off 8, 8-byte staging
+    ((48,), 24, 2, 20, 20, False),        # BN 24
+    ((48, 48, 48), 48, 2, 16, 32, True),  # l1 cv1 with the MP
+    ((48, 48, 48), 128, 2, 10, 14, True),  # l3 cv1 with the MP
+    ((128,), 128, 1, 9, 11, False),       # BN 128, one 128-row tile
+    ((128, 128, 128), 256, 4, 20, 20, False),  # l5 cv1
+    ((256, 256, 256), 512, 2, 13, 7, False),   # l7 cv1: two N tiles
+    ((24, 48), 256, 1, 6, 10, True),      # sections off 16 and on
+    ((128, 128, 256), 512, 1, 5, 5, False),
+    ((256,), 1024, 1, 3, 7, False),       # four N tiles
+    ((256,), 18, 2, 9, 9, False),         # the head: O = 18
+])
+def test_conv1x1_q8_wgmma_tiles(cuda, monkeypatch, secs, c_out, b, h, w,
+                               pool, out, tile):
+    """K5 at each of its tiles (forced in place of ``k5_route``'s
+    choice) over O 18 to 1024, 1-3 sections of 24-256 channels, with and
+    without the pool, every exit, identical to its plain version (int8
+    within the int8 kernels' rule)."""
+    route = KC.k5_route
+    monkeypatch.setattr(KC, "k5_route",
+                        lambda *a, **k: (*tile, route(*a, **k)[2]))
+    rng = np.random.default_rng(sum(secs) + c_out + h)
+    qw = _qconv(rng, sum(secs), c_out, 1, cuda)
+    xs = _sections(rng, secs, b, h, w, torch.int8, cuda)
+    args = (qw, 1.0, "silu", out[0], pool, out[1])
+    _q8_out_close(KC.conv1x1_q8(xs, *args), KC.conv1x1_q8_plain(xs, *args))
+
+
+@pytest.mark.parametrize("secs,c_out,h,w,pool,out_scale", [
+    ((24,), 48, 8, 8, True, 0.03),
+    ((48, 16), 96, 6, 8, False, None),
+    ((128, 128, 128), 256, 10, 14, False, 0.05),
+    ((256,), 512, 7, 9, False, None),
+])
+def test_conv1x1_q8_wgmma_float_input(cuda, secs, c_out, h, w, pool,
+                                      out_scale):
+    """Float32 sections quantized at s_in while staged (through
+    registers)."""
+    rng = np.random.default_rng(sum(secs) + c_out)
+    qw = _qconv(rng, sum(secs), c_out, 1, cuda)
+    xs = _sections(rng, secs, 2, h, w, torch.float32, cuda)
+    args = (qw, 0.01, "silu", out_scale, pool)
+    _assert_q8_close(KC.conv1x1_q8(xs, *args), KC.conv1x1_q8_plain(xs, *args))
+
+
+@pytest.mark.parametrize("secs,offset,vec", [((48,), 8, 8), ((64,), 4, 4),
+                                             ((12, 20), 0, 4),
+                                             ((24, 24), 0, 8)])
+def test_conv1x1_q8_wgmma_staging_granule(cuda, secs, offset, vec):
+    """Sections whose channels or addresses are off 16 bytes take 8- or
+    4-byte copies."""
+    rng = np.random.default_rng(offset + sum(secs))
+    qw = _qconv(rng, sum(secs), 40, 1, cuda)
+    xs = _sections(rng, secs, 2, 6, 7, torch.int8, cuda, offset)
+    assert KC.k5_route([t.shape[-1] for t in xs], 40, 84, False,
+                       [t.data_ptr() for t in xs])[2] == vec
+    args = (qw, 1.0, "silu", 0.05)
+    _assert_q8_close(KC.conv1x1_q8(xs, *args), KC.conv1x1_q8_plain(xs, *args))
+
+
+@pytest.mark.parametrize("c_in,c_out", [(24, 48), (64, 128)])
+def test_conv1x1_q8_wgmma_large_map(cuda, c_in, c_out):
+    """A 160 x 160 map at batch 4 (a grid of hundreds of blocks, 256-row
+    tiles at 48 channels); two calls identical."""
+    rng = np.random.default_rng(c_out)
+    qw = _qconv(rng, c_in, c_out, 1, cuda)
+    xs = _sections(rng, (c_in,), 4, 160, 160, torch.int8, cuda)
+    got = KC.conv1x1_q8(xs, qw, 1.0, "silu", 0.05)
+    assert torch.equal(got, KC.conv1x1_q8(xs, qw, 1.0, "silu", 0.05))
+    _assert_q8_close(got, KC.conv1x1_q8_plain(xs, qw, 1.0, "silu", 0.05))
+
+
+def test_conv1x1_q8_refuses_unaligned_float_sections(cuda):
+    rng = np.random.default_rng(5)
+    qw = _qconv(rng, 8, 16, 1, cuda)
+    x = torch.zeros(2 * 4 * 4 * 8 + 1, device=cuda)[1:].view(2, 4, 4, 8)
+    with pytest.raises(ValueError):
+        KC.conv1x1_q8([x], qw, 0.01)
+
+
 @pytest.mark.parametrize("shape", [(2, 80, 80, 256), (3, 10, 14, 4),
                                    (2, 6, 8, 8)])
 def test_max_pool2_q8_matches_plain(cuda, shape):
@@ -226,6 +329,35 @@ def test_dwconv5x5_f32w_q8_matches_plain(cuda, c, h, w, act, out_scale):
         np.int8)).to(cuda)
     _assert_q8_close(KNF.dwconv5x5_f32w_q8(x, qd, act, out_scale),
                      KNF.dwconv5x5_f32w_q8_plain(x, qd, act, out_scale))
+
+
+@pytest.mark.parametrize("c,b,h,w,act,out_scale", [
+    (64, 8, 80, 80, "silu", 0.03),     # l17, l32
+    (32, 8, 80, 80, None, None),       # l24's gs2, float exit
+    (128, 8, 40, 40, "silu", 0.05),    # l12, l48
+    (64, 8, 40, 40, None, None),       # l14 / l40 gs2
+    (128, 8, 20, 20, "silu", 0.05),    # l47, l49, l56
+    (64, 8, 20, 20, "silu", 0.02),     # l10
+    (48, 3, 17, 23, "silu", 0.04),     # odd H, W; C off 32, on 16
+    (40, 2, 9, 41, None, 0.05),        # C off 16: byte staging
+    (8, 1, 5, 3, "silu", None),        # a map smaller than the halo
+])
+def test_dwconv5x5_f32w_q8_shapes(cuda, c, b, h, w, act, out_scale):
+    """K12 at the flagship's depthwise 5x5 shapes at evaluation's batch 8
+    and at ragged ones, against its plain version; without SiLU the float
+    sums are identical."""
+    rng = np.random.default_rng(c + h + w)
+    wt = torch.from_numpy(rng.normal(0, 0.1, (c, 1, 5, 5)).astype(np.float32))
+    bias = torch.from_numpy(rng.normal(0, 0.5, (c,)).astype(np.float32))
+    qd = KNF.QDepthwiseF32(wt.to(cuda), bias.to(cuda),
+                           torch.full((c,), 0.02, device=cuda))
+    x = torch.from_numpy(rng.integers(-127, 128, (b, h, w, c)).astype(
+        np.int8)).to(cuda)
+    got = KNF.dwconv5x5_f32w_q8(x, qd, act, out_scale)
+    ref = KNF.dwconv5x5_f32w_q8_plain(x, qd, act, out_scale)
+    _assert_q8_close(got, ref)
+    if act is None and out_scale is None:
+        assert torch.equal(got, ref)
 
 
 def test_row3_route_on_the_card(cuda):
