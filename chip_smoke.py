@@ -38,7 +38,9 @@ and for the int8 path:
   2b. kernels_q8_vs_plain: K4 conv3x3_q8, K5 conv1x1_q8 and K6 max_pool2_q8
      at every backbone shape of 640 px, batch 4 (random weights, random
      int8 maps): int8 outputs identical but for +-1 LSB on at most 1e-4 of
-     the elements, the float exit atol = rtol = 1e-5, pools identical
+     the elements, the float exit atol = rtol = 1e-5, pools identical; each
+     K4 line names the design the call took (k4_route: "wgmma" for a
+     stride-1 3x3 on int8 input, else "dp4a")
   4b. int8_e2e: golden weights, calibrated on the seeded uniform batch, at
      640 px, batch 2, the backbone region alone: the int8 kernel path vs the
      int8 plain path (region maps as above, raw maps atol = rtol = 1e-3,
@@ -51,12 +53,14 @@ and for the int8 path:
      as a report, the P3-P5 features (l29, l45, l61) against float
   5b. serving_int8: as 5 with --fast int8; launch counts of that run per
      forward: 36 K4, 76 K5, 3 K6, 18 K7, 1 K8 beside the float path's
-     12 / 6 / 6 / 1; serving_int8_backbone: the backbone region alone,
-     25 K4, 28 K5, 1 K6
+     12 / 6 / 6 / 1, and K4's by design, 33 on wgmma and 3 on dp4a (the
+     stem and the two PAN downsamples, stride 2); serving_int8_backbone:
+     the backbone region alone, 25 K4 (24 wgmma, 1 dp4a), 28 K5, 1 K6
   5c. kernels_neck_vs_plain: every int8 kernel call of layers 9-65 of one
      served int8 forward (batch 4, the real maps and weights, recorded on
      the way), K4 (stride 1 and 2), K5 (1-3 sections, int8 or f32 out), K6,
-     K7 and K8, against its plain version on the same inputs, as 2b
+     K7 and K8, against its plain version on the same inputs, as 2b (K4
+     lines naming their design)
   6b. profile of the three engines, in turns (float, int8 backbone, int8,
      and back)
   7b. times_q8: K4-K6 per backbone shape, and K4-K8 per distinct neck call
@@ -66,7 +70,8 @@ and for the int8 path:
      calls that compute the convs' sums exactly (K5: torch._int_mm of the
      materialised concat; K4: cuDNN's bf16 conv of the int8-valued map);
      summed per forward (the backbone apart too) and, for the neck, per
-     layer
+     layer; K4's sums also split by design (launches, ms, bound, the bf16
+     yardstick over the same calls), beside the dp4a-only design's ms
   8. served_ab: one served batch of 4, the four engines in turns (the
      three above and the bfloat16 one of 5d)
 
@@ -109,7 +114,8 @@ conv3x3_pm_q8 / conv1x1_pm_q8 on K4 / K5) and the "xla_q8" mode:
      within 0.15 max|ref| with a correlation above 0.99
   5e. serving_xla_q8: as 5, the float32 xla_q8 engine; launches per
      forward 24 conv3x3_pm_q8 and 28 conv1x1_pm_q8 (as many K4 and K5)
-     beside 12 / 6 / 6 / 1
+     beside 12 / 6 / 6 / 1; K4's by design 20 wgmma, 4 dp4a (each DER
+     block's st1 reads the float32 map)
   2d. kernels_q8_rest (after 5c): K13 / K14 at kernel_bench's 15 shapes and
      the JAX test's, batch 2, float32 / bfloat16 / int8 in, bfloat16 / int8
      out (K14 over three sections at the cv1 shapes); the pixel-major pair
@@ -124,7 +130,8 @@ conv3x3_pm_q8 / conv1x1_pm_q8 on K4 / K5) and the "xla_q8" mode:
      at batch 8 (bf16 in and out; cuDNN bf16 and f32 conv + bias + SiLU
      beside); the pixel-major pair over one xla_q8 served forward at batch
      4 (cuDNN f32 beside, and as in 7b torch._int_mm for conv1x1_pm_q8
-     and the bf16 conv for conv3x3_pm_q8); conv5x5_q8 over the 18
+     and the bf16 conv for conv3x3_pm_q8; conv3x3_pm_q8 split by K4's
+     design too); conv5x5_q8 over the 18
      block-diagonal calls (the dense F.conv2d of the same block-diagonal
      weights, f32 and bf16, cuDNN's f32 depthwise and K7 beside)
 
@@ -629,6 +636,39 @@ def call_case(torch, name, args):
                                          args["s_in"]))
 
 
+K4_ROUTES = ("wgmma", "dp4a")
+# K4's launches by design per forward (ops/kernels/conv_flat.py:k4_route):
+# the stride-1 3x3s on int8 input on the int8 tensor cores; the stem (float32
+# input, stride 2), the PAN downsamples (stride 2) and xla_q8's four st1s
+# (float32 input) on dp4a
+K4_ROUTES_PER_FORWARD = {"int8": {"wgmma": 33, "dp4a": 3},
+                         "int8_backbone": {"wgmma": 24, "dp4a": 1},
+                         "xla_q8": {"wgmma": 20, "dp4a": 4}}
+
+
+def k4_call(fn):
+    """(fn(), the K4 design that call launched: "wgmma", "dp4a", or None
+    for a call that launched no K4 or more than one)."""
+    from rep_yolo_tpu_torch.ops.kernels import conv_flat as KC
+
+    before = dict(KC.LAUNCHES_K4_ROUTE)
+    out = fn()
+    moved = [r for r in K4_ROUTES if KC.LAUNCHES_K4_ROUTE[r] != before[r]]
+    return out, moved[0] if len(moved) == 1 else None
+
+
+def route_rows(by_route: dict, launches: dict) -> dict:
+    """K4's (or row 11's) per-forward sums split by design: each design's
+    ms, bound and yardsticks over the calls that took it (``add_times`` /
+    ``add_yardsticks`` into ``by_route[design]``), beside the main path's
+    launches of that design."""
+    return {r: {"launches": launches.get(r, 0),
+                **({"bound_by": bound(a["bytes"], a["ops"], INT8_PEAK)[1]}
+                   if a else {}),
+                **{k: v for k, v in a.items() if k not in ("bytes", "ops")}}
+            for r, a in by_route.items()}
+
+
 def q8_diff(torch, got, ref, out_scale):
     """(max abs err in the output's float units, elements off by one LSB,
     elements off by more) of a kernel output against its plain version."""
@@ -716,13 +756,15 @@ def phase_kernels_q8(torch, dev, errs):
     rows = []
     for i, row in enumerate(backbone_q8_shapes()):
         kfn, pfn, _, out_s, _, _, _ = q8_case(torch, row, 4, dev, 100 + i)
-        got, ref = kfn(), pfn()
+        (got, route), ref = k4_call(kfn), pfn()
         torch.cuda.synchronize()
         err, off1, off_more = q8_diff(torch, got, ref, out_s)
         n = got.numel()
         r = {"shape": row[0], "kernel": row[1], "out": list(got.shape),
              "dtype": str(got.dtype), "max_abs_err": err,
              "lsb_off_by_1": off1, "lsb_off_by_more": off_more}
+        if row[1] == "conv3x3_q8":
+            r["route"] = route
         rows.append(r)
         if got.dtype == torch.int8:
             ok = off_more == 0 and off1 <= 1e-4 * n
@@ -1048,6 +1090,7 @@ def phase_serving(torch, dev, fast=None, neck=True, der_fast=None):
 
     from rep_yolo_tpu_torch.data.letterbox import letterbox_batch
     from rep_yolo_tpu_torch.models.region import Q8Region
+    from rep_yolo_tpu_torch.ops.kernels import conv_flat as KC
     from rep_yolo_tpu_torch.ops.kernels import launch_counts, \
         reset_launch_counts
     from rep_yolo_tpu_torch.serve import build_engine, make_server
@@ -1093,6 +1136,7 @@ def phase_serving(torch, dev, fast=None, neck=True, der_fast=None):
                 req, timeout=300).read()))
         torch.cuda.synchronize()
         counts = launch_counts()
+        k4 = dict(KC.LAUNCHES_K4_ROUTE)
     finally:
         srv.shutdown()
         srv.server_close()
@@ -1106,6 +1150,13 @@ def phase_serving(torch, dev, fast=None, neck=True, der_fast=None):
     want = {k: per_fwd.get(k, 0) * n_fwd for k in launch_counts()}
     if counts != want:
         raise AssertionError(f"launch counts {counts} != {want}")
+    engine_key = "xla_q8" if der_fast == "xla_q8" else None if fast is None \
+        else "int8" if neck else "int8_backbone"
+    want_k4 = {r: K4_ROUTES_PER_FORWARD.get(engine_key, {}).get(r, 0) * n_fwd
+               for r in K4_ROUTES}
+    if k4 != want_k4:
+        raise AssertionError(f"K4 launches by design {k4} != {want_k4}")
+    counts.update({f"conv3x3_q8@{r}": v for r, v in k4.items()})
     dets = []
     for imgs, resp in zip(requests, responses):
         if "detections" not in resp:
@@ -1447,6 +1498,7 @@ def phase_times_q8(torch, dev, counts, errs, calls):
     agg = {n: {} for n in Q8_KERNELS}
     per_shape = []
     backbone = {n: {} for n in Q8_KERNELS}
+    by_route = {r: {} for r in K4_ROUTES}      # K4's calls by design
     for i, row in enumerate(backbone_q8_shapes()):
         kfn, pfn, lib, _, nbytes, ops, extra = q8_case(torch, row, 4, dev,
                                                        200 + i)
@@ -1454,7 +1506,11 @@ def phase_times_q8(torch, dev, counts, errs, calls):
         time_yardsticks(torch, t, extra())
         t.update(zip(("bound_ms", "bound_by"), bound(nbytes, ops, INT8_PEAK)),
                  bytes=nbytes, ops=ops)
-        for a in (agg[row[1]], backbone[row[1]]):
+        sums = [agg[row[1]], backbone[row[1]]]
+        if row[1] == "conv3x3_q8":
+            t["route"] = k4_call(kfn)[1]
+            sums.append(by_route[t["route"]])
+        for a in sums:
             add_times(a, t, row[-1])
             add_yardsticks(a, t, row[-1], row[0])
         per_shape.append({"shape": row[0], "kernel": row[1],
@@ -1473,12 +1529,16 @@ def phase_times_q8(torch, dev, counts, errs, calls):
             t.update(zip(("bound_ms", "bound_by"),
                          bound(nbytes, ops, INT8_PEAK)),
                      bytes=nbytes, ops=ops)
+            if name == "conv3x3_q8":
+                t["route"] = k4_call(kfn)[1]
             timed[sig] = {"kernel": name, "signature": str(sig[1:]),
                           "calls_per_forward": 0, **t}
         row = timed[sig]
         row["calls_per_forward"] += 1
-        add_times(agg[name], row)
-        add_yardsticks(agg[name], row, 1, f"l{layer} {sig[1:]}")
+        for a in [agg[name]] + ([by_route[row["route"]]]
+                                if name == "conv3x3_q8" else []):
+            add_times(a, row)
+            add_yardsticks(a, row, 1, f"l{layer} {sig[1:]}")
         add_times(by_layer.setdefault((layer, name), {}), row)
     reset_launch_counts()
     kernels = []
@@ -1495,6 +1555,12 @@ def phase_times_q8(torch, dev, counts, errs, calls):
         if name == "spp_pools_q8":
             row["library_call"] = ("a sequence: three F.max_pool2d and a "
                                    "torch.cat on the f32 map")
+        if name == "conv3x3_q8":
+            routes = route_rows(by_route, {
+                r: counts[f"conv3x3_q8@{r}"] for r in K4_ROUTES})
+            row["routes"] = routes
+            row["routes_ran"] = [r for r in K4_ROUTES
+                                 if routes[r]["launches"] > 0]
         copy_yardsticks(row, agg[name])
         kernels.append(row)
     layers = [{"layer": layer, "kernel": name,
@@ -1523,9 +1589,9 @@ def phase_times_q8(torch, dev, counts, errs, calls):
           "backbone_per_forward": {
               n: {k: v for k, v in a.items() if k not in ("bytes", "ops")}
               for n, a in backbone.items() if a},
-          "previous_design_ms": {"conv1x1_q8": PREVIOUS_MS["conv1x1_q8"],
-                                 "conv1x1_q8_backbone":
-                                     PREVIOUS_MS["conv1x1_q8_backbone"]}})
+          "conv3x3_q8_by_route": kernels[0]["routes"],
+          "previous_design_ms": {k: PREVIOUS_MS[k] for k in (
+              "conv1x1_q8", "conv1x1_q8_backbone", "conv3x3_q8")}})
     return kernels
 
 
@@ -1540,7 +1606,7 @@ def phase_kernels_neck(torch, engine, x, errs):
         if layer < NECK_FIRST:
             continue
         kfn, pfn, _, out_s, _, _, sig, _ = call_case(torch, name, args)
-        got, ref = kfn(), pfn()
+        (got, route), ref = k4_call(kfn), pfn()
         torch.cuda.synchronize()
         err, off1, off_more = q8_diff(torch, got, ref, out_s)
         n = got.numel()
@@ -1554,6 +1620,8 @@ def phase_kernels_neck(torch, engine, x, errs):
              "out": list(got.shape), "dtype": str(got.dtype),
              "max_abs_err": err, "lsb_off_by_1": off1,
              "lsb_off_by_more": off_more}
+        if name == "conv3x3_q8":
+            r["route"] = route
         rows.append(r)
         if not ok:
             raise AssertionError(f"{name} differs from its plain version: "
@@ -2010,11 +2078,13 @@ def phase_kernels_q8_rest(torch, dev, errs, neck_calls):
     rows = []
 
     def check(name, kfn, pfn, out_s, **info):
-        got, ref = kfn(), pfn()
+        (got, route), ref = k4_call(kfn), pfn()
         torch.cuda.synchronize()
         err, ok, detail = q8_rest_gate(torch, got, ref, out_s)
         r = {"kernel": name, **info, "out": list(got.shape),
              "dtype": str(got.dtype), "max_abs_err": err, **detail}
+        if route is not None:
+            r["route"] = route
         rows.append(r)
         if not ok:
             raise AssertionError(f"{name} differs from its plain version: "
@@ -2335,6 +2405,7 @@ def phase_times_q8_rest(torch, dev, counts, errs, dw, xlq_engine, x4):
     xi = x4.to(xlq_engine.dtype)
     xlq_engine.infer(xi)
     timed: dict = {}
+    by_route = {r: {} for r in K4_ROUTES}      # row 11's calls by design
     for name, a in record_pm_calls(torch, xlq_engine.model, xi):
         out_s = a["out_scale"]
         if name == "conv3x3_pm_q8":
@@ -2367,11 +2438,15 @@ def phase_times_q8_rest(torch, dev, counts, errs, dw, xlq_engine, x4):
             ops = 2.0 * npix * qw.c_out * cin * k * k
             t.update(zip(("bound_ms", "bound_by"),
                          bound(nbytes, ops, INT8_PEAK)), bytes=nbytes, ops=ops)
+            if name == "conv3x3_pm_q8":
+                t["route"] = k4_call(lambda: kfn(**a))[1]
             row = timed[sig] = {"kernel": name, "signature": str(sig[1:]),
                                 "calls_per_forward": 0, **t}
         row["calls_per_forward"] += 1
-        add_times(agg[name], row)
-        add_yardsticks(agg[name], row, 1, sig[1:])
+        for s_ in [agg[name]] + ([by_route[row["route"]]]
+                                 if name == "conv3x3_pm_q8" else []):
+            add_times(s_, row)
+            add_yardsticks(s_, row, 1, sig[1:])
     # row 9, dense: the 18 block-diagonal calls against the dense conv of the
     # same weights (f32, TF32 off; bf16 beside), the depthwise conv and K7
     dense_rows, extra = [], dict.fromkeys(DENSE_EXTRA_KEYS, 0.0)
@@ -2430,6 +2505,12 @@ def phase_times_q8_rest(torch, dev, counts, errs, dw, xlq_engine, x4):
             row.update(extra)
         else:
             copy_yardsticks(row, agg[name])
+        if name == "conv3x3_pm_q8":
+            routes = route_rows(by_route, {
+                r: counts[f"conv3x3_q8@{r}"] for r in K4_ROUTES})
+            row["routes"] = routes
+            row["routes_ran"] = [r for r in K4_ROUTES
+                                 if routes[r]["launches"] > 0]
         kernels.append(row)
     emit({"phase": "times_q8_rest", "ok": True,
           "note": f"K13 / K14 summed over kernel_bench's 3x3 / 1x1 shapes at "
@@ -2448,9 +2529,11 @@ def phase_times_q8_rest(torch, dev, counts, errs, dw, xlq_engine, x4):
           "per_forward": {n: {k: v for k, v in agg[n].items()} for n in names},
           "checks_k13_k14": checks, "tolerance": Q8_REST_TOL,
           "dense5x5_yardsticks": extra,
+          "conv3x3_pm_q8_by_route": kernels[3]["routes"],
           "previous_design_ms": {
               k: PREVIOUS_MS[k] for k in ("conv1x1_cmajor_q8",
-                                          "conv1x1_pm_q8")},
+                                          "conv1x1_pm_q8", "conv3x3_q8",
+                                          "conv3x3_pm_q8")},
           "per_shape": per_shape, "pm_calls": list(timed.values()),
           "dense5x5": dense_rows})
     return kernels
@@ -2471,15 +2554,17 @@ WGRAD_SHAPES = [(8, 20, 20, 512, 512, 2), (8, 40, 40, 128, 64, 2),
                 (8, 20, 20, 512, 1024, 1)]
 WGRAD_PER_STEP = sum(s[-1] for s in WGRAD_SHAPES)
 # ms of the designs that K9 (direct FFMA sum), K14 (32-channel M tiles,
-# staged a value at a time), K5 (dp4a, 32 output channels a block) and K12
-# (a byte a staging load) had before their current ones, as this script
-# measured them on one H100 80GB HBM3 at 700 W (PERF.md, kernel table): K9
-# per train step, K14 over kernel_bench's 1x1 shapes at batch 8, K5 per
-# served int8 forward at batch 4 (and its 28 backbone calls), row 12 per
-# xla_q8 forward at batch 4, K12 per forward at batch 8
+# staged a value at a time), K5 (dp4a, 32 output channels a block), K12
+# (a byte a staging load) and K4 (dp4a for every call, before its int8
+# wgmma route) had before their current ones, as this script measured them
+# on one H100 80GB HBM3 at 700 W (PERF.md, kernel table): K9 per train
+# step, K14 over kernel_bench's 1x1 shapes at batch 8, K5 and K4 per
+# served int8 forward at batch 4 (and K5's 28 backbone calls), rows 12 and
+# 11 per xla_q8 forward at batch 4, K12 per forward at batch 8
 PREVIOUS_MS = {"wgrad3x3": 6.166, "conv1x1_cmajor_q8": 3.312,
                "conv1x1_q8": 3.949, "conv1x1_q8_backbone": 1.445,
-               "conv1x1_pm_q8": 1.330, "dwconv5x5_f32w_q8": 0.634}
+               "conv1x1_pm_q8": 1.330, "dwconv5x5_f32w_q8": 0.634,
+               "conv3x3_q8": 3.946, "conv3x3_pm_q8": 2.406}
 # K10 / K11 per forward at batch 4 and 128 in their mma.sync design, before
 # wgmma, as this script measured them on the same card
 PREVIOUS_MS_CM = {"conv3x3_cmajor": {"4": 2.326, "128": 51.39},
@@ -3435,7 +3520,9 @@ def main(argv=None) -> int:
         rest_counts = {**{k: bench_counts[k] for k in (
             "conv3x3_cmajor_q8", "conv1x1_cmajor_q8")},
             "conv5x5_q8": bd_counts["conv5x5_q8"],
-            **{k: counts_xlq[k] for k in PM_KERNELS}}
+            **{k: counts_xlq[k] for k in PM_KERNELS},
+            **{f"conv3x3_q8@{r}": counts_xlq[f"conv3x3_q8@{r}"]
+               for r in K4_ROUTES}}
         kernels += phase_times_q8_rest(torch, dev, rest_counts, errs, dw,
                                        engine_xlq, x)
         del dw

@@ -7,12 +7,12 @@
 // _conv1_pool_flat_q8_kernel): a 1x1 conv over 1-3 input sections (a concat
 // that is never materialised), optionally followed by a 2x2/s2 max pool.
 // K4 with 5x5 taps (KS = 5, halo 2, stride 1) replaces the dense case of
-// conv_flat.py:conv5x5_flat_q8 (_conv5_flat_q8_kernel / _whole): the same
+// conv_flat.py:conv5x5_flat_q8 (_conv5_flat_q8_kernel / _whole): the dp4a
 // kernel, templated on its tap count.
 // K4 and K5 also carry the pixel-major contract of conv_pm.py:conv3x3_pm_q8
 // and conv1x1_pm_q8 (ops/kernels/conv_pm.py): pixel-major (B, H*W, C) is
 // this NHWC layout, so those rows need only ReLU (q8_common.cuh), a bfloat16
-// store beside the float32 and int8 ones, and float input for K5.
+// store beside the float32 and int8 ones, and float input for K4 and K5.
 //
 // Layout: channels-last int8 (B, H, W, C), C a multiple of 4. K4 also takes
 // float32 input (any C) and quantizes it while staging it, padding the
@@ -24,11 +24,19 @@
 // clip(rint(y * (1/out_scale))), float32, or bfloat16 rounded once from the
 // float32 value (the JAX y.astype(bf16)). With the pool, the max of the
 // window's four f32 values is requantized: requant is monotone, so this equals
-// conv, requant, then pool. The s32 sums are exact in any order.
+// conv, requant, then pool. The s32 sums are exact in any order, so both K4
+// designs give the same values bit for bit.
 //
 // Bound on this card: at the served shapes the int8 work is 2 * MACs ops over
 // the 1,979 TOP/s of the int8 tensor cores, and the bytes are the int8
 // activations; bytes bound every K5 call and most K4 calls.
+//
+// K4 has two designs; the wrapper (ops/kernels/conv_flat.py:k4_route) picks
+// one by shape alone. A stride-1 3x3 on int8 input (the DER blocks' st1-st6,
+// the neck's stride-1 3x3s, the xla_q8 blocks' int8 3x3s) takes the int8
+// tensor cores (conv3x3_q8_wgmma_kernel); stride 2 (the stem, the PAN
+// downsamples), float32 input and the dense 5x5 take dp4a
+// (conv3x3_q8_kernel).
 //
 // K4 (dp4a): the weights arrive packed by the wrapper, per block of TO = 32
 // output channels and chunk of KC input channels, as [tap][KC/4][TO] words,
@@ -40,14 +48,44 @@
 // words) and 8 weight words (two broadcast 16-byte loads) for 32 dp4a. The
 // input tile is stored pixel-major with an odd word pitch, so both the
 // staging writes and the lane reads are free of bank conflicts. The dp4a
-// pipe runs at about 1/16 of the int8 tensor cores; K4's move onto K5's
-// wgmma machinery (taps as descriptor offsets, as K10 does them) is next.
+// pipe runs at about 1/16 of the int8 tensor cores.
 //
 // K4 at stride 2 also runs on int8 input: the PAN downsamples of the neck
 // (neck_flat.py:conv3x3s2_flat_q8, which the TPU reached by space-to-depth
 // and a stride-1 kernel on a {-1, 0} tap lattice). Output pixel (i, j) reads
 // input rows 2i-1..2i+1 and columns 2j-1..2j+1: pad 1 on top and left, which
 // for even H, W is the lattice's SAME conv.
+//
+// K4 (int8 tensor cores, stride 1, int8 input): an implicit GEMM on
+// wgmma.mma_async m64nNk32.s32.s8.s8, pixels on M, output channels on N,
+// both operands K-major in shared memory without swizzle, as K5 below.
+// - A block computes th output rows x tw columns over MB = 128 MI
+//   positions m = r sw + c, sw = tw + 2 (the halo'd row width; c >= tw, two
+//   positions a row, are computed and dropped, as K10 in conv_kernel.cu).
+//   tw (k4_route) is the width that wastes the fewest positions over the
+//   map, with at least two rows a tile.
+// - Per chunk of 32 input channels (two 16-channel groups) the block stages
+//   the halo'd tile, (th + 2) x sw pixels, once: 16 channels of a pixel are
+//   one 16-byte core-matrix row, copied as they are by cp.async (16, 8 or 4
+//   bytes a copy, VEC, the largest that divides C and x's address), each
+//   group a plane of pl rows (pl = 4 mod 8: a quarter-warp's stores, four
+//   pixels x both groups, fall on distinct banks). Pixels outside the image
+//   are staged as zeros by the zero-filling cp.async, in every chunk, so a
+//   reused stage holds no stale halo (the border taps' weights are not 0).
+//   Channels past C in the last chunk are not copied: the packed weights
+//   (QConv.packed_wgmma3, [chunk][tap][O/8][2][8][16]) are zero there, and
+//   past O.
+// - Tap (u, v) is a descriptor offset: position m reads staged position
+//   m + u sw + v, a 16-byte row, so every tap's A descriptor starts on a
+//   16-byte boundary. A chunk is nine k32 steps, one a tap, on one staged
+//   tile; its weights (9 x BN x 32 bytes) are staged beside it.
+// - BN = 24, 48, 64 or 128 output channels a block, the smallest that holds
+//   O (128 above it: four stages of 256 channels' nine taps would not fit),
+//   narrower down to 64 where that grid is under two blocks an SM. MI = 2
+//   (256 positions a block) at every BN: with one 64-row tile a warpgroup
+//   (K5's MI = 1 at BN 64 / 128), ptxas serialized the nine taps' wgmmas
+//   (C7515). K5's ring of four stages, its wait shape and its three-pass
+//   epilogue (wg_sums / wg_epilogue / wg_store, shared by both kernels).
 //
 // K5 (int8 tensor cores): an implicit GEMM on wgmma.mma_async
 // m64nNk32.s32.s8.s8 (wgmma.cuh), pixels on M and output channels on N, both
@@ -257,12 +295,131 @@ conv3x3_q8_kernel(const void* __restrict__ x, const int32_t* __restrict__ wpk,
 }
 
 // ---------------------------------------------------------------------------
-// K5: 1x1 conv over up to 3 sections, optional 2x2/s2 max pool, on wgmma
+// The wgmma kernels' shared parts (K4 on wgmma, K5)
 // ---------------------------------------------------------------------------
 
-constexpr int WG_NT = 256;     // K5: two warpgroups
-constexpr int NS = 4;          // K5: stages of the ring
+constexpr int WG_NT = 256;     // two warpgroups
+constexpr int NS = 4;          // stages of the ring
 constexpr int SMEM_MAX = 232448;
+
+// Bytes of an output value, by out_mode.
+__host__ __device__ __forceinline__ int out_bytes(int out_mode) {
+    return out_mode == OUT_F32 ? 4 : out_mode == OUT_BF16 ? 2 : 1;
+}
+
+// Pitch (words) of the s32 sums tile, off 0 and 16 words mod 32: a warp's
+// 8-byte stores take two wavefronts.
+__host__ __device__ constexpr int sums_pitch(int bn) {
+    return (bn % 32 == 8 || bn % 32 == 24) ? bn : bn + 8;
+}
+
+// Bytes of the per-channel scale and bias at the front of shared memory.
+__host__ __device__ constexpr int epi_bytes(int bn) {
+    return (8 * bn + 127) / 128 * 128;
+}
+
+// Epilogue pass 1: the warpgroups' s32 fragments into sums[m][pw], m the
+// block's row (MB = 128 MI rows).
+template <int BN, int MI>
+__device__ __forceinline__ void wg_sums(int32_t (&acc)[MI][BN / 2],
+                                        int32_t* sums, int pw, int tid) {
+    const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+    const int g4 = lane >> 2, t4 = lane & 3;
+#pragma unroll
+    for (int i = 0; i < MI; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            const int m = (wg * MI + i) * 64 + warp * 16 + g4 + 8 * h;
+#pragma unroll
+            for (int jn = 0; jn < BN / 8; ++jn)
+                *reinterpret_cast<int2*>(sums + m * pw + 8 * jn + 2 * t4) =
+                    make_int2(acc[i][4 * jn + 2 * h], acc[i][4 * jn + 2 * h + 1]);
+        }
+}
+
+// Epilogue pass 2 (kept out of the unrolled code): rows 0 .. nrow - 1 and
+// columns 0 .. nc - 1 of the sums (pooled: row r the max over sums rows
+// 4 r .. 4 r + 3) through the float epilogue, in the output type, into out
+// (opitch bytes a row). A thread keeps one column, its scale and bias in
+// registers, and steps over rows; consecutive threads take consecutive
+// columns.
+__device__ __forceinline__ void wg_epilogue(const int32_t* sums, int pw,
+                                            int pool, const float* s_sw,
+                                            const float* s_b, uint8_t* out,
+                                            int opitch, int nrow, int nc,
+                                            int act, float inv_out,
+                                            int out_mode, int tid) {
+    const int es = out_bytes(out_mode);
+    const int rstep = WG_NT / nc, c = tid % nc;
+    if (tid >= rstep * nc) return;
+    const float sws = s_sw[c], bc = s_b[c];
+#pragma unroll 4
+    for (int r = tid / nc; r < nrow; r += rstep) {
+        const int32_t* sr = sums + (pool ? 4 * r : r) * pw + c;
+        float v = epi_s(sr[0], sws, bc, act);
+        if (pool) {
+#pragma unroll
+            for (int j = 1; j < 4; ++j)
+                v = fmaxf(v, epi_s(sr[j * pw], sws, bc, act));
+        }
+        uint8_t* d = out + r * opitch + c * es;
+        if (out_mode == OUT_F32)
+            *reinterpret_cast<float*>(d) = v;
+        else if (out_mode == OUT_BF16)
+            *reinterpret_cast<__nv_bfloat16*>(d) = __float2bfloat16_rn(v);
+        else
+            *reinterpret_cast<int8_t*>(d) = (int8_t)quant1(v, inv_out);
+    }
+}
+
+// Epilogue pass 3: runs of out rows to y. Run s (< nrun) is out rows
+// first(s) .. first(s) + len - 1 (opitch bytes apart, rowb bytes used each),
+// written from dst(s) on, ystride bytes apart. al16: every run starts on a
+// 16-byte boundary in out and in y. Where the rows of a run are contiguous on
+// both sides (a block that holds all O channels), a run is one range copied
+// by 16 bytes; else rows by 16 bytes where rows and strides allow, else
+// bytes.
+template <typename First, typename Dst>
+__device__ __forceinline__ void wg_store(const uint8_t* out, int opitch,
+                                         int rowb, int ystride, int nrun,
+                                         int len, bool al16, First first,
+                                         Dst dst, int tid) {
+    if (opitch == rowb && ystride == rowb && al16) {
+        const int total = len * rowb, per = (total + 15) / 16;
+        for (int idx = tid; idx < nrun * per; idx += WG_NT) {
+            const int s = idx / per, f = 16 * (idx - s * per);
+            uint8_t* d = dst(s);
+            const uint8_t* src = out + first(s) * opitch;
+            if (f + 16 <= total)
+                *reinterpret_cast<uint4*>(d + f) =
+                    *reinterpret_cast<const uint4*>(src + f);
+            else
+                for (int q = f; q < total; ++q) d[q] = src[q];
+        }
+    } else if (al16 && rowb % 16 == 0 && opitch % 16 == 0 &&
+               ystride % 16 == 0) {
+        const int per = rowb / 16, n = len * per;
+        for (int idx = tid; idx < nrun * n; idx += WG_NT) {
+            const int s = idx / n, rem = idx - s * n;
+            const int r = rem / per, k = rem - r * per;
+            *reinterpret_cast<uint4*>(dst(s) + (long long)r * ystride + 16 * k) =
+                *reinterpret_cast<const uint4*>(out + (first(s) + r) * opitch
+                                                + 16 * k);
+        }
+    } else {
+        const int n = len * rowb;
+        for (int idx = tid; idx < nrun * n; idx += WG_NT) {
+            const int s = idx / n, rem = idx - s * n;
+            const int r = rem / rowb, k = rem - r * rowb;
+            dst(s)[(long long)r * ystride + k] =
+                out[(first(s) + r) * opitch + k];
+        }
+    }
+}
+
+// ---------------------------------------------------------------------------
+// K5: 1x1 conv over up to 3 sections, optional 2x2/s2 max pool, on wgmma
+// ---------------------------------------------------------------------------
 
 struct Sections {
     const void* x[3];      // (B, H, W, C_s) int8 or float32
@@ -288,13 +445,11 @@ conv1x1_q8_wgmma_kernel(Sections secs, const uint8_t* __restrict__ w,
     constexpr int ABYTES = NG * PL * 16;
     constexpr int STAGE = ABYTES + KS * BN * 32;
     constexpr int IPT = MB * NG / WG_NT;          // staging rows a thread
-    constexpr int EPB = (8 * BN + 127) / 128 * 128;
     extern __shared__ __align__(128) uint8_t smem[];
     float* s_sw = reinterpret_cast<float*>(smem);
     float* s_b = s_sw + BN;
-    uint8_t* ring = smem + EPB;
-    const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3;
-    const int lane = tid & 31;
+    uint8_t* ring = smem + epi_bytes(BN);
+    const int tid = threadIdx.x, wg = tid >> 7;
     const long long r0 = (long long)blockIdx.x * MB;
     const int j0 = blockIdx.y * (BN / 8), n0 = 8 * j0;
     const int nchunks = (nsteps + KS - 1) / KS;
@@ -448,28 +603,15 @@ conv1x1_q8_wgmma_kernel(Sections secs, const uint8_t* __restrict__ w,
         for (int k = 0; k < BN / 2; ++k) reg_fence(acc[i][k]);
     __syncthreads();
 
-    // epilogue, three passes over shared memory (kept out of the unrolled
-    // code): the s32 sums into a tile [MB][PW] (PW off 0 and 16 words mod
-    // 32: a warp's 8-byte stores take two wavefronts); then, a value a
-    // thread, consecutive threads on consecutive columns, the epilogue and
-    // (pooled) the max of rows 4 q .. 4 q + 3, in the output type into the
-    // out tile; then 16-byte stores
-    constexpr int PW = (BN % 32 == 8 || BN % 32 == 24) ? BN : BN + 8;
+    // epilogue, three passes over shared memory: the s32 sums into a tile
+    // [MB][PW]; the float epilogue (pooled: with the max of rows 4 q ..
+    // 4 q + 3) into the out tile; one run of rows to y
+    constexpr int PW = sums_pitch(BN);
     int32_t* sums = reinterpret_cast<int32_t*>(ring);
-    const int g4 = lane >> 2, t4 = lane & 3;
-#pragma unroll
-    for (int i = 0; i < MI; ++i)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-            const int m = (wg * MI + i) * 64 + warp * 16 + g4 + 8 * h;
-#pragma unroll
-            for (int jn = 0; jn < BN / 8; ++jn)
-                *reinterpret_cast<int2*>(sums + m * PW + 8 * jn + 2 * t4) =
-                    make_int2(acc[i][4 * jn + 2 * h], acc[i][4 * jn + 2 * h + 1]);
-        }
+    wg_sums<BN, MI>(acc, sums, PW, tid);
     __syncthreads();
     const int nc = min(BN, O - n0);
-    const int es = out_mode == OUT_F32 ? 4 : out_mode == OUT_BF16 ? 2 : 1;
+    const int es = out_bytes(out_mode);
     const long long o0 = pool ? r0 / 4 : r0;
     const int nrow = (int)min((long long)(pool ? MB / 4 : MB),
                               (pool ? rows / 4 : rows) - o0);
@@ -478,54 +620,194 @@ conv1x1_q8_wgmma_kernel(Sections secs, const uint8_t* __restrict__ w,
     const bool in_place = es == 4 && !pool;
     uint8_t* out = in_place ? ring : ring + MB * PW * 4;
     const int opitch = in_place ? PW * 4 : nc * es;       // bytes a row
-    // a thread keeps one column (its scale and bias in registers) and
-    // steps over rows; consecutive threads take consecutive columns
-    const int rstep = WG_NT / nc, c = tid % nc;
-    if (tid < rstep * nc) {
-        const float sws = s_sw[c], bc = s_b[c];
-#pragma unroll 4
-        for (int r = tid / nc; r < nrow; r += rstep) {
-            const int32_t* sr = sums + (pool ? 4 * r : r) * PW + c;
-            float v = epi_s(sr[0], sws, bc, act);
-            if (pool) {
-#pragma unroll
-                for (int j = 1; j < 4; ++j)
-                    v = fmaxf(v, epi_s(sr[j * PW], sws, bc, act));
-            }
-            uint8_t* d = out + r * opitch + c * es;
-            if (out_mode == OUT_F32)
-                *reinterpret_cast<float*>(d) = v;
-            else if (out_mode == OUT_BF16)
-                *reinterpret_cast<__nv_bfloat16*>(d) = __float2bfloat16_rn(v);
-            else
-                *reinterpret_cast<int8_t*>(d) = (int8_t)quant1(v, inv_out);
-        }
-    }
+    wg_epilogue(sums, PW, pool, s_sw, s_b, out, opitch, nrow, nc, act,
+                inv_out, out_mode, tid);
     __syncthreads();
-    const int rowb = nc * es;
+    // y's rows from o0 on (16-byte aligned: o0 is a multiple of 32)
     uint8_t* yb = static_cast<uint8_t*>(y) + (o0 * O + n0) * es;
-    if (nc == O && opitch == rowb) {
-        // the block's rows are one contiguous range of y (16-byte aligned:
-        // o0 is a multiple of 32) and of the out tile
-        const int total = nrow * rowb;
-        for (int f = 16 * tid; f + 16 <= total; f += 16 * WG_NT)
-            *reinterpret_cast<uint4*>(yb + f) =
-                *reinterpret_cast<const uint4*>(out + f);
-        for (int f = (total & ~15) + tid; f < total; f += WG_NT) yb[f] = out[f];
-    } else if (rowb % 16 == 0 && opitch % 16 == 0 && (O * es) % 16 == 0 &&
-               (n0 * es) % 16 == 0) {
-        const int per = rowb / 16;
-        for (int idx = tid; idx < nrow * per; idx += WG_NT) {
-            const int r = idx / per, k = idx - r * per;
-            *reinterpret_cast<uint4*>(yb + (long long)r * O * es + 16 * k) =
-                *reinterpret_cast<const uint4*>(out + r * opitch + 16 * k);
-        }
-    } else {
-        for (int idx = tid; idx < nrow * rowb; idx += WG_NT) {
-            const int r = idx / rowb, k = idx - r * rowb;
-            yb[(long long)r * O * es + k] = out[r * opitch + k];
-        }
+    wg_store(out, opitch, nc * es, O * es, 1, nrow, (n0 * es) % 16 == 0,
+             [](int) { return 0; }, [&](int) { return yb; }, tid);
+}
+
+// ---------------------------------------------------------------------------
+// K4 on wgmma: 3x3, stride 1, pad 1, int8 input
+// ---------------------------------------------------------------------------
+
+// The plane pitch (16-byte rows) of a K4 stage: the taps reach MB + 2 sw + 2
+// staged positions; rounded up to 4 mod 8, so a quarter-warp's staging
+// stores (four pixels x the two groups) fall on distinct banks.
+__host__ __device__ __forceinline__ int k4_pitch(int mb, int sw) {
+    const int p = mb + 2 * sw + 2;
+    return p + ((4 - p) & 7);
+}
+
+// x (B, H, W, C) int8, C a multiple of VEC; w QConv.packed_wgmma3:
+// [chunk][tap][og][2][8][16] (chunk = 32 input channels, two groups of 16;
+// zeros past C and past O). grid (tiles, ceil(O / BN), B). A block computes
+// output rows [y0, y0 + th) x columns [x0, x0 + tw) for BN output channels
+// over MB = 128 MI positions m = r sw + c (sw = tw + 2; c < tw and r < th
+// kept). A stage holds the chunk's two groups, each a plane of pl 16-byte
+// rows (staged position p = rr sw + cc holds pixel (y0 - 1 + rr, x0 - 1 +
+// cc), zeros outside the image), then the chunk's weights, 9 taps x BN x 32
+// bytes.
+template <int BN, int MI, int VEC>
+__global__ void __launch_bounds__(WG_NT, (BN * MI <= 128) ? 2 : 1)
+conv3x3_q8_wgmma_kernel(const int8_t* __restrict__ x,
+                        const uint8_t* __restrict__ w,
+                        const float* __restrict__ s_w,
+                        const float* __restrict__ bias, void* __restrict__ y,
+                        int H, int W, int C, int O, int og, int nchunks,
+                        int tw, int th, int tiles_x, float s_in, float inv_out,
+                        int act, int out_mode) {
+    constexpr int MB = 128 * MI, P = 16 / VEC;
+    // copies a thread: (th + 2) sw <= 2 MB staged positions (th >= 2) x two
+    // groups x P copies, over WG_NT threads
+    constexpr int IPT = 2 * P * MI;
+    constexpr int PPI = WG_NT / (2 * P);          // positions an iteration
+    extern __shared__ __align__(128) uint8_t smem[];
+    float* s_sw = reinterpret_cast<float*>(smem);
+    float* s_b = s_sw + BN;
+    uint8_t* ring = smem + epi_bytes(BN);
+    const int sw = tw + 2, pl = k4_pitch(MB, sw);
+    const int abytes = 2 * pl * 16, stage = abytes + 9 * BN * 32;
+    const int tid = threadIdx.x, wg = tid >> 7;
+    const int y0 = (blockIdx.x / tiles_x) * th;
+    const int x0 = (blockIdx.x % tiles_x) * tw;
+    const int j0 = blockIdx.y * (BN / 8), n0 = 8 * j0, b = blockIdx.z;
+
+    for (int i = tid; i < BN; i += WG_NT) {      // s_w * s_in, the bias
+        s_sw[i] = n0 + i < O ? __fmul_rn(s_w[n0 + i], s_in) : 0.0f;
+        s_b[i] = n0 + i < O ? bias[n0 + i] : 0.0f;
     }
+    // this thread copies VEC bytes at byte cofs of a chunk's 32 (group
+    // cofs / 16) for staged positions tid / (2 P) + it PPI (consecutive
+    // lanes: consecutive bytes of a pixel, then the next pixel)
+    const int cofs = (tid % (2 * P)) * VEC;
+    const int npos = (th + 2) * sw;
+    int pix[IPT];          // pixel index, -1 outside the image, -2 no copy
+#pragma unroll
+    for (int it = 0; it < IPT; ++it) {
+        const int p = tid / (2 * P) + it * PPI;
+        const int rr = p / sw, cc = p - rr * sw;
+        const int iy = y0 - 1 + rr, ix = x0 - 1 + cc;
+        pix[it] = p >= npos ? -2
+                  : (iy >= 0 && iy < H && ix >= 0 && ix < W)
+                      ? (b * H + iy) * W + ix : -1;
+    }
+
+    auto stage_in = [&](int ch, int st) {
+        const int c0 = ch * 32 + cofs;
+        if (c0 >= C) return;     // past C: zero weights, any bytes will do
+        uint8_t* dst = ring + st * stage + (cofs >> 4) * pl * 16 + (cofs & 15);
+#pragma unroll
+        for (int it = 0; it < IPT; ++it) {
+            if (pix[it] == -2) continue;
+            const int p = tid / (2 * P) + it * PPI;
+            const bool in = pix[it] >= 0;
+            cp_async_zfill<VEC>(dst + p * 16,
+                                in ? x + (long long)pix[it] * C + c0 : x, in);
+        }
+    };
+    auto weights = [&](int ch, int st) {
+        uint8_t* d = ring + st * stage + abytes;
+        for (int e = tid; e < 9 * BN * 2; e += WG_NT) {
+            const int q = e & 15, jj = (e >> 4) % (BN / 8);
+            const int tap = (e >> 4) / (BN / 8);
+            if (j0 + jj < og)
+                cp_async16(d + (tap * (BN / 8) + jj) * 256 + q * 16,
+                           w + ((long long)(ch * 9 + tap) * og + j0 + jj) * 256
+                               + q * 16);
+        }
+    };
+
+    int32_t acc[MI][BN / 2];
+#pragma unroll
+    for (int i = 0; i < MI; ++i)
+#pragma unroll
+        for (int k = 0; k < BN / 2; ++k) acc[i][k] = 0;
+
+    // chunk 0 staged, chunk 1's copies in flight
+    stage_in(0, 0);
+    weights(0, 0);
+    cp_async_commit();
+    if (nchunks > 1) {
+        stage_in(1, 1);
+        weights(1, 1);
+        cp_async_commit();
+        cp_async_wait<1>();
+    } else {
+        cp_async_wait<0>();
+    }
+    fence_proxy_async();
+    __syncthreads();
+    for (int ch = 0; ch < nchunks; ++ch) {
+        const int st = ch % NS;
+        const uint32_t a0 = smem_addr(ring + st * stage), b0 = a0 + abytes;
+#pragma unroll
+        for (int i = 0; i < MI; ++i)
+#pragma unroll
+            for (int k = 0; k < BN / 2; ++k) reg_fence(acc[i][k]);
+        wgmma_fence();
+        // the nine taps, one k32 step each (both groups of the chunk)
+#pragma unroll
+        for (int tap = 0; tap < 9; ++tap) {
+            const int shift = (tap / 3) * sw + tap % 3;
+            const uint64_t db = gmma_desc(b0 + tap * BN * 32, 128, 256);
+#pragma unroll
+            for (int i = 0; i < MI; ++i) {
+                const int m = (wg * MI + i) * 64 + shift;
+                wgmma_s8<BN>(acc[i], gmma_desc(a0 + m * 16, pl * 16, 128), db);
+            }
+        }
+        wgmma_commit();
+#pragma unroll
+        for (int i = 0; i < MI; ++i)
+#pragma unroll
+            for (int k = 0; k < BN / 2; ++k) reg_fence(acc[i][k]);
+        // K5's wait shape (see there)
+        if (ch + 2 < nchunks) {
+            stage_in(ch + 2, (ch + 2) % NS);
+            weights(ch + 2, (ch + 2) % NS);
+            cp_async_commit();
+            cp_async_wait<1>();      // chunk ch + 1 has landed
+        } else {
+            cp_async_wait<0>();
+        }
+        fence_proxy_async();
+        wgmma_wait<1>();             // chunk ch - 1's products are done
+        __syncthreads();
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < MI; ++i)
+#pragma unroll
+        for (int k = 0; k < BN / 2; ++k) reg_fence(acc[i][k]);
+    __syncthreads();
+
+    // epilogue as K5's: the sums; the float epilogue of the positions of
+    // the rows inside the image (the dropped ones too, in place for
+    // float32); then tile row r's columns inside the image, one run each
+    constexpr int PW = sums_pitch(BN);
+    int32_t* sums = reinterpret_cast<int32_t*>(ring);
+    wg_sums<BN, MI>(acc, sums, PW, tid);
+    __syncthreads();
+    const int nc = min(BN, O - n0);
+    const int es = out_bytes(out_mode);
+    const int nr = min(th, H - y0), nx = min(tw, W - x0);
+    const bool in_place = es == 4;
+    uint8_t* out = in_place ? ring : ring + MB * PW * 4;
+    const int opitch = in_place ? PW * 4 : nc * es;
+    wg_epilogue(sums, PW, 0, s_sw, s_b, out, opitch, nr * sw, nc, act,
+                inv_out, out_mode, tid);
+    __syncthreads();
+    const long long ystride = (long long)O * es;
+    uint8_t* yb = static_cast<uint8_t*>(y)
+                  + ((((long long)b * H + y0) * W + x0) * O + n0) * es;
+    const bool al16 = ((long long)x0 * O + n0) * es % 16 == 0
+                      && (W * ystride) % 16 == 0 && (sw * opitch) % 16 == 0;
+    wg_store(out, opitch, nc * es, (int)ystride, nr, nx, al16,
+             [&](int s) { return s * sw; },
+             [&](int s) { return yb + s * W * ystride; }, tid);
 }
 
 template <int KS, int S>
@@ -555,14 +837,13 @@ cudaError_t launch1(const Sections& secs, const void* w, const float* s_w,
                     int act, int out_mode, cudaStream_t stream) {
     constexpr int MB = 128 * MI;
     constexpr int STAGE = 2 * KS * (MB + 1) * 16 + KS * BN * 32;
-    constexpr int EPB = (8 * BN + 127) / 128 * 128;
     const int nsteps = (secs.g[3] + 1) / 2;
     const int nchunks = (nsteps + KS - 1) / KS;
-    constexpr int PW = (BN % 32 == 8 || BN % 32 == 24) ? BN : BN + 8;
-    const int es = out_mode == OUT_F32 ? 4 : out_mode == OUT_BF16 ? 2 : 1;
-    const int tile = MB * PW * 4
+    const int es = out_bytes(out_mode);
+    const int tile = MB * sums_pitch(BN) * 4
                      + (es == 4 && !pool ? 0 : (pool ? MB / 4 : MB) * BN * es);
-    const int smem = EPB + std::max(std::min(NS, nchunks) * STAGE, tile);
+    const int smem = epi_bytes(BN) + std::max(std::min(NS, nchunks) * STAGE,
+                                              tile);
     if (smem > SMEM_MAX) return cudaErrorInvalidValue;
     auto kernel = conv1x1_q8_wgmma_kernel<BN, MI, KS, VEC>;
     static bool allowed = false;      // the attribute once, at its maximum
@@ -594,6 +875,54 @@ cudaError_t launch1_tile(int bn, int mi, const Sections& secs, const void* w,
     if (bn == 128 && mi == 1) return L1(128, 1, 4);
     if (bn == 256 && mi == 1) return L1(256, 1, 4);
 #undef L1
+    return cudaErrorInvalidValue;
+}
+
+template <int BN, int MI, int VEC>
+cudaError_t launch3w(const void* x, const void* w, const float* s_w,
+                     const float* bias, void* y, int B, int H, int W, int C,
+                     int O, int tw, float s_in, float inv_out, int act,
+                     int out_mode, cudaStream_t stream) {
+    constexpr int MB = 128 * MI;
+    const int sw = tw + 2, th = MB / sw;
+    if (tw < 1 || th < 2) return cudaErrorInvalidValue;
+    const int stage = 2 * k4_pitch(MB, sw) * 16 + 9 * BN * 32;
+    const int nchunks = (C + 31) / 32;
+    const int es = out_bytes(out_mode);
+    const int tile = MB * sums_pitch(BN) * 4 + (es == 4 ? 0 : MB * BN * es);
+    const int smem = epi_bytes(BN) + std::max(std::min(NS, nchunks) * stage,
+                                              tile);
+    if (smem > SMEM_MAX) return cudaErrorInvalidValue;
+    auto kernel = conv3x3_q8_wgmma_kernel<BN, MI, VEC>;
+    static bool allowed = false;      // the attribute once, at its maximum
+    if (!allowed) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
+        if (err != cudaSuccess) return err;
+        allowed = true;
+    }
+    const int tiles_x = (W + tw - 1) / tw;
+    dim3 grid(tiles_x * ((H + th - 1) / th), (O + BN - 1) / BN, B);
+    kernel<<<grid, WG_NT, smem, stream>>>(
+        (const int8_t*)x, (const uint8_t*)w, s_w, bias, y, H, W, C, O,
+        (O + 7) / 8, nchunks, tw, th, tiles_x, s_in, inv_out, act, out_mode);
+    return cudaGetLastError();
+}
+
+template <int VEC>
+cudaError_t launch3w_tile(int bn, int mi, const void* x, const void* w,
+                          const float* s_w, const float* bias, void* y, int B,
+                          int H, int W, int C, int O, int tw, float s_in,
+                          float inv_out, int act, int out_mode,
+                          cudaStream_t stream) {
+#define L3W(BN, MI) launch3w<BN, MI, VEC>(x, w, s_w, bias, y, B, H, W, C, O, \
+                                          tw, s_in, inv_out, act, out_mode,  \
+                                          stream)
+    if (bn == 24 && mi == 2) return L3W(24, 2);
+    if (bn == 48 && mi == 2) return L3W(48, 2);
+    if (bn == 64 && mi == 2) return L3W(64, 2);
+    if (bn == 128 && mi == 2) return L3W(128, 2);
+#undef L3W
     return cudaErrorInvalidValue;
 }
 
@@ -668,4 +997,32 @@ extern "C" int conv1x1_q8(const void* x0, const void* x1, const void* x2,
         default: return (int)LT(0);
     }
 #undef LT
+}
+
+// K4 on wgmma (stride 1, int8 input): x (B, H, W, C) int8, C a multiple of
+// vec (16, 8 or 4) and x vec-byte aligned; w QConv.packed_wgmma3; y (B, H,
+// W, O), 16-byte aligned, int8 (out_mode 0), f32 (1) or bf16 (2); (bn, mi)
+// the tile (24, 2), (48, 2), (64, 2) or (128, 2); tw the row width (at least
+// two rows of tw + 2 positions in 128 mi); act 0 none, 1 SiLU, 2 ReLU.
+// Returns a cudaError_t.
+extern "C" int conv3x3_q8_wgmma(const void* x, const void* w, const float* s_w,
+                                const float* bias, void* y, int B, int H,
+                                int W, int C, int O, int bn, int mi, int vec,
+                                int tw, int out_mode, float s_in,
+                                float inv_out, int act, void* stream_ptr) {
+    cudaStream_t stream = (cudaStream_t)stream_ptr;
+    if (B <= 0 || H <= 0 || W <= 0 || O <= 0) return 0;
+    if (C <= 0 || (long long)B * H * W >= (1LL << 31) ||
+        (out_mode != OUT_I8 && out_mode != OUT_F32 && out_mode != OUT_BF16) ||
+        ((uintptr_t)y & 15) || (vec != 4 && vec != 8 && vec != 16) ||
+        C % vec || ((uintptr_t)x % vec))
+        return (int)cudaErrorInvalidValue;
+#define LW(V) launch3w_tile<V>(bn, mi, x, w, s_w, bias, y, B, H, W, C, O, tw, \
+                               s_in, inv_out, act, out_mode, stream)
+    switch (vec) {
+        case 16: return (int)LW(16);
+        case 8: return (int)LW(8);
+        default: return (int)LW(4);
+    }
+#undef LW
 }

@@ -1,7 +1,7 @@
 // Hopper device primitives shared by the wgmma kernels (conv_kernel.cu K10 /
-// K11 in bfloat16, conv_flat.cu K5 in int8): shared-memory descriptors
-// without swizzle, wgmma.mma_async and its fences, cp.async, the async-proxy
-// fence. sm_90a only.
+// K11 in bfloat16, conv_flat.cu K4 and K5 in int8): shared-memory descriptors
+// without swizzle, wgmma.mma_async and its fences, cp.async (with a
+// zero-filling form), the async-proxy fence. sm_90a only.
 //
 // Operands in shared memory are K-major core matrices without swizzle: a core
 // matrix is 8 rows (M or N) x 16 bytes of K, stored as 128 contiguous bytes;
@@ -245,6 +245,21 @@ __device__ __forceinline__ void cp_async8(void* dst, const void* src) {
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
     asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
                  ::"r"(smem_addr(dst)), "l"(src) : "memory");
+}
+
+// A copy of N (16, 8 or 4) bytes, or, for read = false, N zeros stored and
+// nothing read (the src-size 0 form; src must still be a global address).
+template <int N>
+__device__ __forceinline__ void cp_async_zfill(void* dst, const void* src,
+                                               bool read) {
+    const int n = read ? N : 0;
+    if constexpr (N == 16)
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                     ::"r"(smem_addr(dst)), "l"(src), "r"(n) : "memory");
+    else
+        asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n"
+                     ::"r"(smem_addr(dst)), "l"(src), "n"(N), "r"(n)
+                     : "memory");
 }
 
 // D (64 x N, s32, the warpgroup's fragments) += A (64 x 32) B^T (N x 32),

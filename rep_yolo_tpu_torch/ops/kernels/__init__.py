@@ -2,6 +2,8 @@
 
 ``launch_counts()`` / ``reset_launch_counts()`` read and zero the per-wrapper
 launch counters, so a run can show which kernels the main path went through.
+``reset_launch_counts()`` also zeroes K4's count by design
+(``conv_flat.LAUNCHES_K4_ROUTE``), which ``launch_counts()`` leaves out.
 """
 
 from __future__ import annotations
@@ -23,6 +25,6 @@ def launch_counts() -> dict[str, int]:
 
 
 def reset_launch_counts() -> None:
-    for c in _COUNTERS:
+    for c in _COUNTERS + (conv_flat.LAUNCHES_K4_ROUTE,):
         for key in c:
             c[key] = 0

@@ -10,13 +10,17 @@ Source: ``csrc/conv_flat.cu``.
 Activations are channels-last, ``(B, H, W, C)``: int8 at a calibrated
 per-tensor scale (C a multiple of 4), or float32 quantized inside the
 kernel at ``s_in`` (K5: section channels multiples of 4). Weights are a
-``QConv``, quantized once. K4 runs on dp4a; K5 is an implicit GEMM on the
-int8 tensor cores (``wgmma``), its tile and staging granule picked by
-``k5_route``. The output is int8 at ``out_scale`` or, without
-one, float32, or bfloat16 with ``out_dtype`` (the JAX kernels emit bf16
-there; ``ops/kernels/conv_pm.py`` asks for it). The activation is SiLU,
-ReLU or none. The wrappers take the plain versions for CPU tensors only;
-on a CUDA tensor they launch the kernel or raise.
+``QConv``, quantized once. K4 has two designs, chosen by ``k4_route`` from
+the shapes, dtype and address alone: a stride-1 3x3 on int8 input is an
+implicit GEMM on the int8 tensor cores (``wgmma``, the nine taps as
+descriptor offsets over a halo'd tile); stride 2, float32 input and the
+dense 5x5 run on dp4a. ``LAUNCHES_K4_ROUTE`` counts ``conv3x3_q8``'s
+launches by route. K5 is an implicit GEMM on the int8 tensor cores, its
+tile and staging granule picked by ``k5_route``. The output is int8 at
+``out_scale`` or, without one, float32, or bfloat16 with ``out_dtype`` (the
+JAX kernels emit bf16 there; ``ops/kernels/conv_pm.py`` asks for it). The
+activation is SiLU, ReLU or none. The wrappers take the plain versions for
+CPU tensors only; on a CUDA tensor they launch the kernel or raise.
 """
 
 from __future__ import annotations
@@ -33,11 +37,17 @@ from rep_yolo_tpu_torch.ops.quant import (epilogue, quantize,
                                           quantize_weights, requant)
 
 LAUNCHES = {"conv3x3_q8": 0, "conv1x1_q8": 0, "conv5x5_q8": 0}
+# conv3x3_q8's launches by K4 design (``k4_route``); zeroed with LAUNCHES
+LAUNCHES_K4_ROUTE = {"wgmma": 0, "dp4a": 0}
 _TO = 32            # output channels per block of K4
 # K5's tiles: output channels a block (BN) -> its 64-row tiles a warpgroup
 # (MI); 256 rows a block for BN <= 48, else 128 (with 256, the epilogue's
 # tile held 64 / 128 channels to one block an SM, and it ran slower)
 K5_TILES = {24: 2, 48: 2, 64: 1, 128: 1, 256: 1}
+# K4's wgmma tiles: up to 128 channels (four stages of 256 channels' nine
+# taps of weights would not fit in shared memory), 256 positions each (with
+# 128, one 64-row tile a warpgroup, ptxas serialized the nine taps' wgmmas)
+K4_TILES = {24: 2, 48: 2, 64: 2, 128: 2}
 SMS = 132           # the H100's SMs
 _ACTS = {"silu": 1, None: 0, "relu": 2}
 # the kernels' out_mode: int8 at out_scale, else float32 or bfloat16
@@ -53,6 +63,9 @@ def _lib():
         lib.conv1x1_q8.argtypes = [vp] * 3 + [i32] * 4 + [vp] * 4 \
             + [i32] * 9 + [f] * 3 + [i32, vp]
         lib.conv1x1_q8.restype = i32
+        lib.conv3x3_q8_wgmma.argtypes = [vp] * 5 + [i32] * 10 + [f] * 2 \
+            + [i32, vp]
+        lib.conv3x3_q8_wgmma.restype = i32
         lib._typed = True
     return lib
 
@@ -83,7 +96,8 @@ class QConv:
     per-channel scales (the concat's section scales) and pending channel
     permutation (GSConv's shuffle) into the float weights before they are
     quantized (``fold_weight``). The kernels' packed copies (``packed`` for
-    K4, ``packed_wgmma`` for K5) are made at the first launch and kept."""
+    K4 on dp4a, ``packed_wgmma3`` for K4 on wgmma, ``packed_wgmma`` for K5)
+    are made at the first launch and kept."""
 
     def __init__(self, weight: torch.Tensor, bias: torch.Tensor | None,
                  in_scale: torch.Tensor | None = None,
@@ -119,6 +133,25 @@ class QConv:
                 opad // _TO, _TO, k * k, cp // kc, kc // 4).permute(
                     0, 3, 2, 4, 1).contiguous()
         return self._packed[kc]
+
+    def packed_wgmma3(self) -> torch.Tensor:
+        """K4's operand B on ``wgmma``: int8 [chunk][tap][ceil(O/8)][2][8][16].
+        A chunk is 32 input channels, two groups of 16 (the channels padded
+        to whole chunks); tap t = 3 u + v; each (chunk, tap) a k32 step of
+        core matrices of 8 output channels x 16 input channels. Zeros in
+        every pad (and in the output channels past O)."""
+        if "wgmma3" not in self._packed:
+            O, k, _, cp = self.w_q.shape
+            if k != 3:
+                raise ValueError(f"packed_wgmma3: {k}x{k} weights")
+            og8, kc = -(-O // 8) * 8, -(-cp // 32) * 32
+            w = torch.zeros((og8, 9, kc), dtype=torch.int8,
+                            device=self.w_q.device)
+            w[:O, :, :cp] = self.w_q.reshape(O, 9, cp)
+            self._packed["wgmma3"] = w.reshape(
+                og8 // 8, 8, 9, kc // 32, 2, 16).permute(
+                    3, 2, 0, 4, 1, 5).contiguous()
+        return self._packed["wgmma3"]
 
     def packed_wgmma(self, cs) -> torch.Tensor:
         """K5's operand B for input sections of ``cs`` channels: int8
@@ -212,6 +245,56 @@ def _conv_kxk_plain(x, qw: QConv, s_in, stride, act, out_scale, out_dtype):
     return _exit(y, out_scale, out_dtype).contiguous()
 
 
+def k4_route(C: int, O: int, B: int, H: int, W: int, stride: int,
+             dtype: torch.dtype, addr: int = 0) -> tuple:
+    """K4's design for a 3x3 of ``C`` -> ``O`` channels on a (B, H, W) map:
+    ``("wgmma", BN, MI, VEC, TW)`` for stride 1 on int8 input, else
+    ``("dp4a",)``. BN: the smallest of ``K4_TILES`` that holds O (128 above
+    it), unless that grid is under two blocks an SM; then the narrower ones
+    down to 64: the first whose grid reaches two blocks an SM, else 64. MI:
+    BN's in ``K4_TILES``. VEC: the bytes of one staging copy, 16, 8 or 4,
+    the largest that divides C and ``addr`` (x's data pointer). TW: the
+    tile's row width for 128 MI positions (``k4_width``)."""
+    if stride != 1 or dtype != torch.int8:
+        return ("dp4a",)
+    return _k4_route(int(C), int(O), int(B), int(H), int(W), int(addr) & 15)
+
+
+@functools.lru_cache(maxsize=None)
+def _k4_route(C, O, B, H, W, low) -> tuple:
+    vec = next((v for v in (16, 8, 4) if low % v == 0 and C % v == 0), None)
+    if vec is None:
+        raise ValueError(f"conv3x3_q8: int8 input of {C} channels at an "
+                         f"address off 4 bytes")
+    first = next((b for b in K4_TILES if O <= b), 128)
+    for bn in [b for b in sorted(K4_TILES, reverse=True)
+               if b == first or 64 <= b < first]:
+        tw, tiles = k4_width(H, W, 128 * K4_TILES[bn])
+        if tiles * -(-O // bn) * B >= 2 * SMS:
+            break
+    return "wgmma", bn, K4_TILES[bn], vec, tw
+
+
+@functools.lru_cache(maxsize=None)
+def k4_width(H: int, W: int, mb: int) -> tuple[int, int]:
+    """(TW, tiles a map) of K4 on wgmma over ``mb`` positions a block: a
+    tile is th = mb // (TW + 2) rows (at least 2) of TW columns, computed
+    over TW + 2 positions a row from a staged (th + 2) x (TW + 2) halo'd
+    tile. TW is even, at most W rounded up to even: as K10's tile, the one
+    that wastes the fewest positions over the map, with a staged position
+    counted as an eighth of a computed one (a computed position costs the
+    epilogue of every output channel, a staged one two 16-byte copies a
+    chunk); the wider on a tie."""
+    best = None
+    for tw in range(min(W + W % 2, (mb // 2 - 2) & ~1), 0, -2):
+        th = mb // (tw + 2)
+        tiles = -(-W // tw) * -(-H // th)
+        cost = tiles * (8 * mb + (th + 2) * (tw + 2))
+        if best is None or cost < best[2]:
+            best = (tw, tiles, cost)
+    return best[:2]
+
+
 def _conv_kxk(name, x, qw: QConv, s_in, stride, act, out_scale, out_dtype):
     _check_cuda(name, [x], qw)
     B, H, W, C = x.shape
@@ -227,18 +310,29 @@ def _conv_kxk(name, x, qw: QConv, s_in, stride, act, out_scale, out_dtype):
                          f"{qw.c_in} channels, got {x.dtype} {C}")
     mode, dt = _out_mode(name, out_scale, out_dtype)
     x = x.contiguous()
-    kc = _chunk([cp])
     ho, wo = (H - 1) // stride + 1, (W - 1) // stride + 1
     O = qw.c_out
     y = torch.empty((B, ho, wo, O), device=x.device, dtype=dt)
     s, inv_s, inv_out = _scales(s_in, out_scale)
-    err = _lib().conv3x3_q8(
-        D.ptr(x), D.ptr(qw.packed(kc)), D.ptr(qw.s_w), D.ptr(qw.bias),
-        D.ptr(y), B, H, W, C, cp, kc, qw.k, stride, O,
-        int(x.dtype == torch.float32), mode, s, inv_s, inv_out, _ACTS[act],
-        D.stream_handle(x))
+    route = ("dp4a",) if name != "conv3x3_q8" else \
+        k4_route(C, O, B, H, W, stride, x.dtype, x.data_ptr())
+    if route[0] == "wgmma":
+        _, bn, mi, vec, tw = route
+        err = _lib().conv3x3_q8_wgmma(
+            D.ptr(x), D.ptr(qw.packed_wgmma3()), D.ptr(qw.s_w),
+            D.ptr(qw.bias), D.ptr(y), B, H, W, C, O, bn, mi, vec, tw, mode,
+            s, inv_out, _ACTS[act], D.stream_handle(x))
+    else:
+        kc = _chunk([cp])
+        err = _lib().conv3x3_q8(
+            D.ptr(x), D.ptr(qw.packed(kc)), D.ptr(qw.s_w), D.ptr(qw.bias),
+            D.ptr(y), B, H, W, C, cp, kc, qw.k, stride, O,
+            int(x.dtype == torch.float32), mode, s, inv_s, inv_out,
+            _ACTS[act], D.stream_handle(x))
     D.check_launch(name, err)
     LAUNCHES[name] += 1
+    if name == "conv3x3_q8":
+        LAUNCHES_K4_ROUTE[route[0]] += 1
     return y
 
 
@@ -255,7 +349,8 @@ def conv3x3_q8_plain(x: torch.Tensor, qw: QConv, s_in: float,
 def conv3x3_q8(x: torch.Tensor, qw: QConv, s_in: float, stride: int = 1,
                act: str | None = "silu", out_scale: float | None = None,
                out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """K4. CPU tensors take ``conv3x3_q8_plain``."""
+    """K4, on the design ``k4_route`` picks. CPU tensors take
+    ``conv3x3_q8_plain``."""
     if x.device.type == "cpu":
         return conv3x3_q8_plain(x, qw, s_in, stride, act, out_scale,
                                 out_dtype)

@@ -25,7 +25,9 @@ calls identical; K13 / K14
 wrappers (conv_pm, on K4 / K5): int8 as the int8 kernels, bfloat16 at most
 one bfloat16 ulp (the same exact s32 sums and float32 epilogue, rounded
 once; only the SiLU's last bit differs); conv5x5_q8 with block-diagonal
-weights equal to K7 bit for bit.
+weights equal to K7 bit for bit; K4 on its int8 wgmma route (each tile
+forced) and its dp4a calls (stride 2, float32 input, the dense 5x5): every
+output bit for bit its plain version.
 """
 
 import numpy as np
@@ -276,6 +278,128 @@ def test_conv1x1_q8_wgmma_large_map(cuda, c_in, c_out):
     got = KC.conv1x1_q8(xs, qw, 1.0, "silu", 0.05)
     assert torch.equal(got, KC.conv1x1_q8(xs, qw, 1.0, "silu", 0.05))
     _assert_q8_close(got, KC.conv1x1_q8_plain(xs, qw, 1.0, "silu", 0.05))
+
+
+K4_TILES = list(KC.K4_TILES.items())
+# (B, H, W, C, O) of the flagship's stride-1 3x3s on int8 input at batch 4:
+# the DER blocks' st1-st3 / st4-st6 at 320 / 160 / 80 / 40 px, and the
+# neck's (SPPCSPC, GSConv, RepConv) at 80 / 40 / 20 px
+K4_FLAGSHIP = [(4, 320, 320, 48, 48), (4, 320, 320, 24, 24),
+               (4, 160, 160, 48, 48), (4, 160, 160, 24, 24),
+               (4, 80, 80, 128, 128), (4, 80, 80, 64, 64),
+               (4, 40, 40, 256, 256), (4, 40, 40, 128, 128),
+               (4, 20, 20, 512, 512), (4, 40, 40, 128, 64),
+               (4, 80, 80, 64, 32), (4, 20, 20, 256, 128),
+               (4, 80, 80, 128, 256), (4, 40, 40, 256, 512),
+               (4, 20, 20, 512, 1024)]
+# (out_scale, out_dtype, act): the three output types and activations
+K4_OUTS = [(0.05, torch.float32, "silu"), (None, torch.float32, "relu"),
+           (None, torch.bfloat16, None)]
+
+
+def _force_k4_tile(monkeypatch, tile):
+    """``k4_route`` with the wgmma tile ``tile`` (and its row width) in
+    place of the chosen one; other routes unchanged."""
+    route = KC.k4_route
+
+    def forced(C, O, B, H, W, stride, dtype, addr=0):
+        r = route(C, O, B, H, W, stride, dtype, addr)
+        if r[0] != "wgmma":
+            return r
+        return ("wgmma", *tile, r[3], KC.k4_width(H, W, 128 * tile[1])[0])
+    monkeypatch.setattr(KC, "k4_route", forced)
+
+
+def _k4_equal(x, qw, out):
+    """One K4 call on the wgmma route, bit for bit its plain version."""
+    out_scale, out_dtype, act = out
+    before = KC.LAUNCHES_K4_ROUTE["wgmma"]
+    got = KC.conv3x3_q8(x, qw, 0.01, 1, act, out_scale, out_dtype)
+    assert KC.LAUNCHES_K4_ROUTE["wgmma"] == before + 1
+    ref = KC.conv3x3_q8_plain(x, qw, 0.01, 1, act, out_scale, out_dtype)
+    assert got.dtype == ref.dtype and torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("tile", K4_TILES)
+@pytest.mark.parametrize("shape", K4_FLAGSHIP)
+def test_conv3x3_q8_wgmma_flagship_shapes(cuda, monkeypatch, shape, tile):
+    """K4 on the int8 tensor cores at each tile (forced in place of
+    ``k4_route``'s choice) and every stride-1 int8 shape of the flagship's
+    served forward, the three outputs: bit for bit the plain version."""
+    _force_k4_tile(monkeypatch, tile)
+    B, H, W, C, O = shape
+    rng = np.random.default_rng(C + O + H)
+    qw = _qconv(rng, C, O, 3, cuda)
+    x = _sections(rng, (C,), B, H, W, torch.int8, cuda)[0]
+    for out in K4_OUTS:
+        _k4_equal(x, qw, out)
+
+
+@pytest.mark.parametrize("tile", K4_TILES)
+@pytest.mark.parametrize("shape", [
+    (2, 7, 9, 24, 48),          # a map smaller than a tile, VEC 8
+    (1, 13, 21, 48, 24),        # ragged H and W
+    (3, 11, 30, 96, 200),       # O off the tiles, three chunks
+    (1, 5, 5, 4, 16),           # C = 4: VEC 4, one partial group
+    (2, 9, 11, 40, 64),         # C = 40: a partial chunk, VEC 8
+    (1, 3, 1, 16, 8),           # a single column
+])
+@pytest.mark.parametrize("act", ["silu", "relu", None])
+def test_conv3x3_q8_wgmma_ragged(cuda, monkeypatch, shape, tile, act):
+    """Ragged maps and channel counts at each tile, every output type with
+    each activation: bit for bit the plain version."""
+    _force_k4_tile(monkeypatch, tile)
+    B, H, W, C, O = shape
+    rng = np.random.default_rng(C + O + H + W)
+    qw = _qconv(rng, C, O, 3, cuda)
+    x = _sections(rng, (C,), B, H, W, torch.int8, cuda)[0]
+    for out_scale, out_dtype, _ in K4_OUTS:
+        _k4_equal(x, qw, (out_scale, out_dtype, act))
+
+
+def test_conv3x3_q8_wgmma_large_map_repeats(cuda):
+    """A 320 x 320 map at batch 8: two calls identical, and the plain
+    version."""
+    rng = np.random.default_rng(21)
+    qw = _qconv(rng, 48, 48, 3, cuda)
+    x = _sections(rng, (48,), 8, 320, 320, torch.int8, cuda)[0]
+    got = KC.conv3x3_q8(x, qw, 0.01, 1, "silu", 0.05)
+    assert torch.equal(got, KC.conv3x3_q8(x, qw, 0.01, 1, "silu", 0.05))
+    assert torch.equal(got, KC.conv3x3_q8_plain(x, qw, 0.01, 1, "silu",
+                                                0.05))
+
+
+def test_conv3x3_q8_wgmma_unaligned_input(cuda):
+    """An int8 map 4 bytes into its storage stages by 4-byte copies."""
+    rng = np.random.default_rng(22)
+    qw = _qconv(rng, 64, 64, 3, cuda)
+    x = _sections(rng, (64,), 2, 12, 17, torch.int8, cuda, offset=4)[0]
+    assert KC.k4_route(64, 64, 2, 12, 17, 1, torch.int8,
+                       x.data_ptr())[3] == 4
+    _k4_equal(x, qw, K4_OUTS[0])
+
+
+@pytest.mark.parametrize("case", ["stride2", "float32", "dense5x5"])
+def test_k4_other_calls_stay_on_dp4a(cuda, case):
+    """Stride 2, float32 input and the dense 5x5 run the dp4a kernel,
+    bit for bit their plain versions."""
+    rng = np.random.default_rng(23)
+    reset_launch_counts()
+    if case == "dense5x5":
+        qw = _qconv(rng, 32, 32, 5, cuda)
+        x = _sections(rng, (32,), 2, 20, 20, torch.int8, cuda)[0]
+        got = KC.conv5x5_q8(x, qw, 0.01, "silu", 0.05)
+        ref = KC.conv5x5_q8_plain(x, qw, 0.01, "silu", 0.05)
+        assert launch_counts()["conv5x5_q8"] == 1
+    else:
+        qw = _qconv(rng, 48, 64, 3, cuda)
+        dt = torch.int8 if case == "stride2" else torch.float32
+        x = _sections(rng, (48,), 2, 40, 40, dt, cuda)[0]
+        stride = 2 if case == "stride2" else 1
+        got = KC.conv3x3_q8(x, qw, 0.01, stride, "silu", 0.05)
+        ref = KC.conv3x3_q8_plain(x, qw, 0.01, stride, "silu", 0.05)
+        assert KC.LAUNCHES_K4_ROUTE == {"wgmma": 0, "dp4a": 1}
+    assert torch.equal(got, ref)
 
 
 def test_conv1x1_q8_refuses_unaligned_float_sections(cuda):
