@@ -39,8 +39,9 @@ and for the int8 path:
      at every backbone shape of 640 px, batch 4 (random weights, random
      int8 maps): int8 outputs identical but for +-1 LSB on at most 1e-4 of
      the elements, the float exit atol = rtol = 1e-5, pools identical; each
-     K4 line names the design the call took (k4_route: "wgmma" for a
-     stride-1 3x3 on int8 input, else "dp4a")
+     K4 line names the route the call took (k4_route: "wgmma" for a
+     stride-1 3x3 on int8 input, "wgmma_s2" for stride 2 on int8 input,
+     "wgmma_f32" for stride 1 on float32 input, else "dp4a")
   4b. int8_e2e: golden weights, calibrated on the seeded uniform batch, at
      640 px, batch 2, the backbone region alone: the int8 kernel path vs the
      int8 plain path (region maps as above, raw maps atol = rtol = 1e-3,
@@ -53,14 +54,14 @@ and for the int8 path:
      as a report, the P3-P5 features (l29, l45, l61) against float
   5b. serving_int8: as 5 with --fast int8; launch counts of that run per
      forward: 36 K4, 76 K5, 3 K6, 18 K7, 1 K8 beside the float path's
-     12 / 6 / 6 / 1, and K4's by design, 33 on wgmma and 3 on dp4a (the
-     stem and the two PAN downsamples, stride 2); serving_int8_backbone:
+     12 / 6 / 6 / 1, and K4's by route, 33 on wgmma, 2 on wgmma_s2 (the
+     PAN downsamples) and 1 on dp4a (the stem); serving_int8_backbone:
      the backbone region alone, 25 K4 (24 wgmma, 1 dp4a), 28 K5, 1 K6
   5c. kernels_neck_vs_plain: every int8 kernel call of layers 9-65 of one
      served int8 forward (batch 4, the real maps and weights, recorded on
      the way), K4 (stride 1 and 2), K5 (1-3 sections, int8 or f32 out), K6,
      K7 and K8, against its plain version on the same inputs, as 2b (K4
-     lines naming their design)
+     lines naming their route)
   6b. profile of the three engines, in turns (float, int8 backbone, int8,
      and back)
   7b. times_q8: K4-K6 per backbone shape, and K4-K8 per distinct neck call
@@ -70,8 +71,8 @@ and for the int8 path:
      calls that compute the convs' sums exactly (K5: torch._int_mm of the
      materialised concat; K4: cuDNN's bf16 conv of the int8-valued map);
      summed per forward (the backbone apart too) and, for the neck, per
-     layer; K4's sums also split by design (launches, ms, bound, the bf16
-     yardstick over the same calls), beside the dp4a-only design's ms
+     layer; K4's sums also split by route (launches, ms, bound, the bf16
+     yardstick over the same calls), beside the earlier designs' ms
   8. served_ab: one served batch of 4, the four engines in turns (the
      three above and the bfloat16 one of 5d)
 
@@ -114,8 +115,8 @@ conv3x3_pm_q8 / conv1x1_pm_q8 on K4 / K5) and the "xla_q8" mode:
      within 0.15 max|ref| with a correlation above 0.99
   5e. serving_xla_q8: as 5, the float32 xla_q8 engine; launches per
      forward 24 conv3x3_pm_q8 and 28 conv1x1_pm_q8 (as many K4 and K5)
-     beside 12 / 6 / 6 / 1; K4's by design 20 wgmma, 4 dp4a (each DER
-     block's st1 reads the float32 map)
+     beside 12 / 6 / 6 / 1; K4's by route 20 wgmma, 4 wgmma_f32 (each DER
+     block's st1 reads the float32 map), 0 dp4a
   2d. kernels_q8_rest (after 5c): K13 / K14 at kernel_bench's 15 shapes and
      the JAX test's, batch 2, float32 / bfloat16 / int8 in, bfloat16 / int8
      out (K14 over three sections at the cv1 shapes); the pixel-major pair
@@ -131,7 +132,7 @@ conv3x3_pm_q8 / conv1x1_pm_q8 on K4 / K5) and the "xla_q8" mode:
      beside); the pixel-major pair over one xla_q8 served forward at batch
      4 (cuDNN f32 beside, and as in 7b torch._int_mm for conv1x1_pm_q8
      and the bf16 conv for conv3x3_pm_q8; conv3x3_pm_q8 split by K4's
-     design too); conv5x5_q8 over the 18
+     route too); conv5x5_q8 over the 18
      block-diagonal calls (the dense F.conv2d of the same block-diagonal
      weights, f32 and bf16, cuDNN's f32 depthwise and K7 beside)
 
@@ -636,18 +637,19 @@ def call_case(torch, name, args):
                                          args["s_in"]))
 
 
-K4_ROUTES = ("wgmma", "dp4a")
-# K4's launches by design per forward (ops/kernels/conv_flat.py:k4_route):
-# the stride-1 3x3s on int8 input on the int8 tensor cores; the stem (float32
-# input, stride 2), the PAN downsamples (stride 2) and xla_q8's four st1s
-# (float32 input) on dp4a
-K4_ROUTES_PER_FORWARD = {"int8": {"wgmma": 33, "dp4a": 3},
+K4_ROUTES = ("wgmma", "wgmma_s2", "wgmma_f32", "dp4a")
+# K4's launches by route per forward (ops/kernels/conv_flat.py:k4_route):
+# on the int8 tensor cores the stride-1 3x3s on int8 input ("wgmma"), the
+# PAN downsamples (stride 2 on int8 input, "wgmma_s2") and xla_q8's four
+# st1s (float32 input, "wgmma_f32"); the stem (float32 input with C = 3,
+# stride 2) on dp4a
+K4_ROUTES_PER_FORWARD = {"int8": {"wgmma": 33, "wgmma_s2": 2, "dp4a": 1},
                          "int8_backbone": {"wgmma": 24, "dp4a": 1},
-                         "xla_q8": {"wgmma": 20, "dp4a": 4}}
+                         "xla_q8": {"wgmma": 20, "wgmma_f32": 4, "dp4a": 0}}
 
 
 def k4_call(fn):
-    """(fn(), the K4 design that call launched: "wgmma", "dp4a", or None
+    """(fn(), the K4 route that call launched, one of K4_ROUTES, or None
     for a call that launched no K4 or more than one)."""
     from rep_yolo_tpu_torch.ops.kernels import conv_flat as KC
 
@@ -658,10 +660,10 @@ def k4_call(fn):
 
 
 def route_rows(by_route: dict, launches: dict) -> dict:
-    """K4's (or row 11's) per-forward sums split by design: each design's
+    """K4's (or row 11's) per-forward sums split by route: each route's
     ms, bound and yardsticks over the calls that took it (``add_times`` /
-    ``add_yardsticks`` into ``by_route[design]``), beside the main path's
-    launches of that design."""
+    ``add_yardsticks`` into ``by_route[route]``), beside the main path's
+    launches of that route."""
     return {r: {"launches": launches.get(r, 0),
                 **({"bound_by": bound(a["bytes"], a["ops"], INT8_PEAK)[1]}
                    if a else {}),
@@ -1155,7 +1157,7 @@ def phase_serving(torch, dev, fast=None, neck=True, der_fast=None):
     want_k4 = {r: K4_ROUTES_PER_FORWARD.get(engine_key, {}).get(r, 0) * n_fwd
                for r in K4_ROUTES}
     if k4 != want_k4:
-        raise AssertionError(f"K4 launches by design {k4} != {want_k4}")
+        raise AssertionError(f"K4 launches by route {k4} != {want_k4}")
     counts.update({f"conv3x3_q8@{r}": v for r, v in k4.items()})
     dets = []
     for imgs, resp in zip(requests, responses):
@@ -1498,7 +1500,7 @@ def phase_times_q8(torch, dev, counts, errs, calls):
     agg = {n: {} for n in Q8_KERNELS}
     per_shape = []
     backbone = {n: {} for n in Q8_KERNELS}
-    by_route = {r: {} for r in K4_ROUTES}      # K4's calls by design
+    by_route = {r: {} for r in K4_ROUTES}      # K4's calls by route
     for i, row in enumerate(backbone_q8_shapes()):
         kfn, pfn, lib, _, nbytes, ops, extra = q8_case(torch, row, 4, dev,
                                                        200 + i)
@@ -1591,7 +1593,8 @@ def phase_times_q8(torch, dev, counts, errs, calls):
               for n, a in backbone.items() if a},
           "conv3x3_q8_by_route": kernels[0]["routes"],
           "previous_design_ms": {k: PREVIOUS_MS[k] for k in (
-              "conv1x1_q8", "conv1x1_q8_backbone", "conv3x3_q8")}})
+              "conv1x1_q8", "conv1x1_q8_backbone", "conv3x3_q8",
+              "conv3x3_q8_s2_dp4a")}})
     return kernels
 
 
@@ -2405,7 +2408,7 @@ def phase_times_q8_rest(torch, dev, counts, errs, dw, xlq_engine, x4):
     xi = x4.to(xlq_engine.dtype)
     xlq_engine.infer(xi)
     timed: dict = {}
-    by_route = {r: {} for r in K4_ROUTES}      # row 11's calls by design
+    by_route = {r: {} for r in K4_ROUTES}      # row 11's calls by route
     for name, a in record_pm_calls(torch, xlq_engine.model, xi):
         out_s = a["out_scale"]
         if name == "conv3x3_pm_q8":
@@ -2533,7 +2536,8 @@ def phase_times_q8_rest(torch, dev, counts, errs, dw, xlq_engine, x4):
           "previous_design_ms": {
               k: PREVIOUS_MS[k] for k in ("conv1x1_cmajor_q8",
                                           "conv1x1_pm_q8", "conv3x3_q8",
-                                          "conv3x3_pm_q8")},
+                                          "conv3x3_pm_q8",
+                                          "conv3x3_pm_q8_f32_dp4a")},
           "per_shape": per_shape, "pm_calls": list(timed.values()),
           "dense5x5": dense_rows})
     return kernels
@@ -2560,11 +2564,16 @@ WGRAD_PER_STEP = sum(s[-1] for s in WGRAD_SHAPES)
 # on one H100 80GB HBM3 at 700 W (PERF.md, kernel table): K9 per train
 # step, K14 over kernel_bench's 1x1 shapes at batch 8, K5 and K4 per
 # served int8 forward at batch 4 (and K5's 28 backbone calls), rows 12 and
-# 11 per xla_q8 forward at batch 4, K12 per forward at batch 8
+# 11 per xla_q8 forward at batch 4, K12 per forward at batch 8; and the
+# dp4a design of the calls that left it next: row 15 (the PAN's two
+# stride-2 calls, now wgmma_s2) per int8 forward and row 11's four float32
+# st1s (now wgmma_f32) per xla_q8 forward, both at batch 4
 PREVIOUS_MS = {"wgrad3x3": 6.166, "conv1x1_cmajor_q8": 3.312,
                "conv1x1_q8": 3.949, "conv1x1_q8_backbone": 1.445,
                "conv1x1_pm_q8": 1.330, "dwconv5x5_f32w_q8": 0.634,
-               "conv3x3_q8": 3.946, "conv3x3_pm_q8": 2.406}
+               "conv3x3_q8": 3.946, "conv3x3_pm_q8": 2.406,
+               "conv3x3_q8_s2_dp4a": 0.210,
+               "conv3x3_pm_q8_f32_dp4a": 0.652}
 # K10 / K11 per forward at batch 4 and 128 in their mma.sync design, before
 # wgmma, as this script measured them on the same card
 PREVIOUS_MS_CM = {"conv3x3_cmajor": {"4": 2.326, "128": 51.39},

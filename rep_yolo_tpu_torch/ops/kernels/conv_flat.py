@@ -11,15 +11,18 @@ Activations are channels-last, ``(B, H, W, C)``: int8 at a calibrated
 per-tensor scale (C a multiple of 4), or float32 quantized inside the
 kernel at ``s_in`` (K5: section channels multiples of 4). Weights are a
 ``QConv``, quantized once. K4 has two designs, chosen by ``k4_route`` from
-the shapes, dtype and address alone: a stride-1 3x3 on int8 input is an
-implicit GEMM on the int8 tensor cores (``wgmma``, the nine taps as
-descriptor offsets over a halo'd tile); stride 2, float32 input and the
-dense 5x5 run on dp4a. ``LAUNCHES_K4_ROUTE`` counts ``conv3x3_q8``'s
-launches by route. K5 is an implicit GEMM on the int8 tensor cores, its
-tile and staging granule picked by ``k5_route``. The output is int8 at
-``out_scale`` or, without one, float32, or bfloat16 with ``out_dtype`` (the
-JAX kernels emit bf16 there; ``ops/kernels/conv_pm.py`` asks for it). The
-activation is SiLU, ReLU or none. The wrappers take the plain versions for
+the shapes, dtype and address alone: an implicit GEMM on the int8 tensor
+cores (the nine taps as descriptor offsets) for a stride-1 3x3 on int8
+input (route ``wgmma``), a stride-2 3x3 on int8 input (``wgmma_s2``, the
+input staged as four parity planes) and a stride-1 3x3 on float32 input
+(``wgmma_f32``, quantized while staging); dp4a for the rest (the float32
+stride-2 stem, float32 maps whose C is not a multiple of 4 or whose address
+is off 16 bytes, the dense 5x5). ``LAUNCHES_K4_ROUTE`` counts
+``conv3x3_q8``'s launches by route. K5 is an implicit GEMM on the int8
+tensor cores, its tile and staging granule picked by ``k5_route``. The
+output is int8 at ``out_scale`` or, without one, float32, or bfloat16 with
+``out_dtype`` (the JAX kernels emit bf16 there; ``ops/kernels/conv_pm.py``
+asks for it). The activation is SiLU, ReLU or none. The wrappers take the plain versions for
 CPU tensors only; on a CUDA tensor they launch the kernel or raise.
 """
 
@@ -37,8 +40,8 @@ from rep_yolo_tpu_torch.ops.quant import (epilogue, quantize,
                                           quantize_weights, requant)
 
 LAUNCHES = {"conv3x3_q8": 0, "conv1x1_q8": 0, "conv5x5_q8": 0}
-# conv3x3_q8's launches by K4 design (``k4_route``); zeroed with LAUNCHES
-LAUNCHES_K4_ROUTE = {"wgmma": 0, "dp4a": 0}
+# conv3x3_q8's launches by K4 route (``k4_route``); zeroed with LAUNCHES
+LAUNCHES_K4_ROUTE = {"wgmma": 0, "wgmma_s2": 0, "wgmma_f32": 0, "dp4a": 0}
 _TO = 32            # output channels per block of K4
 # K5's tiles: output channels a block (BN) -> its 64-row tiles a warpgroup
 # (MI); 256 rows a block for BN <= 48, else 128 (with 256, the epilogue's
@@ -48,6 +51,11 @@ K5_TILES = {24: 2, 48: 2, 64: 1, 128: 1, 256: 1}
 # taps of weights would not fit in shared memory), 256 positions each (with
 # 128, one 64-row tile a warpgroup, ptxas serialized the nine taps' wgmmas)
 K4_TILES = {24: 2, 48: 2, 64: 2, 128: 2}
+# at stride 2 up to 64 (a stage holds four planes: 128 channels' weights
+# beside them would not fit four stages), and a row width of at most 48
+# (a wider one's planes would not fit four stages at 64)
+K4_S2_TILES = {24: 2, 48: 2, 64: 2}
+K4_S2_TW = 48
 SMS = 132           # the H100's SMs
 _ACTS = {"silu": 1, None: 0, "relu": 2}
 # the kernels' out_mode: int8 at out_scale, else float32 or bfloat16
@@ -63,7 +71,7 @@ def _lib():
         lib.conv1x1_q8.argtypes = [vp] * 3 + [i32] * 4 + [vp] * 4 \
             + [i32] * 9 + [f] * 3 + [i32, vp]
         lib.conv1x1_q8.restype = i32
-        lib.conv3x3_q8_wgmma.argtypes = [vp] * 5 + [i32] * 10 + [f] * 2 \
+        lib.conv3x3_q8_wgmma.argtypes = [vp] * 5 + [i32] * 11 + [f] * 3 \
             + [i32, vp]
         lib.conv3x3_q8_wgmma.restype = i32
         lib._typed = True
@@ -247,49 +255,70 @@ def _conv_kxk_plain(x, qw: QConv, s_in, stride, act, out_scale, out_dtype):
 
 def k4_route(C: int, O: int, B: int, H: int, W: int, stride: int,
              dtype: torch.dtype, addr: int = 0) -> tuple:
-    """K4's design for a 3x3 of ``C`` -> ``O`` channels on a (B, H, W) map:
-    ``("wgmma", BN, MI, VEC, TW)`` for stride 1 on int8 input, else
-    ``("dp4a",)``. BN: the smallest of ``K4_TILES`` that holds O (128 above
-    it), unless that grid is under two blocks an SM; then the narrower ones
-    down to 64: the first whose grid reaches two blocks an SM, else 64. MI:
-    BN's in ``K4_TILES``. VEC: the bytes of one staging copy, 16, 8 or 4,
-    the largest that divides C and ``addr`` (x's data pointer). TW: the
-    tile's row width for 128 MI positions (``k4_width``)."""
-    if stride != 1 or dtype != torch.int8:
+    """K4's route for a 3x3 of ``C`` -> ``O`` channels on a (B, H, W) input
+    map at ``stride``: ``(kind, BN, MI, VEC, TW)`` on the int8 tensor cores,
+    kind ``"wgmma"`` for stride 1 on int8 input, ``"wgmma_s2"`` for stride 2
+    on int8 input, ``"wgmma_f32"`` for stride 1 on float32 input with C a
+    multiple of 4 at a 16-byte-aligned ``addr``; else ``("dp4a",)``.
+    BN: the smallest of ``K4_TILES`` (stride 2: ``K4_S2_TILES``) that holds
+    O (the largest above it), unless that grid is under two blocks an SM;
+    then the narrower ones down to 64: the first whose grid reaches two
+    blocks an SM, else 64. MI: BN's in the table. VEC: 0 for float32; for
+    int8 the bytes of one staging copy, 16, 8 or 4, the largest that divides
+    C and ``addr`` (x's data pointer). TW: the tile's row width over the
+    output map for 128 MI positions (``k4_width``)."""
+    low = int(addr) & 15
+    if dtype == torch.int8 and stride in (1, 2):
+        f32 = False
+    elif dtype == torch.float32 and stride == 1 and C % 4 == 0 and not low:
+        f32 = True
+    else:
         return ("dp4a",)
-    return _k4_route(int(C), int(O), int(B), int(H), int(W), int(addr) & 15)
+    return _k4_route(int(C), int(O), int(B), int(H), int(W), int(stride),
+                     f32, low)
 
 
 @functools.lru_cache(maxsize=None)
-def _k4_route(C, O, B, H, W, low) -> tuple:
-    vec = next((v for v in (16, 8, 4) if low % v == 0 and C % v == 0), None)
+def _k4_route(C, O, B, H, W, stride, f32, low) -> tuple:
+    vec = 0 if f32 else next(
+        (v for v in (16, 8, 4) if low % v == 0 and C % v == 0), None)
     if vec is None:
         raise ValueError(f"conv3x3_q8: int8 input of {C} channels at an "
                          f"address off 4 bytes")
-    first = next((b for b in K4_TILES if O <= b), 128)
-    for bn in [b for b in sorted(K4_TILES, reverse=True)
+    table = K4_TILES if stride == 1 else K4_S2_TILES
+    ho, wo = (H - 1) // stride + 1, (W - 1) // stride + 1
+    first = next((b for b in table if O <= b), max(table))
+    for bn in [b for b in sorted(table, reverse=True)
                if b == first or 64 <= b < first]:
-        tw, tiles = k4_width(H, W, 128 * K4_TILES[bn])
+        tw, tiles = k4_width(ho, wo, 128 * table[bn], stride)
         if tiles * -(-O // bn) * B >= 2 * SMS:
             break
-    return "wgmma", bn, K4_TILES[bn], vec, tw
+    kind = "wgmma_s2" if stride == 2 else "wgmma_f32" if f32 else "wgmma"
+    return kind, bn, table[bn], vec, tw
 
 
 @functools.lru_cache(maxsize=None)
-def k4_width(H: int, W: int, mb: int) -> tuple[int, int]:
-    """(TW, tiles a map) of K4 on wgmma over ``mb`` positions a block: a
-    tile is th = mb // (TW + 2) rows (at least 2) of TW columns, computed
-    over TW + 2 positions a row from a staged (th + 2) x (TW + 2) halo'd
-    tile. TW is even, at most W rounded up to even: as K10's tile, the one
-    that wastes the fewest positions over the map, with a staged position
-    counted as an eighth of a computed one (a computed position costs the
-    epilogue of every output channel, a staged one two 16-byte copies a
-    chunk); the wider on a tie."""
+def k4_width(H: int, W: int, mb: int, stride: int = 1) -> tuple[int, int]:
+    """(TW, tiles a map) of K4 on wgmma over an (H, W) output map and
+    ``mb`` positions a block. Stride 1: a tile is th = mb // (TW + 2) rows
+    (at least 2) of TW columns, computed over TW + 2 positions a row from a
+    staged (th + 2) x (TW + 2) halo'd tile. Stride 2: th = mb // (TW + 1)
+    rows over TW + 1 positions a row, from four staged parity planes of
+    (th + 1) x (TW + 1), TW at most ``K4_S2_TW``. TW is even, at most W
+    rounded up to even: as K10's tile, the one that wastes the fewest
+    positions over the map, with a staged position counted as an eighth of
+    a computed one (a computed position costs the epilogue of every output
+    channel, a staged one two 16-byte copies a chunk); the wider on a
+    tie."""
+    halo, planes = (2, 1) if stride == 1 else (1, 4)
+    top = (mb // 2 - halo) & ~1
+    if stride != 1:
+        top = min(top, K4_S2_TW)
     best = None
-    for tw in range(min(W + W % 2, (mb // 2 - 2) & ~1), 0, -2):
-        th = mb // (tw + 2)
+    for tw in range(min(W + W % 2, top), 0, -2):
+        th = mb // (tw + halo)
         tiles = -(-W // tw) * -(-H // th)
-        cost = tiles * (8 * mb + (th + 2) * (tw + 2))
+        cost = tiles * (8 * mb + planes * (th + halo) * (tw + halo))
         if best is None or cost < best[2]:
             best = (tw, tiles, cost)
     return best[:2]
@@ -316,12 +345,12 @@ def _conv_kxk(name, x, qw: QConv, s_in, stride, act, out_scale, out_dtype):
     s, inv_s, inv_out = _scales(s_in, out_scale)
     route = ("dp4a",) if name != "conv3x3_q8" else \
         k4_route(C, O, B, H, W, stride, x.dtype, x.data_ptr())
-    if route[0] == "wgmma":
+    if route[0] != "dp4a":
         _, bn, mi, vec, tw = route
         err = _lib().conv3x3_q8_wgmma(
             D.ptr(x), D.ptr(qw.packed_wgmma3()), D.ptr(qw.s_w),
-            D.ptr(qw.bias), D.ptr(y), B, H, W, C, O, bn, mi, vec, tw, mode,
-            s, inv_out, _ACTS[act], D.stream_handle(x))
+            D.ptr(qw.bias), D.ptr(y), B, H, W, C, O, stride, bn, mi, vec, tw,
+            mode, s, inv_s, inv_out, _ACTS[act], D.stream_handle(x))
     else:
         kc = _chunk([cp])
         err = _lib().conv3x3_q8(

@@ -25,9 +25,10 @@ calls identical; K13 / K14
 wrappers (conv_pm, on K4 / K5): int8 as the int8 kernels, bfloat16 at most
 one bfloat16 ulp (the same exact s32 sums and float32 epilogue, rounded
 once; only the SiLU's last bit differs); conv5x5_q8 with block-diagonal
-weights equal to K7 bit for bit; K4 on its int8 wgmma route (each tile
-forced) and its dp4a calls (stride 2, float32 input, the dense 5x5): every
-output bit for bit its plain version.
+weights equal to K7 bit for bit; K4 on its three int8 wgmma routes
+(stride 1 and 2 on int8 input, stride 1 on float32 input; each tile
+forced) and its dp4a calls (the float32 stem, a float32 map off 16 bytes,
+the dense 5x5): every output bit for bit its plain version.
 """
 
 import numpy as np
@@ -299,24 +300,26 @@ K4_OUTS = [(0.05, torch.float32, "silu"), (None, torch.float32, "relu"),
 
 def _force_k4_tile(monkeypatch, tile):
     """``k4_route`` with the wgmma tile ``tile`` (and its row width) in
-    place of the chosen one; other routes unchanged."""
+    place of the chosen one on every wgmma route; dp4a unchanged."""
     route = KC.k4_route
 
     def forced(C, O, B, H, W, stride, dtype, addr=0):
         r = route(C, O, B, H, W, stride, dtype, addr)
-        if r[0] != "wgmma":
+        if r[0] == "dp4a":
             return r
-        return ("wgmma", *tile, r[3], KC.k4_width(H, W, 128 * tile[1])[0])
+        ho, wo = (H - 1) // stride + 1, (W - 1) // stride + 1
+        return (r[0], *tile, r[3], KC.k4_width(ho, wo, 128 * tile[1],
+                                               stride)[0])
     monkeypatch.setattr(KC, "k4_route", forced)
 
 
-def _k4_equal(x, qw, out):
-    """One K4 call on the wgmma route, bit for bit its plain version."""
+def _k4_equal(x, qw, out, stride=1, route="wgmma"):
+    """One K4 call on ``route``, bit for bit its plain version."""
     out_scale, out_dtype, act = out
-    before = KC.LAUNCHES_K4_ROUTE["wgmma"]
-    got = KC.conv3x3_q8(x, qw, 0.01, 1, act, out_scale, out_dtype)
-    assert KC.LAUNCHES_K4_ROUTE["wgmma"] == before + 1
-    ref = KC.conv3x3_q8_plain(x, qw, 0.01, 1, act, out_scale, out_dtype)
+    before = dict(KC.LAUNCHES_K4_ROUTE)
+    got = KC.conv3x3_q8(x, qw, 0.01, stride, act, out_scale, out_dtype)
+    assert KC.LAUNCHES_K4_ROUTE == {**before, route: before[route] + 1}
+    ref = KC.conv3x3_q8_plain(x, qw, 0.01, stride, act, out_scale, out_dtype)
     assert got.dtype == ref.dtype and torch.equal(got, ref)
 
 
@@ -379,10 +382,105 @@ def test_conv3x3_q8_wgmma_unaligned_input(cuda):
     _k4_equal(x, qw, K4_OUTS[0])
 
 
-@pytest.mark.parametrize("case", ["stride2", "float32", "dense5x5"])
+K4_S2_TILES = list(KC.K4_S2_TILES.items())
+# (B, H, W, C, O) of the flagship's stride-2 3x3s on int8 input at batch 4:
+# the PAN's two GSConv downsamples (l33 at 80 px, l49 at 40 px)
+K4_S2_FLAGSHIP = [(4, 80, 80, 128, 64), (4, 40, 40, 256, 128)]
+# (B, H, W, C, O) of xla_q8's float32 st1s at batch 4 (320 / 160 / 80 /
+# 40 px)
+K4_F32_FLAGSHIP = [(4, 320, 320, 48, 48), (4, 160, 160, 48, 48),
+                   (4, 80, 80, 128, 128), (4, 40, 40, 256, 256)]
+K4_RAGGED = [
+    (2, 7, 9, 24, 48),          # odd H and W, a map smaller than a tile
+    (1, 13, 21, 48, 24),        # ragged H and W
+    (3, 11, 30, 96, 200),       # O off the tiles, three chunks
+    (1, 5, 5, 4, 16),           # C = 4: one partial group
+    (2, 9, 11, 40, 64),         # C = 40: a partial chunk
+    (1, 3, 1, 16, 8),           # a single column
+    (1, 30, 111, 160, 40),      # several tiles across, five chunks
+]
+
+
+@pytest.mark.parametrize("tile", K4_S2_TILES)
+@pytest.mark.parametrize("shape", K4_S2_FLAGSHIP)
+def test_conv3x3_q8_wgmma_s2_flagship_shapes(cuda, monkeypatch, shape, tile):
+    """K4 at stride 2 on int8 input (route wgmma_s2) at each tile and the
+    flagship's two stride-2 shapes, the three outputs: bit for bit."""
+    _force_k4_tile(monkeypatch, tile)
+    B, H, W, C, O = shape
+    rng = np.random.default_rng(C + O + H + 2)
+    qw = _qconv(rng, C, O, 3, cuda)
+    x = _sections(rng, (C,), B, H, W, torch.int8, cuda)[0]
+    for out in K4_OUTS:
+        _k4_equal(x, qw, out, 2, "wgmma_s2")
+
+
+@pytest.mark.parametrize("tile", K4_S2_TILES)
+@pytest.mark.parametrize("shape", K4_RAGGED)
+@pytest.mark.parametrize("act", ["silu", "relu", None])
+def test_conv3x3_q8_wgmma_s2_ragged(cuda, monkeypatch, shape, tile, act):
+    """Stride 2 on ragged and odd maps (the bottom / right pad) at each
+    tile, every output type with each activation: bit for bit."""
+    _force_k4_tile(monkeypatch, tile)
+    B, H, W, C, O = shape
+    rng = np.random.default_rng(C + O + H + W + 2)
+    qw = _qconv(rng, C, O, 3, cuda)
+    x = _sections(rng, (C,), B, H, W, torch.int8, cuda)[0]
+    for out_scale, out_dtype, _ in K4_OUTS:
+        _k4_equal(x, qw, (out_scale, out_dtype, act), 2, "wgmma_s2")
+
+
+@pytest.mark.parametrize("tile", K4_TILES)
+@pytest.mark.parametrize("shape", K4_F32_FLAGSHIP)
+def test_conv3x3_q8_wgmma_f32_flagship_shapes(cuda, monkeypatch, shape, tile):
+    """K4 at stride 1 on float32 input (route wgmma_f32, quantized while
+    staging) at each tile and xla_q8's four st1 shapes: bit for bit."""
+    _force_k4_tile(monkeypatch, tile)
+    B, H, W, C, O = shape
+    rng = np.random.default_rng(C + O + H + 3)
+    qw = _qconv(rng, C, O, 3, cuda)
+    x = _sections(rng, (C,), B, H, W, torch.float32, cuda)[0]
+    for out in K4_OUTS:
+        _k4_equal(x, qw, out, 1, "wgmma_f32")
+
+
+@pytest.mark.parametrize("tile", K4_TILES)
+@pytest.mark.parametrize("shape", K4_RAGGED)
+@pytest.mark.parametrize("act", ["silu", "relu", None])
+def test_conv3x3_q8_wgmma_f32_ragged(cuda, monkeypatch, shape, tile, act):
+    """Float32 input on ragged maps and channel counts at each tile, every
+    output type with each activation: bit for bit."""
+    _force_k4_tile(monkeypatch, tile)
+    B, H, W, C, O = shape
+    rng = np.random.default_rng(C + O + H + W + 3)
+    qw = _qconv(rng, C, O, 3, cuda)
+    x = _sections(rng, (C,), B, H, W, torch.float32, cuda)[0]
+    for out_scale, out_dtype, _ in K4_OUTS:
+        _k4_equal(x, qw, (out_scale, out_dtype, act), 1, "wgmma_f32")
+
+
+@pytest.mark.parametrize("stride,dtype", [(2, torch.int8),
+                                          (1, torch.float32)])
+def test_conv3x3_q8_wgmma_s2_f32_repeat(cuda, stride, dtype):
+    """The new routes at the largest flagship map, batch 8: two calls
+    identical, and the plain version."""
+    rng = np.random.default_rng(24)
+    C, O, H = (128, 64, 80) if stride == 2 else (48, 48, 320)
+    qw = _qconv(rng, C, O, 3, cuda)
+    x = _sections(rng, (C,), 8, H, H, dtype, cuda)[0]
+    assert KC.k4_route(C, O, 8, H, H, stride, dtype, x.data_ptr())[0] == (
+        "wgmma_s2" if stride == 2 else "wgmma_f32")
+    got = KC.conv3x3_q8(x, qw, 0.01, stride, "silu", 0.05)
+    assert torch.equal(got, KC.conv3x3_q8(x, qw, 0.01, stride, "silu", 0.05))
+    assert torch.equal(got, KC.conv3x3_q8_plain(x, qw, 0.01, stride, "silu",
+                                                0.05))
+
+
+@pytest.mark.parametrize("case", ["stem", "float32_unaligned", "dense5x5"])
 def test_k4_other_calls_stay_on_dp4a(cuda, case):
-    """Stride 2, float32 input and the dense 5x5 run the dp4a kernel,
-    bit for bit their plain versions."""
+    """The float32 stem (C = 3, stride 2), a float32 map 8 bytes into its
+    storage (the float32 route needs 16-byte staging loads) and the dense
+    5x5 run the dp4a kernel, bit for bit their plain versions."""
     rng = np.random.default_rng(23)
     reset_launch_counts()
     if case == "dense5x5":
@@ -392,13 +490,21 @@ def test_k4_other_calls_stay_on_dp4a(cuda, case):
         ref = KC.conv5x5_q8_plain(x, qw, 0.01, "silu", 0.05)
         assert launch_counts()["conv5x5_q8"] == 1
     else:
-        qw = _qconv(rng, 48, 64, 3, cuda)
-        dt = torch.int8 if case == "stride2" else torch.float32
-        x = _sections(rng, (48,), 2, 40, 40, dt, cuda)[0]
-        stride = 2 if case == "stride2" else 1
+        if case == "stem":
+            qw = _qconv(rng, 3, 48, 3, cuda)
+            x = _sections(rng, (3,), 2, 64, 96, torch.float32, cuda)[0]
+            stride = 2
+        else:
+            qw = _qconv(rng, 48, 64, 3, cuda)
+            raw = _sections(rng, (48 * 40 * 40 * 2 + 2,), 1, 1, 1,
+                            torch.float32, cuda)[0].reshape(-1)
+            x = raw[2:].view(2, 40, 40, 48)
+            assert x.data_ptr() % 16 == 8
+            stride = 1
         got = KC.conv3x3_q8(x, qw, 0.01, stride, "silu", 0.05)
         ref = KC.conv3x3_q8_plain(x, qw, 0.01, stride, "silu", 0.05)
-        assert KC.LAUNCHES_K4_ROUTE == {"wgmma": 0, "dp4a": 1}
+        assert KC.LAUNCHES_K4_ROUTE == {"wgmma": 0, "wgmma_s2": 0,
+                                        "wgmma_f32": 0, "dp4a": 1}
     assert torch.equal(got, ref)
 
 
