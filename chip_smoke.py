@@ -14,9 +14,12 @@ of those paths against its plain PyTorch version on the card.
 Phases, one JSON line each:
 
   1. device and build: the card, then nvcc of every csrc/*.cu (parallel)
-  2. kernels vs plain: axial attention (K1 projection, K2 both modes) at the
-     six 640-px CCVA shapes, batch 2, gamma 0.7, random BN constants,
-     atol = rtol = 1e-4; NMS keep masks on clustered boxes, zero-area
+  2. kernels vs plain: axial attention (K1 projection, K2 both modes: the
+     column kernel for vertical, the joint-softmax kernel for criss-cross)
+     at the six 640-px CCVA shapes, batch 2, and at ATTN_EXTRA (odd maps,
+     C = 8, the 160-px map and the P6 widths of 1280 px), gamma 0.7,
+     random BN constants, atol = rtol = 1e-4, a second call bit-identical;
+     NMS keep masks on clustered boxes, zero-area
      duplicates and IoU exactly at the threshold, K = 1024 and 4096, keep
      sets identical (and equal to the greedy oracle at K = 1024)
   3. golden: tests/golden/model_weights.npz -> fuse -> predict at 256 px vs
@@ -31,7 +34,9 @@ Phases, one JSON line each:
      kernel category and the device's busy share of the wall time
   7. times: per kernel at the served shapes (batch 4), the median of 20
      CUDA-event timed runs of 10 back-to-back calls each, beside the plain
-     version and the bound; end-to-end ms of one served batch
+     version and the bound (K1 also beside torch.matmul(x, wqk.t()) alone,
+     "q/k product only", a partial yardstick); end-to-end ms of one served
+     batch
 
 and for the int8 path:
 
@@ -235,6 +240,11 @@ BF16_PEAK = 989e12     # H100 SXM dense bf16 tensor-core FLOP/s (data sheet)
 # 43, 53, 59)
 ATTN_SHAPES = [(64, 80, 80), (32, 80, 80), (128, 40, 40), (64, 40, 40),
                (256, 20, 20), (128, 20, 20)]
+# (c_, H, W, batch) held in phase 2 beside them: odd maps (C = 8 is the
+# tiny config's), the P3 map of 1280 px (cfg/rep_yolo_p6_aux.yaml) and the
+# P6 config's widths (192, 384: three channel tiles of the column kernel)
+ATTN_EXTRA = [(32, 13, 21, 1), (32, 13, 21, 8), (8, 13, 21, 2),
+              (64, 160, 160, 2), (192, 40, 40, 2), (384, 20, 20, 2)]
 LINES: list[dict] = []
 
 
@@ -712,28 +722,49 @@ def phase_kernels(torch, dev, errs):
 
     tol = dict(atol=1e-4, rtol=1e-4)
     rows = []
-    for i, (c, h, w) in enumerate(ATTN_SHAPES):
-        x, wqk, pq, pv, gamma = attention_inputs(c, h, w, 2, i, 0.7, dev)
+    cases = [(c, h, w, 2) for c, h, w in ATTN_SHAPES] + ATTN_EXTRA
+    for i, (c, h, w, batch) in enumerate(cases):
+        x, wqk, pq, pv, gamma = attention_inputs(c, h, w, batch, i, 0.7, dev)
         q, k, v = KA.project(x, wqk, pq, pv)
         qp, kp, vp = KA.project_plain(x, wqk, pq, pv)
         e1 = max(float((a - b).abs().max()) for a, b in
                  ((q, qp), (k, kp), (v, vp)))
         for a, b in ((q, qp), (k, kp), (v, vp)):
             torch.testing.assert_close(a, b, **tol)
+        again = all(torch.equal(a, b) for a, b in
+                    zip((q, k, v), KA.project(x, wqk, pq, pv)))
+        ptile = KA.project_tile(c, c // 8, batch * h * w)
+        if KA._lib().axial_project_smem(c, ptile["rp"], ptile["rj"]) \
+                != ptile["smem"]:
+            raise AssertionError(f"project_tile's shared memory differs "
+                                 f"from the kernel's at {ptile}")
+        tile = KA.vertical_tile(h, c, c // 8)
+        if KA._lib().axial_vertical_smem(c // 8, tile["tc"], tile["rq"],
+                                         tile["kch"], tile["stages"]) \
+                != tile["smem"]:
+            raise AssertionError(f"vertical_tile's shared memory differs "
+                                 f"from the kernel's at {tile}")
         errs["axial_project"] = max(errs.get("axial_project", 0.0), e1)
         for cc in (True, False):
             name = "axial_attend_" + ("criss_cross" if cc else "vertical")
             y = KA.attend(qp, kp, vp, x, gamma, cc)
             yp = KA.attend_plain(qp, kp, vp, x, gamma, cc)
             torch.testing.assert_close(y, yp, **tol)
+            same = again and torch.equal(
+                y, KA.attend(qp, kp, vp, x, gamma, cc))
             yf = KA.axial_attention(x, wqk, pq, pv, gamma, cc)
             yfp = KA.axial_attention_plain(x, wqk, pq, pv, gamma, cc)
             torch.testing.assert_close(yf, yfp, **tol)
             e2 = float((y - yp).abs().max())
             errs[name] = max(errs.get(name, 0.0), e2)
-            rows.append({"shape": [2, h, w, c], "mode": name, "k2_err": e2,
+            rows.append({"shape": [batch, h, w, c], "mode": name,
+                         **({} if cc else {"tile": tile}),
+                         "k1_err": e1, "k2_err": e2,
                          "k1k2_err": float((yf - yfp).abs().max()),
+                         "second_call_identical": bool(same),
                          "out_absmax": float(yp.abs().max())})
+            if not same:
+                raise AssertionError(f"a second call differs: {rows[-1]}")
     torch.cuda.synchronize()
     nms_rows = []
     for name, boxes, valid, thr in nms_cases(dev):
@@ -1202,7 +1233,8 @@ def served_ms(torch, engine, batch) -> float:
 
 def _category(name: str) -> str:
     low = name.lower()
-    if "axial_project" in low or "axial_attend" in low:
+    if any(s in low for s in ("axial_project", "axial_attend",
+                              "axial_vertical")):
         return "attention kernels (K1, K2)"
     if "_q8_cm_kernel" in low:
         return "channel-major int8 conv kernels (K13, K14)"
@@ -1445,9 +1477,13 @@ def phase_times(torch, dev, counts, errs):
                          lambda: KA.project_plain(x, wqk, pq, pv))
         t.update(zip(("bound_ms", "bound_by"), bound(b1, f1)),
                  bytes=b1, ops=f1)
+        qk_ms = device_ms(torch, lambda: torch.matmul(x, wqk.t()))
         add_times(agg["axial_project"], t, 2)
+        agg["axial_project"]["qk_product_only_ms"] = \
+            agg["axial_project"].get("qk_product_only_ms", 0.0) + 2 * qk_ms
         per_shape.append({"kernel": "axial_project",
-                          "shape": [batch, h, w, c], **t})
+                          "shape": [batch, h, w, c], **t,
+                          "qk_product_only_ms": qk_ms})
 
     import numpy as np
 
@@ -1478,14 +1514,21 @@ def phase_times(torch, dev, counts, errs):
              "rep_yolo_tpu/ops/pallas/nms_kernel.py:97")):
         kernels.append(kernel_row(name, src, replaces, counts[name],
                                   errs[name], agg[name], F32_PEAK))
+    kernels[0]["qk_product_only_ms"] = agg["axial_project"][
+        "qk_product_only_ms"]
+    kernels[0]["qk_product_only"] = "torch.matmul(x, wqk.t()) alone: a " \
+        "partial yardstick (no single call computes K1)"
     emit({"phase": "times", "ok": True, "batch": batch,
           "note": f"attention rows sum the six {SIZE}-px CCVA shapes of one "
                   "served batch (the projection twice per CCVA); nms_keep "
                   "at K=1024, batch 4; ms, plain_ms: device time under the "
                   "profiler from a cold L2, 10 calls after 3 warm-ups; "
                   "event_ms: CUDA events, median of 20 runs of 10 "
-                  "back-to-back calls (L2-warm)",
-          "per_shape": per_shape})
+                  "back-to-back calls (L2-warm); qk_product_only_ms: "
+                  "torch.matmul(x, wqk.t()) alone, q/k product only",
+          "per_shape": per_shape,
+          "previous_design_ms": {k: PREVIOUS_MS[k] for k in (
+              "axial_project", "axial_attend_vertical")}})
     return kernels
 
 
@@ -2567,13 +2610,18 @@ WGRAD_PER_STEP = sum(s[-1] for s in WGRAD_SHAPES)
 # 11 per xla_q8 forward at batch 4, K12 per forward at batch 8; and the
 # dp4a design of the calls that left it next: row 15 (the PAN's two
 # stride-2 calls, now wgmma_s2) per int8 forward and row 11's four float32
-# st1s (now wgmma_f32) per xla_q8 forward, both at batch 4
+# st1s (now wgmma_f32) per xla_q8 forward, both at batch 4; K1 (8 pixels a
+# block, a serial dot product a thread) and K2 vertical (8 query pixels a
+# block, each warp walking its own column) per served batch of 4, and K2
+# vertical on the row-3 route per forward at batch 8
 PREVIOUS_MS = {"wgrad3x3": 6.166, "conv1x1_cmajor_q8": 3.312,
                "conv1x1_q8": 3.949, "conv1x1_q8_backbone": 1.445,
                "conv1x1_pm_q8": 1.330, "dwconv5x5_f32w_q8": 0.634,
                "conv3x3_q8": 3.946, "conv3x3_pm_q8": 2.406,
                "conv3x3_q8_s2_dp4a": 0.210,
-               "conv3x3_pm_q8_f32_dp4a": 0.652}
+               "conv3x3_pm_q8_f32_dp4a": 0.652,
+               "axial_project": 1.066, "axial_attend_vertical": 0.324,
+               "axial_attend_vertical_row3": 0.571}
 # K10 / K11 per forward at batch 4 and 128 in their mma.sync design, before
 # wgmma, as this script measured them on the same card
 PREVIOUS_MS_CM = {"conv3x3_cmajor": {"4": 2.326, "128": 51.39},
@@ -3131,7 +3179,9 @@ def phase_times_eval(torch, dev, calls):
     for i, (c, h, w) in enumerate(ATTN_SHAPES):
         x, wqk, pq, pv, gamma = attention_inputs(c, h, w, EVAL_BATCH, 20 + i,
                                                  0.7, dev)
-        q, k, v = KA.project_plain(x, wqk, pq, pv)
+        # contiguous, as the row-3 route hands them to K2 (a view of the
+        # plain q/k would add its copy to K2's time)
+        q, k, v = (t.contiguous() for t in KA.project_plain(x, wqk, pq, pv))
         for cc, mode in ((True, "criss_cross"), (False, "vertical")):
             _, (b2, f2) = attention_cost(c, h, w, EVAL_BATCH, cc)
             t = kernel_times(torch, lambda: KA.attend(q, k, v, x, gamma, cc),
@@ -3164,8 +3214,8 @@ def phase_times_eval(torch, dev, calls):
                   "20 runs of 10 back-to-back calls (L2-warm)",
           "dwconv5x5_f32w_q8": list(timed.values()),
           "dwconv5x5_f32w_q8_per_forward": {k: agg[k] for k in TIME_KEYS},
-          "previous_design_ms": {"dwconv5x5_f32w_q8":
-                                 PREVIOUS_MS["dwconv5x5_f32w_q8"]},
+          "previous_design_ms": {k: PREVIOUS_MS[k] for k in (
+              "dwconv5x5_f32w_q8", "axial_attend_vertical_row3")},
           "axial_attend_row3": attn_shapes,
           "axial_attend_row3_per_forward": {
               m: {k: a[k] for k in TIME_KEYS} for m, a in attn.items()},

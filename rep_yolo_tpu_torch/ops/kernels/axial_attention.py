@@ -2,9 +2,12 @@
 
 Replaces ``rep_yolo_tpu/ops/pallas/axial_attention.py``:
 ``criss_cross_fused_x`` / ``vertical_fused_x`` (kernel body
-``_axis_kernel_x``). Source: ``csrc/axial_attention.cu`` (K1
-``axial_project``: per-pixel q/k/v projection; K2 ``axial_attend``: the
-energies, joint softmax or raw energies, aggregation and residual).
+``_axis_kernel_x``) and, on the row-3 route, ``criss_cross_fused`` /
+``vertical_fused``. Source: ``csrc/axial_attention.cu``: K1
+``axial_project`` (the q/k/v projection, 64-pixel tiles walking C in
+32-channel chunks); K2 in two kernels, ``axial_vertical`` (raw column
+energies: one column a block, keys streamed in chunks) and
+``axial_attend`` (criss-cross: the joint softmax).
 
 Layouts follow the TPU kernel: x ``(B, H, W, C)`` f32; packed deploy
 constants ``wqk (2*c8, C)``, ``pq (3, 2*c8)``, ``pv (4, C)`` (see
@@ -15,6 +18,7 @@ tensors only; on a CUDA tensor they launch the kernel or raise.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -24,21 +28,115 @@ from rep_yolo_tpu_torch import device as D
 LAUNCHES = {"axial_project": 0, "axial_attend_criss_cross": 0,
             "axial_attend_vertical": 0}
 
-_SMEM_LIMIT = 48 * 1024
+_SMEM_LIMIT = 48 * 1024          # the criss-cross kernel's tile
+SMEM_MAX = 232448                # bytes of shared memory a block may use
+THREADS = 256                    # threads a block, K1 and K2 vertical
+NUM_SMS = 132                    # H100 SXM: K1 picks its pixel tile by it
+
+# K1: P_TJ column threads x 32 pixel threads, rp pixels and rj columns a
+# thread
+P_TJ = 8
+# K2 vertical: at most V_MAX_TC channel float4s and V_MAX_RQ query rows a
+# thread, at most V_MAX_QT query rows a tile
+V_MAX_TC, V_MAX_RQ, V_MAX_QT = 64, 8, 256
+V_MAX_STAGES = 4                 # key chunks in flight
+V_SMEM_BUDGET = 96 * 1024        # fewer stages past this (2 blocks an SM)
 
 
 def _lib():
     lib = D.load_kernel("axial_attention")
     if not getattr(lib, "_typed", False):
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.axial_project.argtypes = [vp] * 7 + [i64, i32, i32, vp]
+        lib.axial_project.argtypes = [vp] * 7 + [i64] + [i32] * 4 + [vp]
         lib.axial_project.restype = i32
-        lib.axial_attend.argtypes = [vp] * 6 + [i32] * 6 + [vp]
+        lib.axial_project_smem.argtypes = [i32] * 3
+        lib.axial_project_smem.restype = i64
+        lib.axial_vertical.argtypes = [vp] * 6 + [i32] * 10 + [vp]
+        lib.axial_vertical.restype = i32
+        lib.axial_vertical_smem.argtypes = [i32] * 5
+        lib.axial_vertical_smem.restype = i64
+        lib.axial_attend.argtypes = [vp] * 6 + [i32] * 5 + [vp]
         lib.axial_attend.restype = i32
-        lib.axial_attend_smem.argtypes = [i32] * 4
+        lib.axial_attend_smem.argtypes = [i32] * 3
         lib.axial_attend_smem.restype = i64
         lib._typed = True
     return lib
+
+
+# ---------------------------------------------------------------------------
+# tiles (host side; the tests hold them on the CPU)
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def project_tile(C: int, c8: int, npix: int) -> dict:
+    """K1's tile for C input channels, 2*c8 q/k columns and npix pixels:
+    ``rp`` pixels and ``rj`` columns a thread, so a block takes ``tp`` = 32
+    * rp pixels and ``ng`` = 8 * rj columns (``ngroups`` column groups, the
+    last padded with zero weights), the whole of C at once; ``smem`` the
+    dynamic shared memory in bytes (the formula of ``axial_project_smem``).
+    Raises ValueError where no tile fits."""
+    nq = 2 * c8
+    if C < 4 or C % 4 or c8 < 1 or npix < 1:
+        raise ValueError(f"axial_project: C = {C} must be a positive "
+                         f"multiple of 4 (16-byte staging), c8 = {c8}, "
+                         f"npix = {npix}")
+    rj = 1 if nq <= P_TJ else 2
+    ng = P_TJ * rj
+    ngroups = -(-nq // ng)
+    # 64 pixels a block where C is narrow and the grid keeps a block an SM
+    rp = 2 if C <= 128 and -(-npix // 64) * ngroups >= NUM_SMS else 1
+    tp = THREADS // P_TJ * rp
+    smem = 4 * ((tp + ng) * (C + 4) + 4 * C)
+    if smem > SMEM_MAX:
+        raise ValueError(f"axial_project: C = {C} needs {smem} bytes of "
+                         f"shared memory")
+    return {"rp": rp, "rj": rj, "tp": tp, "ng": ng, "ngroups": ngroups,
+            "smem": smem}
+
+
+def key_pitch(c8: int) -> int:
+    """Floats a staged query / key row of the column kernel: c8 padded to
+    whole float4s, plus one float4 where that count is even."""
+    p = -(-c8 // 4) * 4
+    return p if (p // 4) % 2 else p + 4
+
+
+@functools.lru_cache(maxsize=None)
+def vertical_tile(H: int, C: int, c8: int) -> dict:
+    """K2 vertical's tile for an H-row column of C channels: ``tc``
+    channel float4s and ``tq`` = 256 / tc query rows of threads, ``rq``
+    rows a thread, so a block covers ``qt`` = tq * rq query rows and ``ct``
+    = 4 * tc channels (``qtiles`` x ``ctiles`` blocks a column); keys in
+    chunks of ``kch`` rows, ``stages`` of them in flight (the whole column
+    where it has at most 4 chunks and fits V_SMEM_BUDGET); ``smem`` the
+    dynamic shared memory in bytes (the formula of
+    ``axial_vertical_smem``). Raises ValueError where no tile fits."""
+    if C < 4 or C % 4 or c8 < 1 or H < 1:
+        raise ValueError(f"axial_vertical: C = {C} must be a positive "
+                         f"multiple of 4 (16-byte staging), c8 = {c8}, "
+                         f"H = {H}")
+    tc = 1
+    while tc < V_MAX_TC and (C // 4) % (2 * tc) == 0:
+        tc *= 2
+    tq = THREADS // tc
+    qtiles = -(-H // min(V_MAX_RQ * tq, V_MAX_QT))
+    rows = -(-H // qtiles)                       # query rows a tile, at most
+    rq = -(-rows // tq)
+    qt = tq * rq
+    ct = 4 * tc
+    kch = 32 if ct <= 128 else 16
+    for stages in range(min(-(-H // kch), V_MAX_STAGES), 0, -1):
+        floats = ((qt + stages * kch) * key_pitch(c8) + stages * kch * ct
+                  + kch * tq * -(-rq // 4) * 4)
+        smem = 4 * floats
+        if smem <= V_SMEM_BUDGET or stages == 1:
+            break
+    if smem > SMEM_MAX:
+        raise ValueError(f"axial_vertical: the tile of H={H}, C={C} needs "
+                         f"{smem} bytes of shared memory")
+    return {"tc": tc, "tq": tq, "rq": rq, "qt": qt, "ct": ct,
+            "ctiles": C // ct, "qtiles": qtiles, "kch": kch,
+            "stages": stages, "smem": smem}
 
 
 # ---------------------------------------------------------------------------
@@ -91,24 +189,34 @@ def _check_cuda_f32(name: str, *ts):
         raise ValueError(f"{name}: tensors on different devices")
 
 
+def _aligned(*ts):
+    """The tensors, each copied where its data is off 16 bytes."""
+    return [t if t.data_ptr() % 16 == 0 else t.clone() for t in ts]
+
+
 def project(x, wqk, pq, pv):
     """K1: q, k, v from x. CPU tensors take ``project_plain``."""
     if x.device.type == "cpu":
         return project_plain(x, wqk, pq, pv)
     _check_cuda_f32("axial_project", x, wqk, pq, pv)
+    if x.dim() != 4:
+        raise ValueError(f"axial_project: x must be (B, H, W, C), got "
+                         f"{tuple(x.shape)}")
     B, H, W, C = x.shape
     c8 = wqk.shape[0] // 2
     if wqk.shape != (2 * c8, C) or pq.shape != (3, 2 * c8) \
             or pv.shape != (4, C) or c8 < 1:
         raise ValueError(f"axial_project: bad constant shapes {wqk.shape} "
                          f"{pq.shape} {pv.shape} for C={C}")
-    x, wqk, pq, pv = (t.contiguous() for t in (x, wqk, pq, pv))
+    tile = project_tile(C, c8, B * H * W)
+    x, wqk, pq, pv = _aligned(*(t.contiguous() for t in (x, wqk, pq, pv)))
     q = torch.empty((B, H, W, c8), device=x.device, dtype=x.dtype)
     k = torch.empty_like(q)
     v = torch.empty_like(x)
     err = _lib().axial_project(D.ptr(x), D.ptr(wqk), D.ptr(pq), D.ptr(pv),
                                D.ptr(q), D.ptr(k), D.ptr(v), B * H * W, C,
-                               c8, D.stream_handle(x))
+                               c8, tile["rp"], tile["rj"],
+                               D.stream_handle(x))
     D.check_launch("axial_project", err)
     LAUNCHES["axial_project"] += 1
     return q, k, v
@@ -116,24 +224,35 @@ def project(x, wqk, pq, pv):
 
 def attend(q, k, v, x, gamma, criss_cross: bool):
     """K2: gamma * attention(q, k, v) + x. CPU tensors take
-    ``attend_plain``."""
+    ``attend_plain``. Vertical launches the column kernel, criss-cross the
+    joint-softmax kernel."""
     if x.device.type == "cpu":
         return attend_plain(q, k, v, x, gamma, criss_cross)
     _check_cuda_f32("axial_attend", q, k, v, x, gamma)
+    if x.dim() != 4:
+        raise ValueError(f"axial_attend: x must be (B, H, W, C), got "
+                         f"{tuple(x.shape)}")
     B, H, W, C = x.shape
     c8 = q.shape[-1]
     if q.shape != (B, H, W, c8) or k.shape != q.shape or v.shape != x.shape \
             or gamma.numel() != 1:
         raise ValueError("axial_attend: shape mismatch")
     lib = _lib()
-    if lib.axial_attend_smem(H, W, c8, int(criss_cross)) > _SMEM_LIMIT:
+    if criss_cross and lib.axial_attend_smem(H, W, c8) > _SMEM_LIMIT:
         raise ValueError(f"axial_attend: {H}x{W} exceeds the kernel's "
                          f"shared-memory tile")
-    q, k, v, x, gamma = (t.contiguous() for t in (q, k, v, x, gamma))
+    tile = None if criss_cross else vertical_tile(H, C, c8)
+    q, k, v, x, gamma = _aligned(*(t.contiguous()
+                                   for t in (q, k, v, x, gamma)))
     y = torch.empty_like(x)
-    err = lib.axial_attend(D.ptr(q), D.ptr(k), D.ptr(v), D.ptr(x),
-                           D.ptr(gamma), D.ptr(y), B, H, W, C, c8,
-                           int(criss_cross), D.stream_handle(x))
+    args = (D.ptr(q), D.ptr(k), D.ptr(v), D.ptr(x), D.ptr(gamma), D.ptr(y),
+            B, H, W, C, c8)
+    if criss_cross:
+        err = lib.axial_attend(*args, D.stream_handle(x))
+    else:
+        err = lib.axial_vertical(*args, tile["tc"], tile["rq"], tile["kch"],
+                                 tile["stages"], tile["qtiles"],
+                                 D.stream_handle(x))
     D.check_launch("axial_attend", err)
     LAUNCHES["axial_attend_criss_cross" if criss_cross
              else "axial_attend_vertical"] += 1

@@ -6,7 +6,8 @@ installed (``tests/conftest.py`` imports JAX, hence ``--noconftest``):
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py
 
-Tolerances: attention f32 atol = rtol = 1e-4 (summation order differs);
+Tolerances: attention f32 atol = rtol = 1e-4 (summation order differs; K1
+and K2's column kernel also bit-identical on a second call);
 NMS keep sets identical (K up to 8192, evaluation's max_nms); the row-3
 route (the train-form attention in eval() on K2) against the einsum path
 atol = rtol = 1e-4; the int8 kernels (K5 on the int8 tensor cores and
@@ -59,7 +60,7 @@ def cuda():
     return torch.device("cuda")
 
 
-def _attention_inputs(c, h, w, seed, device):
+def _attention_inputs(c, h, w, seed, device, batch=2):
     g = torch.Generator().manual_seed(seed)
     state = {}
     for name, t in AxialAttention(c, True).state_dict().items():
@@ -71,7 +72,7 @@ def _attention_inputs(c, h, w, seed, device):
         else:
             state[name] = 0.3 * torch.randn(t.shape, generator=g)
     packed = fuse_state_dict(state)
-    x = torch.randn((2, h, w, c), generator=g)
+    x = torch.randn((batch, h, w, c), generator=g)
     consts = [packed[k] for k in ("wqk", "pq", "pv", "gamma")]
     return [t.to(device) for t in (x, *consts)]
 
@@ -103,6 +104,73 @@ def test_wrappers_count_launches_and_refuse_bad_input(cuda):
         KN.nms_keep(torch.zeros((1, KN.MAX_K + 1, 4), device=cuda),
                     torch.ones((1, KN.MAX_K + 1), dtype=torch.bool,
                                device=cuda), 0.5)
+
+
+# (C, H, W) of the six CCVA blocks at 640 px, an odd map, and the P3 map of
+# 1280 px
+_K1_K2V_SHAPES = [(64, 80, 80), (32, 80, 80), (128, 40, 40), (64, 40, 40),
+                  (256, 20, 20), (128, 20, 20), (32, 13, 21), (64, 160, 160)]
+
+
+@pytest.mark.parametrize("batch", [1, 8])
+@pytest.mark.parametrize("shape", _K1_K2V_SHAPES)
+def test_project_and_vertical_column_kernel_match_plain(cuda, shape, batch):
+    """K1 and K2's column kernel against their plain versions; a second
+    call of each is bit-identical; vertical launches the column kernel
+    alone."""
+    x, wqk, pq, pv, gamma = _attention_inputs(*shape, seed=shape[0] + batch,
+                                              device=cuda, batch=batch)
+    with torch.no_grad():
+        reset_launch_counts()
+        q, k, v = KA.project(x, wqk, pq, pv)
+        for a, b in zip((q, k, v), KA.project_plain(x, wqk, pq, pv)):
+            torch.testing.assert_close(a, b, **TOL)
+        y = KA.attend(q, k, v, x, gamma, False)
+        torch.testing.assert_close(
+            y, KA.attend_plain(q, k, v, x, gamma, False), **TOL)
+        assert launch_counts()["axial_project"] == 1
+        assert launch_counts()["axial_attend_vertical"] == 1
+        assert launch_counts()["axial_attend_criss_cross"] == 0
+        for a, b in zip((q, k, v), KA.project(x, wqk, pq, pv)):
+            assert torch.equal(a, b)
+        assert torch.equal(y, KA.attend(q, k, v, x, gamma, False))
+
+
+@pytest.mark.parametrize("shape", [(384, 20, 20), (192, 40, 40),
+                                   (8, 13, 21)])
+def test_vertical_column_kernel_channel_tiles(cuda, shape):
+    """The P6 widths (three channel tiles, more than 48 KB of shared
+    memory at C = 384) and C = 8 (c8 = 1: 4-byte key copies)."""
+    x, wqk, pq, pv, gamma = _attention_inputs(*shape, seed=7, device=cuda)
+    with torch.no_grad():
+        q, k, v = KA.project(x, wqk, pq, pv)
+        for a, b in zip((q, k, v), KA.project_plain(x, wqk, pq, pv)):
+            torch.testing.assert_close(a, b, **TOL)
+        torch.testing.assert_close(
+            KA.attend(q, k, v, x, gamma, False),
+            KA.attend_plain(q, k, v, x, gamma, False), **TOL)
+
+
+def test_project_and_vertical_refuse_bad_input(cuda):
+    x, wqk, pq, pv, gamma = _attention_inputs(32, 8, 8, 0, cuda)
+    q, k, v = KA.project(x, wqk, pq, pv)
+    with pytest.raises(ValueError):                         # dtype
+        KA.project(x, wqk.double(), pq, pv)
+    with pytest.raises(ValueError):                         # device
+        KA.project(x, wqk.cpu(), pq, pv)
+    with pytest.raises(ValueError):                         # shape
+        KA.project(x, wqk[:, :16], pq, pv)
+    with pytest.raises(ValueError):                         # C % 4
+        xb = torch.randn(1, 4, 4, 10, device=cuda)
+        KA.project(xb, torch.zeros(2, 10, device=cuda),
+                   torch.zeros(3, 2, device=cuda),
+                   torch.zeros(4, 10, device=cuda))
+    with pytest.raises(ValueError):
+        KA.attend(q.half(), k, v, x, gamma, False)
+    with pytest.raises(ValueError):
+        KA.attend(q, k.cpu(), v, x, gamma, False)
+    with pytest.raises(ValueError):
+        KA.attend(q[:, :4], k, v, x, gamma, False)
 
 
 @pytest.mark.parametrize("k", [64, 1000, 4096, 8192])
