@@ -14,10 +14,13 @@ of those paths against its plain PyTorch version on the card.
 Phases, one JSON line each:
 
   1. device and build: the card, then nvcc of every csrc/*.cu (parallel)
-  2. kernels vs plain: axial attention (K1 projection, K2 both modes: the
-     column kernel for vertical, the joint-softmax kernel for criss-cross)
-     at the six 640-px CCVA shapes, batch 2, and at ATTN_EXTRA (odd maps,
-     C = 8, the 160-px map and the P6 widths of 1280 px), gamma 0.7,
+  2. kernels vs plain: axial attention (K1 projection, K2's line kernel in
+     both modes: the columns for vertical; for criss-cross a row pass, then
+     a column pass that merges the two under the joint softmax) at the six
+     640-px CCVA shapes, batch 2, and at ATTN_EXTRA (odd maps, C = 8, the
+     160-px map, the P6 widths of 1280 px and a 4 x 1600 map past the
+     48 KB of shared memory that the first criss-cross kernel needed), each
+     tile's shared memory against the kernel's formula, gamma 0.7,
      random BN constants, atol = rtol = 1e-4, a second call bit-identical;
      NMS keep masks on clustered boxes, zero-area
      duplicates and IoU exactly at the threshold, K = 1024 and 4096, keep
@@ -241,10 +244,12 @@ BF16_PEAK = 989e12     # H100 SXM dense bf16 tensor-core FLOP/s (data sheet)
 ATTN_SHAPES = [(64, 80, 80), (32, 80, 80), (128, 40, 40), (64, 40, 40),
                (256, 20, 20), (128, 20, 20)]
 # (c_, H, W, batch) held in phase 2 beside them: odd maps (C = 8 is the
-# tiny config's), the P3 map of 1280 px (cfg/rep_yolo_p6_aux.yaml) and the
-# P6 config's widths (192, 384: three channel tiles of the column kernel)
+# tiny config's), the P3 map of 1280 px (cfg/rep_yolo_p6_aux.yaml), the
+# P6 config's widths (192, 384: three channel tiles of the line kernel) and
+# a 4 x 1600 map (rows of 50 chunks in 7 query tiles)
 ATTN_EXTRA = [(32, 13, 21, 1), (32, 13, 21, 8), (8, 13, 21, 2),
-              (64, 160, 160, 2), (192, 40, 40, 2), (384, 20, 20, 2)]
+              (64, 160, 160, 2), (192, 40, 40, 2), (384, 20, 20, 2),
+              (8, 4, 1600, 1)]
 LINES: list[dict] = []
 
 
@@ -739,11 +744,13 @@ def phase_kernels(torch, dev, errs):
             raise AssertionError(f"project_tile's shared memory differs "
                                  f"from the kernel's at {ptile}")
         tile = KA.vertical_tile(h, c, c // 8)
-        if KA._lib().axial_vertical_smem(c // 8, tile["tc"], tile["rq"],
-                                         tile["kch"], tile["stages"]) \
-                != tile["smem"]:
-            raise AssertionError(f"vertical_tile's shared memory differs "
-                                 f"from the kernel's at {tile}")
+        cc_tiles = KA.criss_cross_tile(h, w, c, c // 8)
+        for t, mode in ((tile, KA.LINE_RAW), (cc_tiles["row"], KA.LINE_ROW),
+                        (cc_tiles["col"], KA.LINE_MERGE)):
+            if KA._lib().axial_line_smem(c // 8, t["tc"], t["rq"], t["kch"],
+                                         t["stages"], mode) != t["smem"]:
+                raise AssertionError(f"line_tile's shared memory differs "
+                                     f"from the kernel's at {t}")
         errs["axial_project"] = max(errs.get("axial_project", 0.0), e1)
         for cc in (True, False):
             name = "axial_attend_" + ("criss_cross" if cc else "vertical")
@@ -758,7 +765,7 @@ def phase_kernels(torch, dev, errs):
             e2 = float((y - yp).abs().max())
             errs[name] = max(errs.get(name, 0.0), e2)
             rows.append({"shape": [batch, h, w, c], "mode": name,
-                         **({} if cc else {"tile": tile}),
+                         "tile": cc_tiles if cc else tile,
                          "k1_err": e1, "k2_err": e2,
                          "k1k2_err": float((yf - yfp).abs().max()),
                          "second_call_identical": bool(same),
@@ -1528,7 +1535,8 @@ def phase_times(torch, dev, counts, errs):
                   "torch.matmul(x, wqk.t()) alone, q/k product only",
           "per_shape": per_shape,
           "previous_design_ms": {k: PREVIOUS_MS[k] for k in (
-              "axial_project", "axial_attend_vertical")}})
+              "axial_project", "axial_attend_vertical",
+              "axial_attend_criss_cross")}})
     return kernels
 
 
@@ -2613,7 +2621,11 @@ WGRAD_PER_STEP = sum(s[-1] for s in WGRAD_SHAPES)
 # st1s (now wgmma_f32) per xla_q8 forward, both at batch 4; K1 (8 pixels a
 # block, a serial dot product a thread) and K2 vertical (8 query pixels a
 # block, each warp walking its own column) per served batch of 4, and K2
-# vertical on the row-3 route per forward at batch 8
+# vertical on the row-3 route per forward at batch 8; K2 criss-cross in its
+# first design (axial_attend_kernel: 8 query pixels of one row a block, a
+# warp a query walking its row and column of k and v from L2, a thread a
+# channel summing W + H products) per served batch of 4 and on the row-3
+# route per forward at batch 8
 PREVIOUS_MS = {"wgrad3x3": 6.166, "conv1x1_cmajor_q8": 3.312,
                "conv1x1_q8": 3.949, "conv1x1_q8_backbone": 1.445,
                "conv1x1_pm_q8": 1.330, "dwconv5x5_f32w_q8": 0.634,
@@ -2621,7 +2633,9 @@ PREVIOUS_MS = {"wgrad3x3": 6.166, "conv1x1_cmajor_q8": 3.312,
                "conv3x3_q8_s2_dp4a": 0.210,
                "conv3x3_pm_q8_f32_dp4a": 0.652,
                "axial_project": 1.066, "axial_attend_vertical": 0.324,
-               "axial_attend_vertical_row3": 0.571}
+               "axial_attend_vertical_row3": 0.571,
+               "axial_attend_criss_cross": 0.449,
+               "axial_attend_criss_cross_row3": 0.817}
 # K10 / K11 per forward at batch 4 and 128 in their mma.sync design, before
 # wgmma, as this script measured them on the same card
 PREVIOUS_MS_CM = {"conv3x3_cmajor": {"4": 2.326, "128": 51.39},
@@ -3215,7 +3229,8 @@ def phase_times_eval(torch, dev, calls):
           "dwconv5x5_f32w_q8": list(timed.values()),
           "dwconv5x5_f32w_q8_per_forward": {k: agg[k] for k in TIME_KEYS},
           "previous_design_ms": {k: PREVIOUS_MS[k] for k in (
-              "dwconv5x5_f32w_q8", "axial_attend_vertical_row3")},
+              "dwconv5x5_f32w_q8", "axial_attend_vertical_row3",
+              "axial_attend_criss_cross_row3")},
           "axial_attend_row3": attn_shapes,
           "axial_attend_row3_per_forward": {
               m: {k: a[k] for k in TIME_KEYS} for m, a in attn.items()},

@@ -1,9 +1,9 @@
 // Fused axial (criss-cross / vertical) attention for Hopper, f32.
 //
 // Replaces rep_yolo_tpu/ops/pallas/axial_attention.py:criss_cross_fused_x
-// and vertical_fused_x (kernel body _axis_kernel_x), and vertical_fused
-// (the row-3 route). For x (B,H,W,C) NHWC and the packed deploy constants
-// of nn/blocks.py
+// and vertical_fused_x (kernel body _axis_kernel_x), and criss_cross_fused
+// / vertical_fused (the row-3 route). For x (B,H,W,C) NHWC and the packed
+// deploy constants of nn/blocks.py
 //   wqk (2*c8, C)  dense [Wq ; Wk] of the grouped 1x1 query/key convs
 //   pq  (3, 2*c8)  [[bq ; bk], [a_qk ; a_qk], [c_qk ; c_qk]]  (BN: y*a + c)
 //   pv  (4, C)     [wv, bv, a_v, c_v]  (depthwise value conv + BN)
@@ -16,8 +16,8 @@
 //   vertical:    the column energies used raw (no softmax)
 //   y = gamma * out + x
 //
-// Three kernels, all f32 FFMA (no tensor cores: TF32 would miss the 1e-4
-// gate, and each call is at most a few hundred MFLOP):
+// Two kernel templates, all f32 FFMA (no tensor cores: TF32 would miss the
+// 1e-4 gate, and each call is at most a few hundred MFLOP):
 //   K1 axial_project_kernel<RP, RJ>: a block takes TP = 32*RP pixels and a
 //      group of NG = 8*RJ of the 2*c8 q/k columns (2*c8 > 16 takes several
 //      groups, blockIdx.y). The pixel tile (TP*C contiguous floats), the
@@ -28,25 +28,36 @@
 //      32 pixel threads): 4 channels cost RP + RJ float4 reads from shared
 //      memory and 4*RP*RJ FMAs, summed over C in channel order. The SiLU /
 //      BN / ReLU6 epilogue runs in registers.
-//   K2 vertical, axial_vertical_kernel<RQ> (RQ >= 5: the register-capped
-//      axial_vertical_capped_kernel<RQ>): a block takes one column (b, w)
-//      of one image, a query tile of QT = TQ*RQ rows and a channel tile of
-//      CT = 4*TC channels (TQ*TC = 256 threads). It streams the column's
-//      keys in chunks of KCH rows: k and v of a chunk land once in shared
+//   K2, axial_attend_line_kernel<RQ, MODE> (RQ >= 5: the register-capped
+//      axial_attend_line_capped_kernel<RQ, MODE>), one body for a line of
+//      keys and values, a column or a row: a block takes one line of one
+//      image, a query tile of QT = TQ*RQ of its pixels and a channel tile
+//      of CT = 4*TC channels (TQ*TC = 256 threads). It streams the line's
+//      keys in chunks of KCH pixels: k and v of a chunk land once in shared
 //      memory by cp.async (16 bytes; up to 4 chunks in flight, which at 640
-//      px is the whole column), E = Q_tile K_chunk^T is formed in shared
+//      px is the whole line), E = Q_tile K_chunk^T is formed in shared
 //      memory four keys a thread, and O += E V_chunk accumulates in a
-//      register tile of RQ rows x 4 channels a thread (its E values read
-//      as float4s). Epilogue y = gamma O + x with 16-byte loads and
-//      stores. Shared memory depends on the tile and the chunk, not on H^2,
-//      so any H and W run (query tiles loop where H exceeds one tile).
-//   K2 criss-cross, axial_attend_kernel: one block per 8 query pixels of
-//      one row, one warp per query pixel for the energies and the softmax
-//      statistics; a block sees the whole row and column, so the joint
-//      softmax is direct and needs no flash-style merge of two branches.
+//      register tile of RQ pixels x 4 channels a thread (its E values read
+//      as float4s). Shared memory depends on the tile and the chunk, not on
+//      the line's length, so any H and W run (query tiles loop where a line
+//      exceeds one tile). The modes:
+//        LINE_RAW (vertical): the column's raw energies, y = gamma O + x.
+//        LINE_ROW (criss-cross, first): the row's energies under a softmax
+//          kept flash-style, a running max m and sum s a query, O rescaled
+//          by exp(m_before - m) when a chunk raises m; it writes the
+//          unnormalised O = sum exp(e - m) v, m and s (the row branch's
+//          outputs in criss_cross_fused_x).
+//        LINE_MERGE (criss-cross, second): the same over the column, and
+//          in its epilogue the merge of criss_cross_fused_x: a_w, a_h =
+//          exp(m_w - max(m_w, m_h)), exp(m_h - ...), y = gamma (O_w a_w +
+//          O_h a_h) / (s_w a_w + s_h a_h) + x. The centre pixel counts in
+//          both branches, as in the reference.
+//      What bounds it: the energy route's 2 L (c8 + C) FMAs a pixel from
+//      shared memory (L the line's length), against bytes that read each
+//      of q, k, v, x once and, for criss-cross, the row pass's O twice.
 //
 // The host code (ops/kernels/axial_attention.py: project_tile,
-// vertical_tile) picks the tiles and checks the shapes; these entries
+// line_tile) picks the tiles and checks the shapes; these entries
 // launch what they are given.
 
 #include <cuda_runtime.h>
@@ -203,7 +214,9 @@ axial_project_kernel(const float* __restrict__ x,
 }
 
 // ---------------------------------------------------------------------------
-// K2 vertical: the column kernel
+// K2: the line kernel. A line is a column (vertical; criss-cross's column
+// pass) or a row (criss-cross's row pass); a block stages its keys and
+// values once, in chunks, for all the queries of a tile on that line.
 // ---------------------------------------------------------------------------
 
 constexpr int V_THREADS = 256;
@@ -220,14 +233,28 @@ __host__ __device__ inline int key_pitch(int c8) {
 
 constexpr int V_MAX_STAGES = 4;
 
+// What a line block computes (the template's MODE, the C entry's mode).
+enum LineMode : int {
+    LINE_RAW = 0,       // vertical: raw column energies, y = gamma O + x
+    LINE_ROW = 1,       // criss-cross row pass: softmax statistics over the
+                        // row; writes O = sum exp(e - m) v unnormalised,
+                        // its max m and its sum s
+    LINE_MERGE = 2,     // criss-cross column pass: the same over the
+                        // column, merged with the row pass's O, m, s under
+                        // the joint softmax into y
+};
+
 // floats of shared memory: Qs [QT][kp], Ks NS x [KCH][kp], Vs NS x
-// [KCH][CT], Es [KCH][TQ * round4(RQ)]
-__host__ __device__ inline long long vertical_smem_floats(int c8, int TC,
-                                                          int RQ, int KCH,
-                                                          int NS) {
+// [KCH][CT], Es [KCH][QTP]; with the softmax also Al, Ms, Ss [QTP] (QTP =
+// TQ * round4(RQ) positions of an energy row)
+__host__ __device__ inline long long line_smem_floats(int c8, int TC, int RQ,
+                                                      int KCH, int NS,
+                                                      int mode) {
     const long long kp = key_pitch(c8), TQ = V_THREADS / TC;
+    const long long QTP = TQ * round4(RQ);
     return (TQ * RQ + (long long)NS * KCH) * kp
-        + (long long)NS * KCH * 4 * TC + (long long)KCH * TQ * round4(RQ);
+        + (long long)NS * KCH * 4 * TC
+        + (KCH + (mode != LINE_RAW ? 3 : 0)) * QTP;
 }
 
 __device__ __forceinline__ void cp_async_wait_n(int n) {
@@ -239,15 +266,20 @@ __device__ __forceinline__ void cp_async_wait_n(int n) {
     }
 }
 
-// grid (W, B, qtiles * ctiles), V_THREADS threads; TC a power of two
-// dividing V_THREADS, the query tile QT = (V_THREADS / TC) * RQ rows, KCH
-// a multiple of 4, NS stages (1..V_MAX_STAGES) of key chunks in flight.
-template <int RQ>
-__device__ __forceinline__ void vertical_body(
+// grid (lines of an image: W columns, or H rows for LINE_ROW; B; qtiles *
+// ctiles), V_THREADS threads; TC a power of two dividing V_THREADS, the
+// query tile QT = (V_THREADS / TC) * RQ pixels of the line, KCH a multiple
+// of 4, NS stages (1..V_MAX_STAGES) of key chunks in flight. po / pm / ps
+// are the row pass's partials (B, H, W, C) / (B, H, W) / (B, H, W): written
+// by LINE_ROW, read by LINE_MERGE (16-byte aligned), unused by LINE_RAW.
+template <int RQ, int MODE>
+__device__ __forceinline__ void line_body(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, const float* __restrict__ x,
-    const float* __restrict__ gamma, float* __restrict__ y, int H, int W,
-    int C, int c8, int TC, int KCH, int NS, int ctiles) {
+    const float* __restrict__ gamma, float* __restrict__ y,
+    float* __restrict__ po, float* __restrict__ pm, float* __restrict__ ps,
+    int H, int W, int C, int c8, int TC, int KCH, int NS, int ctiles) {
+    constexpr bool SOFTMAX = MODE != LINE_RAW, ROW = MODE == LINE_ROW;
     constexpr int RQP = (RQ + 3) / 4 * 4;      // a thread's rows in Es
     extern __shared__ __align__(16) float sm[];
     const int TQ = V_THREADS / TC, CT = 4 * TC, QT = TQ * RQ, QTP = TQ * RQP;
@@ -256,53 +288,67 @@ __device__ __forceinline__ void vertical_body(
     float* Ks = Qs + QT * kp;
     float* Vs = Ks + NS * KCH * kp;
     float* Es = Vs + NS * KCH * CT;
+    float* Al = Es + KCH * QTP;     // softmax: a position's rescale factor,
+    float* Ms = Al + QTP;           // running max
+    float* Ss = Ms + QTP;           // and running sum
 
     const int tid = threadIdx.x, tc = tid % TC, tq = tid / TC;
-    const int w = blockIdx.x, b = blockIdx.y;
+    const int b = blockIdx.y;
     const int q0 = (blockIdx.z / ctiles) * QT, c0 = (blockIdx.z % ctiles) * CT;
-    const long long col = (long long)b * H * W + w;   // pixel of row 0
+    // the line: L pixels ls apart from pixel `line` (row h = blockIdx.x, or
+    // column w = blockIdx.x, of image b)
+    const int L = ROW ? W : H;
+    const long long ls = ROW ? 1 : W;
+    const long long line = (long long)b * H * W
+        + (ROW ? (long long)blockIdx.x * W : (long long)blockIdx.x);
     const bool k16 = c8 % 4 == 0;
 
-    // the query tile, Qs[i][d] = q[b, q0 + i, w, d], zeros past c8 and H;
-    // the key stages' pad columns zeroed once (the copies never write them)
+    // the query tile, Qs[i][d] = q[line pixel q0 + i][d], zeros past c8
+    // and L; the key stages' pad columns zeroed once (the copies never
+    // write them); the softmax statistics started
     for (int idx = tid; idx < QT * c8p; idx += V_THREADS) {
         const int i = idx / c8p, d = idx % c8p;
-        Qs[i * kp + d] = q0 + i < H && d < c8
-            ? q[(col + (long long)(q0 + i) * W) * c8 + d] : 0.0f;
+        Qs[i * kp + d] = q0 + i < L && d < c8
+            ? q[(line + (long long)(q0 + i) * ls) * c8 + d] : 0.0f;
     }
     for (int idx = tid; idx < NS * KCH * (c8p - c8); idx += V_THREADS)
         Ks[(idx / (c8p - c8)) * kp + c8 + idx % (c8p - c8)] = 0.0f;
+    if constexpr (SOFTMAX)
+        for (int p = tid; p < QTP; p += V_THREADS) {
+            Ms[p] = -INFINITY;
+            Ss[p] = 0.0f;
+        }
 
-    const int nch = (H + KCH - 1) / KCH;
+    const int nch = (L + KCH - 1) / KCH;
     // chunk n's k rows and v rows (its channel tile) into stage n % NS
     auto issue = [&](int n) {
-        const int g0 = n * KCH, kn = min(KCH, H - g0);
+        const int g0 = n * KCH, kn = min(KCH, L - g0);
         float* kb = Ks + (n % NS) * KCH * kp;
         float* vb = Vs + (n % NS) * KCH * CT;
         if (k16) {
             for (int idx = tid; idx < kn * c8 / 4; idx += V_THREADS) {
                 const int g = idx / (c8 / 4), f = idx % (c8 / 4);
                 cp_async16(kb + g * kp + 4 * f,
-                           k + (col + (long long)(g0 + g) * W) * c8 + 4 * f);
+                           k + (line + (long long)(g0 + g) * ls) * c8 + 4 * f);
             }
         } else {
             for (int idx = tid; idx < kn * c8; idx += V_THREADS) {
                 const int g = idx / c8, d = idx % c8;
                 cp_async4(kb + g * kp + d,
-                          k + (col + (long long)(g0 + g) * W) * c8 + d);
+                          k + (line + (long long)(g0 + g) * ls) * c8 + d);
             }
         }
         for (int idx = tid; idx < kn * TC; idx += V_THREADS) {
             const int g = idx / TC, f = idx % TC;
             cp_async16(vb + g * CT + 4 * f,
-                       v + (col + (long long)(g0 + g) * W) * C + c0 + 4 * f);
+                       v + (line + (long long)(g0 + g) * ls) * C + c0 + 4 * f);
         }
         cp_async_commit();
     };
 
     // the energy step: query row ei of the tile, key groups of four from
-    // eg0 in steps of EG; row i is kept at (i % TQ) * RQP + i / TQ of an Es
-    // row, so a thread's RQ rows are adjacent
+    // eg0 in steps of EG; row i is kept at position (i % TQ) * RQP + i / TQ
+    // of an Es row, so a thread's RQ rows are adjacent
     const int EG = V_THREADS / QT, ei = tid % QT, eg0 = tid / QT;
     const int epos = (ei % TQ) * RQP + ei / TQ;
     const float* qi = Qs + ei * kp;
@@ -317,7 +363,7 @@ __device__ __forceinline__ void vertical_body(
         // are pending
         cp_async_wait_n(min(nch - 1, n + NS - 1) - n);
         __syncthreads();
-        const int kn = min(KCH, H - n * KCH);
+        const int kn = min(KCH, L - n * KCH);
         const float* kb = Ks + (n % NS) * KCH * kp;
         const float* vb = Vs + (n % NS) * KCH * CT;
         // E[g][i] = q[q0 + i] . k[g0 + g], four keys a thread, over c8 in
@@ -343,6 +389,45 @@ __device__ __forceinline__ void vertical_body(
                 Es[(g + 3) * QTP + epos] = e3;
             }
         __syncthreads();
+        if constexpr (SOFTMAX) {
+            // flash-style: a position's running max m takes the chunk's
+            // energies in, they become exp(e - m), and Al = exp(m_before -
+            // m) rescales what the earlier chunks summed (one thread a
+            // position, consecutive positions on consecutive threads)
+            for (int p = tid; p < QTP; p += V_THREADS) {
+                if (p % RQP >= RQ) continue;
+                float* ep = Es + p;
+                const float m0 = Ms[p];
+                float m = m0;
+                for (int g = 0; g < kn; ++g) m = fmaxf(m, ep[g * QTP]);
+                float s = 0.0f;
+                for (int g = 0; g < kn; ++g) {
+                    const float e = expf(ep[g * QTP] - m);
+                    ep[g * QTP] = e;
+                    s += e;
+                }
+                const float a = expf(m0 - m);      // 0 at the first chunk
+                Al[p] = a;
+                Ss[p] = Ss[p] * a + s;
+                Ms[p] = m;
+            }
+            __syncthreads();
+#pragma unroll
+            for (int r4 = 0; r4 < RQP; r4 += 4) {
+                const float4 a4 = *reinterpret_cast<const float4*>(
+                    Al + tq * RQP + r4);
+                const float av[4] = {a4.x, a4.y, a4.z, a4.w};
+#pragma unroll
+                for (int u = 0; u < 4; ++u) {
+                    if (r4 + u >= RQ) break;
+                    float4& acc = o[r4 + u];
+                    acc.x *= av[u];
+                    acc.y *= av[u];
+                    acc.z *= av[u];
+                    acc.w *= av[u];
+                }
+            }
+        }
         // O[i][c..c+3] += sum_g E[g][i] v[g0 + g][c..c+3], i = tq + TQ r
 #pragma unroll 2
         for (int g = 0; g < kn; ++g) {
@@ -370,124 +455,68 @@ __device__ __forceinline__ void vertical_body(
     const float gm = gamma[0];
 #pragma unroll
     for (int r = 0; r < RQ; ++r) {
-        const int h = q0 + tq + TQ * r;
-        if (h >= H) continue;
-        const long long off = (col + (long long)h * W) * C + c0 + 4 * tc;
-        const float4 xv = *reinterpret_cast<const float4*>(x + off);
-        float4 out;
-        out.x = gm * o[r].x + xv.x;
-        out.y = gm * o[r].y + xv.y;
-        out.z = gm * o[r].z + xv.z;
-        out.w = gm * o[r].w + xv.w;
-        *reinterpret_cast<float4*>(y + off) = out;
+        const int i = q0 + tq + TQ * r;
+        if (i >= L) continue;
+        const long long pix = line + (long long)i * ls;
+        const long long off = pix * C + c0 + 4 * tc;
+        if constexpr (MODE == LINE_ROW) {
+            *reinterpret_cast<float4*>(po + off) = o[r];
+            if (c0 == 0 && tc == 0) {
+                pm[pix] = Ms[tq * RQP + r];
+                ps[pix] = Ss[tq * RQP + r];
+            }
+        } else {
+            const float4 xv = *reinterpret_cast<const float4*>(x + off);
+            float4 t = o[r];
+            if constexpr (MODE == LINE_MERGE) {
+                // the merge of criss_cross_fused_x: both branches rescaled
+                // to their joint max, over their joint sum
+                const float mh = Ms[tq * RQP + r], sh = Ss[tq * RQP + r];
+                const float mw = pm[pix], sw = ps[pix];
+                const float mx = fmaxf(mw, mh);
+                const float aw = expf(mw - mx), ah = expf(mh - mx);
+                const float inv = 1.0f / (sw * aw + sh * ah);
+                const float4 ow = *reinterpret_cast<const float4*>(po + off);
+                t.x = (ow.x * aw + t.x * ah) * inv;
+                t.y = (ow.y * aw + t.y * ah) * inv;
+                t.z = (ow.z * aw + t.z * ah) * inv;
+                t.w = (ow.w * aw + t.w * ah) * inv;
+            }
+            float4 out;
+            out.x = gm * t.x + xv.x;
+            out.y = gm * t.y + xv.y;
+            out.z = gm * t.z + xv.z;
+            out.w = gm * t.w + xv.w;
+            *reinterpret_cast<float4*>(y + off) = out;
+        }
     }
 }
 
-#define VERTICAL_PARAMS                                                     \
+#define LINE_PARAMS                                                         \
     const float* __restrict__ q, const float* __restrict__ k,               \
         const float* __restrict__ v, const float* __restrict__ x,           \
-        const float* __restrict__ gamma, float* __restrict__ y, int H,      \
-        int W, int C, int c8, int TC, int KCH, int NS, int ctiles
+        const float* __restrict__ gamma, float* __restrict__ y,             \
+        float* __restrict__ po, float* __restrict__ pm,                     \
+        float* __restrict__ ps, int H, int W, int C, int c8, int TC,        \
+        int KCH, int NS, int ctiles
+#define LINE_ARGS \
+    q, k, v, x, gamma, y, po, pm, ps, H, W, C, c8, TC, KCH, NS, ctiles
 
-template <int RQ>
+template <int RQ, int MODE>
 __global__ void __launch_bounds__(V_THREADS)
-axial_vertical_kernel(VERTICAL_PARAMS) {
-    vertical_body<RQ>(q, k, v, x, gamma, y, H, W, C, c8, TC, KCH, NS, ctiles);
+axial_attend_line_kernel(LINE_PARAMS) {
+    line_body<RQ, MODE>(LINE_ARGS);
 }
 
 // Five or more rows a thread take 85-105 registers uncapped, two blocks an
 // SM, and the 80-px maps then run in two waves: these instances are capped
 // at three blocks an SM (a few spilled bytes cost less).
-template <int RQ>
+template <int RQ, int MODE>
 __global__ void __launch_bounds__(V_THREADS, 3)
-axial_vertical_capped_kernel(VERTICAL_PARAMS) {
-    vertical_body<RQ>(q, k, v, x, gamma, y, H, W, C, c8, TC, KCH, NS, ctiles);
+axial_attend_line_capped_kernel(LINE_PARAMS) {
+    line_body<RQ, MODE>(LINE_ARGS);
 }
-#undef VERTICAL_PARAMS
-
-// ---------------------------------------------------------------------------
-// K2 criss-cross
-// ---------------------------------------------------------------------------
-
-constexpr int TW = 8;           // query pixels per attention block (= warps)
-constexpr int THREADS = 256;
-
-__device__ __forceinline__ float warp_max(float a) {
-    for (int o = 16; o > 0; o >>= 1)
-        a = fmaxf(a, __shfl_xor_sync(0xffffffffu, a, o));
-    return a;
-}
-
-__device__ __forceinline__ float warp_sum(float a) {
-    for (int o = 16; o > 0; o >>= 1) a += __shfl_xor_sync(0xffffffffu, a, o);
-    return a;
-}
-
-// grid (ceil(W/TW), H, B), THREADS threads. Shared: e[TW][L] energies then
-// weights, qs[TW][c8] queries, den[TW] softmax denominators; L = W + H.
-__global__ void axial_attend_kernel(const float* __restrict__ q,
-                                    const float* __restrict__ k,
-                                    const float* __restrict__ v,
-                                    const float* __restrict__ x,
-                                    const float* __restrict__ gamma,
-                                    float* __restrict__ y,
-                                    int H, int W, int C, int c8) {
-    extern __shared__ float sm[];
-    const int nrow = W;
-    const int L = nrow + H;
-    float* e = sm;
-    float* qs = e + TW * L;
-    float* den = qs + TW * c8;
-
-    const int b = blockIdx.z, h = blockIdx.y, w0 = blockIdx.x * TW;
-    const long long img = (long long)b * H * W;
-    for (int i = threadIdx.x; i < TW * c8; i += blockDim.x) {
-        const int w = w0 + i / c8;
-        qs[i] = w < W ? q[(img + (long long)h * W + w) * c8 + i % c8] : 0.0f;
-    }
-    __syncthreads();
-
-    const int t = threadIdx.x / 32, lane = threadIdx.x % 32;
-    const int wq = w0 + t;
-    if (t < TW && wq < W) {
-        float* et = e + t * L;
-        const float* qt = qs + t * c8;
-        float m = -INFINITY;
-        for (int g = lane; g < L; g += 32) {
-            const float* kr = g < nrow
-                ? k + (img + (long long)h * W + g) * c8             // row: k[b,h,g]
-                : k + (img + (long long)(g - nrow) * W + wq) * c8;  // col: k[b,g,w]
-            float acc = 0.0f;
-            for (int c = 0; c < c8; ++c) acc = fmaf(qt[c], kr[c], acc);
-            et[g] = acc;
-            m = fmaxf(m, acc);
-        }
-        m = warp_max(m);
-        float s = 0.0f;
-        for (int g = lane; g < L; g += 32) {
-            const float p = expf(et[g] - m);
-            et[g] = p;
-            s += p;
-        }
-        s = warp_sum(s);
-        if (lane == 0) den[t] = s;
-    }
-    __syncthreads();
-
-    const float gm = gamma[0];
-    for (int i = threadIdx.x; i < TW * C; i += blockDim.x) {
-        const int ti = i / C, c = i % C, w = w0 + ti;
-        if (w >= W) continue;
-        const float* et = e + ti * L;
-        float acc = 0.0f;
-        for (int g = 0; g < nrow; ++g)
-            acc = fmaf(et[g], v[(img + (long long)h * W + g) * C + c], acc);
-        for (int g = 0; g < H; ++g)
-            acc = fmaf(et[nrow + g], v[(img + (long long)g * W + w) * C + c], acc);
-        const long long o = (img + (long long)h * W + w) * C + c;
-        y[o] = gm * (acc / den[ti]) + x[o];
-    }
-}
+#undef LINE_PARAMS
 
 template <int RP, int RJ>
 cudaError_t launch_project(const float* x, const float* wqk, const float* pq,
@@ -508,31 +537,33 @@ cudaError_t launch_project(const float* x, const float* wqk, const float* pq,
     return cudaGetLastError();
 }
 
-template <int RQ>
-auto vertical_kernel() {          // only the instance that launches is built
-    if constexpr (RQ >= 5) return axial_vertical_capped_kernel<RQ>;
-    else return axial_vertical_kernel<RQ>;
+template <int RQ, int MODE>
+auto line_kernel() {              // only the instance that launches is built
+    if constexpr (RQ >= 5) return axial_attend_line_capped_kernel<RQ, MODE>;
+    else return axial_attend_line_kernel<RQ, MODE>;
 }
 
-template <int RQ>
-cudaError_t launch_vertical(const float* q, const float* k, const float* v,
-                            const float* x, const float* gamma, float* y,
-                            int B, int H, int W, int C, int c8, int TC,
-                            int KCH, int NS, int qtiles, cudaStream_t stream) {
+template <int RQ, int MODE>
+cudaError_t launch_line(const float* q, const float* k, const float* v,
+                        const float* x, const float* gamma, float* y,
+                        float* po, float* pm, float* ps, int B, int H, int W,
+                        int C, int c8, int TC, int KCH, int NS, int qtiles,
+                        cudaStream_t stream) {
     const int ctiles = C / (4 * TC);
-    const size_t smem = (size_t)vertical_smem_floats(c8, TC, RQ, KCH, NS)
+    const size_t smem = (size_t)line_smem_floats(c8, TC, RQ, KCH, NS, MODE)
         * sizeof(float);
-    auto kernel = vertical_kernel<RQ>();
+    auto kernel = line_kernel<RQ, MODE>();
     if (smem > 48 * 1024) {
         const cudaError_t err = cudaFuncSetAttribute(
             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
         if (err != cudaSuccess) return err;
     }
-    dim3 grid((unsigned)W, (unsigned)B, (unsigned)(qtiles * ctiles));
-    kernel<<<grid, V_THREADS, smem, stream>>>(q, k, v, x, gamma, y, H, W, C,
-                                              c8, TC, KCH, NS, ctiles);
+    dim3 grid((unsigned)(MODE == LINE_ROW ? H : W), (unsigned)B,
+              (unsigned)(qtiles * ctiles));
+    kernel<<<grid, V_THREADS, smem, stream>>>(LINE_ARGS);
     return cudaGetLastError();
 }
+#undef LINE_ARGS
 
 }  // namespace
 
@@ -561,47 +592,37 @@ extern "C" int axial_project(const float* x, const float* wqk, const float* pq,
     }
 }
 
-extern "C" long long axial_vertical_smem(int c8, int TC, int RQ, int KCH,
-                                        int NS) {
-    return vertical_smem_floats(c8, TC, RQ, KCH, NS) * (long long)sizeof(float);
+
+extern "C" long long axial_line_smem(int c8, int TC, int RQ, int KCH, int NS,
+                                     int mode) {
+    return line_smem_floats(c8, TC, RQ, KCH, NS, mode)
+        * (long long)sizeof(float);
 }
 
-// K2 vertical with the tile of vertical_tile (ops/kernels/axial_attention.py):
-// TC channel-float4 threads, RQ query rows a thread, KCH key rows a chunk,
-// NS chunks in flight, qtiles query tiles.
-extern "C" int axial_vertical(const float* q, const float* k, const float* v,
-                              const float* x, const float* gamma, float* y,
-                              int B, int H, int W, int C, int c8, int TC,
-                              int RQ, int KCH, int NS, int qtiles,
-                              cudaStream_t stream) {
+// K2 with the tile of line_tile (ops/kernels/axial_attention.py): mode
+// LINE_RAW (vertical), LINE_ROW or LINE_MERGE (criss-cross's two passes,
+// launched in that order on one stream); TC channel-float4 threads, RQ
+// query pixels a thread, KCH key pixels a chunk, NS chunks in flight,
+// qtiles query tiles a line.
+extern "C" int axial_line(const float* q, const float* k, const float* v,
+                          const float* x, const float* gamma, float* y,
+                          float* po, float* pm, float* ps, int B, int H,
+                          int W, int C, int c8, int mode, int TC, int RQ,
+                          int KCH, int NS, int qtiles, cudaStream_t stream) {
     if (B <= 0 || H <= 0 || W <= 0) return 0;
     if (TC < 1 || V_THREADS % TC || C % (4 * TC) || KCH % 4 || KCH < 4
-        || NS < 1 || NS > V_MAX_STAGES)
+        || NS < 1 || NS > V_MAX_STAGES || qtiles < 1)
         return (int)cudaErrorInvalidValue;
-    switch (RQ) {
-#define K2V_CASE(R) \
-    case R: return (int)launch_vertical<R>(q, k, v, x, gamma, y, B, H, W, C, \
-                                           c8, TC, KCH, NS, qtiles, stream);
-        K2V_CASE(1) K2V_CASE(2) K2V_CASE(3) K2V_CASE(4) K2V_CASE(5)
-        K2V_CASE(6) K2V_CASE(7) K2V_CASE(8)
-#undef K2V_CASE
+    switch (10 * mode + RQ) {
+#define K2_CASE(M, R) \
+    case 10 * M + R: return (int)launch_line<R, M>( \
+        q, k, v, x, gamma, y, po, pm, ps, B, H, W, C, c8, TC, KCH, NS, \
+        qtiles, stream);
+#define K2_MODE(M) K2_CASE(M, 1) K2_CASE(M, 2) K2_CASE(M, 3) K2_CASE(M, 4) \
+    K2_CASE(M, 5) K2_CASE(M, 6) K2_CASE(M, 7) K2_CASE(M, 8)
+        K2_MODE(LINE_RAW) K2_MODE(LINE_ROW) K2_MODE(LINE_MERGE)
+#undef K2_MODE
+#undef K2_CASE
         default: return (int)cudaErrorInvalidValue;
     }
-}
-
-extern "C" long long axial_attend_smem(int H, int W, int c8) {
-    return (long long)(TW * (W + H) + TW * c8 + TW) * (long long)sizeof(float);
-}
-
-// K2 criss-cross.
-extern "C" int axial_attend(const float* q, const float* k, const float* v,
-                            const float* x, const float* gamma, float* y,
-                            int B, int H, int W, int C, int c8,
-                            cudaStream_t stream) {
-    if (B <= 0 || H <= 0 || W <= 0) return 0;
-    dim3 grid((W + TW - 1) / TW, H, B);
-    const size_t smem = (size_t)axial_attend_smem(H, W, c8);
-    axial_attend_kernel<<<grid, THREADS, smem, stream>>>(
-        q, k, v, x, gamma, y, H, W, C, c8);
-    return (int)cudaGetLastError();
 }

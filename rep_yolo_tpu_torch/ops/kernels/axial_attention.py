@@ -4,10 +4,11 @@ Replaces ``rep_yolo_tpu/ops/pallas/axial_attention.py``:
 ``criss_cross_fused_x`` / ``vertical_fused_x`` (kernel body
 ``_axis_kernel_x``) and, on the row-3 route, ``criss_cross_fused`` /
 ``vertical_fused``. Source: ``csrc/axial_attention.cu``: K1
-``axial_project`` (the q/k/v projection, 64-pixel tiles walking C in
-32-channel chunks); K2 in two kernels, ``axial_vertical`` (raw column
-energies: one column a block, keys streamed in chunks) and
-``axial_attend`` (criss-cross: the joint softmax).
+``axial_project`` (the q/k/v projection, 32 / 64-pixel tiles of the whole
+C); K2 ``axial_line``, one line kernel (a block a column or a row, its keys
+and values streamed once in chunks) in three modes: vertical (raw column
+energies), and criss-cross as a row pass (softmax statistics, partials
+out) then a column pass that merges the two under the joint softmax.
 
 Layouts follow the TPU kernel: x ``(B, H, W, C)`` f32; packed deploy
 constants ``wqk (2*c8, C)``, ``pq (3, 2*c8)``, ``pv (4, C)`` (see
@@ -28,19 +29,20 @@ from rep_yolo_tpu_torch import device as D
 LAUNCHES = {"axial_project": 0, "axial_attend_criss_cross": 0,
             "axial_attend_vertical": 0}
 
-_SMEM_LIMIT = 48 * 1024          # the criss-cross kernel's tile
 SMEM_MAX = 232448                # bytes of shared memory a block may use
-THREADS = 256                    # threads a block, K1 and K2 vertical
+THREADS = 256                    # threads a block, K1 and K2
 NUM_SMS = 132                    # H100 SXM: K1 picks its pixel tile by it
 
 # K1: P_TJ column threads x 32 pixel threads, rp pixels and rj columns a
 # thread
 P_TJ = 8
-# K2 vertical: at most V_MAX_TC channel float4s and V_MAX_RQ query rows a
-# thread, at most V_MAX_QT query rows a tile
+# K2: at most V_MAX_TC channel float4s and V_MAX_RQ query pixels a thread,
+# at most V_MAX_QT query pixels a tile
 V_MAX_TC, V_MAX_RQ, V_MAX_QT = 64, 8, 256
 V_MAX_STAGES = 4                 # key chunks in flight
 V_SMEM_BUDGET = 96 * 1024        # fewer stages past this (2 blocks an SM)
+# K2's modes (LineMode in csrc/axial_attention.cu)
+LINE_RAW, LINE_ROW, LINE_MERGE = 0, 1, 2
 
 
 def _lib():
@@ -51,14 +53,10 @@ def _lib():
         lib.axial_project.restype = i32
         lib.axial_project_smem.argtypes = [i32] * 3
         lib.axial_project_smem.restype = i64
-        lib.axial_vertical.argtypes = [vp] * 6 + [i32] * 10 + [vp]
-        lib.axial_vertical.restype = i32
-        lib.axial_vertical_smem.argtypes = [i32] * 5
-        lib.axial_vertical_smem.restype = i64
-        lib.axial_attend.argtypes = [vp] * 6 + [i32] * 5 + [vp]
-        lib.axial_attend.restype = i32
-        lib.axial_attend_smem.argtypes = [i32] * 3
-        lib.axial_attend_smem.restype = i64
+        lib.axial_line.argtypes = [vp] * 9 + [i32] * 11 + [vp]
+        lib.axial_line.restype = i32
+        lib.axial_line_smem.argtypes = [i32] * 6
+        lib.axial_line_smem.restype = i64
         lib._typed = True
     return lib
 
@@ -95,48 +93,64 @@ def project_tile(C: int, c8: int, npix: int) -> dict:
 
 
 def key_pitch(c8: int) -> int:
-    """Floats a staged query / key row of the column kernel: c8 padded to
+    """Floats a staged query / key row of the line kernel: c8 padded to
     whole float4s, plus one float4 where that count is even."""
     p = -(-c8 // 4) * 4
     return p if (p // 4) % 2 else p + 4
 
 
 @functools.lru_cache(maxsize=None)
-def vertical_tile(H: int, C: int, c8: int) -> dict:
-    """K2 vertical's tile for an H-row column of C channels: ``tc``
-    channel float4s and ``tq`` = 256 / tc query rows of threads, ``rq``
-    rows a thread, so a block covers ``qt`` = tq * rq query rows and ``ct``
-    = 4 * tc channels (``qtiles`` x ``ctiles`` blocks a column); keys in
-    chunks of ``kch`` rows, ``stages`` of them in flight (the whole column
-    where it has at most 4 chunks and fits V_SMEM_BUDGET); ``smem`` the
-    dynamic shared memory in bytes (the formula of
-    ``axial_vertical_smem``). Raises ValueError where no tile fits."""
-    if C < 4 or C % 4 or c8 < 1 or H < 1:
-        raise ValueError(f"axial_vertical: C = {C} must be a positive "
+def line_tile(L: int, C: int, c8: int, mode: int = LINE_RAW) -> dict:
+    """K2's tile for a line (a column or a row) of L pixels and C channels:
+    ``tc`` channel float4s and ``tq`` = 256 / tc query pixels of threads,
+    ``rq`` pixels a thread, so a block covers ``qt`` = tq * rq query pixels
+    and ``ct`` = 4 * tc channels (``qtiles`` x ``ctiles`` blocks a line);
+    keys in chunks of ``kch`` pixels, ``stages`` of them in flight (the
+    whole line where it has at most 4 chunks and fits V_SMEM_BUDGET);
+    ``mode`` LINE_RAW (vertical), LINE_ROW or LINE_MERGE (criss-cross's
+    passes, which add the running softmax statistics); ``smem`` the dynamic
+    shared memory in bytes (the formula of ``axial_line_smem``). Raises
+    ValueError where no tile fits."""
+    if C < 4 or C % 4 or c8 < 1 or L < 1:
+        raise ValueError(f"axial_attend: C = {C} must be a positive "
                          f"multiple of 4 (16-byte staging), c8 = {c8}, "
-                         f"H = {H}")
+                         f"line of {L}")
     tc = 1
     while tc < V_MAX_TC and (C // 4) % (2 * tc) == 0:
         tc *= 2
     tq = THREADS // tc
-    qtiles = -(-H // min(V_MAX_RQ * tq, V_MAX_QT))
-    rows = -(-H // qtiles)                       # query rows a tile, at most
+    qtiles = -(-L // min(V_MAX_RQ * tq, V_MAX_QT))
+    rows = -(-L // qtiles)                       # query pixels a tile, at most
     rq = -(-rows // tq)
     qt = tq * rq
     ct = 4 * tc
+    qtp = tq * -(-rq // 4) * 4                   # positions of an energy row
     kch = 32 if ct <= 128 else 16
-    for stages in range(min(-(-H // kch), V_MAX_STAGES), 0, -1):
+    stats = 3 if mode != LINE_RAW else 0         # Al, Ms, Ss
+    for stages in range(min(-(-L // kch), V_MAX_STAGES), 0, -1):
         floats = ((qt + stages * kch) * key_pitch(c8) + stages * kch * ct
-                  + kch * tq * -(-rq // 4) * 4)
+                  + (kch + stats) * qtp)
         smem = 4 * floats
         if smem <= V_SMEM_BUDGET or stages == 1:
             break
     if smem > SMEM_MAX:
-        raise ValueError(f"axial_vertical: the tile of H={H}, C={C} needs "
-                         f"{smem} bytes of shared memory")
+        raise ValueError(f"axial_attend: the tile of a line of {L}, C={C}, "
+                         f"c8={c8} needs {smem} bytes of shared memory")
     return {"tc": tc, "tq": tq, "rq": rq, "qt": qt, "ct": ct,
             "ctiles": C // ct, "qtiles": qtiles, "kch": kch,
             "stages": stages, "smem": smem}
+
+
+def vertical_tile(H: int, C: int, c8: int) -> dict:
+    """K2 vertical's tile: ``line_tile`` of an H-pixel column."""
+    return line_tile(H, C, c8)
+
+
+def criss_cross_tile(H: int, W: int, C: int, c8: int) -> dict:
+    """K2 criss-cross's tiles: ``row`` for the row pass (a W-pixel row),
+    ``col`` for the merging column pass (an H-pixel column)."""
+    return {"row": line_tile(W, C, c8, LINE_ROW),
+            "col": line_tile(H, C, c8, LINE_MERGE)}
 
 
 # ---------------------------------------------------------------------------
@@ -224,8 +238,9 @@ def project(x, wqk, pq, pv):
 
 def attend(q, k, v, x, gamma, criss_cross: bool):
     """K2: gamma * attention(q, k, v) + x. CPU tensors take
-    ``attend_plain``. Vertical launches the column kernel, criss-cross the
-    joint-softmax kernel."""
+    ``attend_plain``. Vertical launches the line kernel on the columns;
+    criss-cross launches its row pass, then its column pass, which merges
+    the row pass's partials (allocated here) under the joint softmax."""
     if x.device.type == "cpu":
         return attend_plain(q, k, v, x, gamma, criss_cross)
     _check_cuda_f32("axial_attend", q, k, v, x, gamma)
@@ -237,23 +252,28 @@ def attend(q, k, v, x, gamma, criss_cross: bool):
     if q.shape != (B, H, W, c8) or k.shape != q.shape or v.shape != x.shape \
             or gamma.numel() != 1:
         raise ValueError("axial_attend: shape mismatch")
-    lib = _lib()
-    if criss_cross and lib.axial_attend_smem(H, W, c8) > _SMEM_LIMIT:
-        raise ValueError(f"axial_attend: {H}x{W} exceeds the kernel's "
-                         f"shared-memory tile")
-    tile = None if criss_cross else vertical_tile(H, C, c8)
+    if criss_cross:
+        tiles = criss_cross_tile(H, W, C, c8)
+        passes = ((LINE_ROW, tiles["row"]), (LINE_MERGE, tiles["col"]))
+    else:
+        passes = ((LINE_RAW, vertical_tile(H, C, c8)),)
     q, k, v, x, gamma = _aligned(*(t.contiguous()
                                    for t in (q, k, v, x, gamma)))
     y = torch.empty_like(x)
-    args = (D.ptr(q), D.ptr(k), D.ptr(v), D.ptr(x), D.ptr(gamma), D.ptr(y),
-            B, H, W, C, c8)
-    if criss_cross:
-        err = lib.axial_attend(*args, D.stream_handle(x))
+    if criss_cross:         # the row pass's O (unnormalised), max and sum
+        part = torch.empty(B * H * W * (C + 2), device=x.device,
+                           dtype=x.dtype)
+        o_w, m_w, s_w = part.split([B * H * W * C, B * H * W, B * H * W])
+        partials = (D.ptr(o_w), D.ptr(m_w), D.ptr(s_w))
     else:
-        err = lib.axial_vertical(*args, tile["tc"], tile["rq"], tile["kch"],
-                                 tile["stages"], tile["qtiles"],
-                                 D.stream_handle(x))
-    D.check_launch("axial_attend", err)
+        partials = (None, None, None)
+    lib, stream = _lib(), D.stream_handle(x)
+    ptrs = [D.ptr(a) for a in (q, k, v, x, gamma, y)]
+    for mode, t in passes:
+        err = lib.axial_line(*ptrs, *partials, B, H, W, C, c8, mode,
+                             t["tc"], t["rq"], t["kch"], t["stages"],
+                             t["qtiles"], stream)
+        D.check_launch("axial_attend", err)
     LAUNCHES["axial_attend_criss_cross" if criss_cross
              else "axial_attend_vertical"] += 1
     return y

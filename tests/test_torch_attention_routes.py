@@ -1,20 +1,22 @@
-"""Host code of K1 ``axial_project`` and K2's column kernel (vertical mode),
-on the CPU: the tiles the wrappers pick (``project_tile``,
-``vertical_tile``) and their shared memory against the card's limit at the
-flagship's six CCVA shapes at 640 px, the P3 map of 1280 px (H = W = 160),
-the P6 config's widths and odd maps; torch models of the two kernels'
-tilings against the plain versions; and the wrappers on CPU tensors (their
-plain versions, no launch).
+"""Host code of K1 ``axial_project`` and K2's line kernel in its vertical
+mode (a column a block), on the CPU: the tiles the wrappers pick
+(``project_tile``, ``vertical_tile``) and their shared memory against the
+card's limit at the flagship's six CCVA shapes at 640 px, the P3 map of
+1280 px (H = W = 160), the P6 config's widths and odd maps; torch models
+of the two kernels' tilings against the plain versions; and the wrappers
+on CPU tensors (their plain versions, no launch).
 
 The models follow the kernels' loops: K1 takes tiles of 32 * rp pixels
 and groups of 8 * rj of the 2*c8 columns (the last group padded with zero
 weights), sums the whole of C in channel order into a thread's register
 tile of rp pixels x rj columns, and splits v among the groups by
-contiguous channel ranges; the column kernel walks
-one column a block, a query tile of tq * rq rows, a channel tile of 4 * tc
-channels, the keys in chunks of kch rows (E = Q K_chunk^T over c8 in
-order, then O += E V_chunk over the chunk's rows in order) and a thread's
-register tile of rq rows x 4 channels. Tolerance: within 1e-5 of the plain
+contiguous channel ranges; the line kernel (``_line_model``) walks
+one line a block (here a column), a query tile of tq * rq pixels, a
+channel tile of 4 * tc channels, the keys in chunks of kch pixels (E = Q
+K_chunk^T over c8 in order, then O += E V_chunk over the chunk's keys in
+order) and a thread's register tile of rq pixels x 4 channels. Its
+criss-cross passes are held in ``tests/test_torch_criss_cross_routes.py``.
+Tolerance: within 1e-5 of the plain
 version, relative to each element and to the tensor's largest magnitude
 (the same float32 products summed in another order).
 """
@@ -74,7 +76,7 @@ def test_tiles_fit_shared_memory(C, H, W, batch):
     assert 1 <= t["rq"] <= KA.V_MAX_RQ and t["qt"] == t["tq"] * t["rq"]
     assert t["qt"] * t["qtiles"] >= H > t["qt"] * (t["qtiles"] - 1)
     assert t["ct"] * t["ctiles"] == C and t["kch"] % 4 == 0
-    # the formula of axial_vertical_smem (csrc/axial_attention.cu)
+    # the formula of axial_line_smem (csrc/axial_attention.cu)
     kp = KA.key_pitch(c8)
     assert kp % 4 == 0 and (kp // 4) % 2 == 1 and kp >= c8
     ns = t["stages"]
@@ -153,43 +155,83 @@ def _project_model(x, wqk, pq, pv):
     return y[..., :c8], y[..., c8:], v
 
 
-def _vertical_model(q, k, v, x, gamma):
-    """K2's column kernel as it tiles the work: every column (b, w) at once,
-    then query tiles, channel tiles, key chunks and register tiles."""
-    B, H, W, C = x.shape
-    c8 = q.shape[-1]
-    t = KA.vertical_tile(H, C, c8)
+def _line_model(ql, kl, vl, t, softmax):
+    """K2's line kernel as it tiles the work, on line-major inputs (B, N,
+    L, .): every line (b, n) at once, then query tiles, channel tiles, key
+    chunks and register tiles. ``softmax`` (criss-cross's passes): each
+    query's running max m and sum s over the chunks so far; a chunk's
+    energies become exp(e - m) and what the earlier chunks summed is
+    rescaled by exp(m_before - m). Returns O (B, N, L, C) and, with the
+    softmax, m and s (B, N, L); the kernel writes the statistics from its
+    first channel tile."""
+    B, N, L, c8 = ql.shape
+    C = vl.shape[-1]
     tq, tc, rq, qt, ct, kch = (t[n] for n in ("tq", "tc", "rq", "qt", "ct",
                                               "kch"))
-    qc = q.permute(0, 2, 1, 3)                      # (B, W, H, c8) columns
-    kc_, vc, xc = (a.permute(0, 2, 1, 3) for a in (k, v, x))
-    y = torch.full((B, W, H, C), float("nan"))
+    out = torch.full((B, N, L, C), float("nan"))
+    m_out = torch.full((B, N, L), float("nan"))
+    s_out = torch.full((B, N, L), float("nan"))
     for qi in range(t["qtiles"]):
         q0 = qi * qt
-        qs = torch.zeros(B, W, qt, c8)
-        rows = min(qt, H - q0)
-        qs[:, :, :rows] = qc[:, :, q0:q0 + rows]
+        qs = torch.zeros(B, N, qt, c8)
+        rows = min(qt, L - q0)
+        qs[:, :, :rows] = ql[:, :, q0:q0 + rows]
         for ci in range(t["ctiles"]):
             c0 = ci * ct
-            # register tiles: thread (tq_, tc_) holds rows tq_ + tq r and
-            # channels c0 + 4 tc_ .. + 3
-            o = torch.zeros(B, W, rq, tq, tc, 4)
-            for g0 in range(0, H, kch):
-                kn = min(kch, H - g0)
-                kb = kc_[:, :, g0:g0 + kn]            # (B, W, kn, c8)
-                vb = vc[:, :, g0:g0 + kn, c0:c0 + ct]  # (B, W, kn, ct)
-                e = torch.zeros(B, W, kn, qt)
+            # register tiles: thread (tq_, tc_) holds query pixels tq_ + tq r
+            # and channels c0 + 4 tc_ .. + 3; the statistics by (r, tq_)
+            o = torch.zeros(B, N, rq, tq, tc, 4)
+            m = torch.full((B, N, rq, tq), float("-inf"))
+            s = torch.zeros(B, N, rq, tq)
+            for g0 in range(0, L, kch):
+                kn = min(kch, L - g0)
+                kb = kl[:, :, g0:g0 + kn]             # (B, N, kn, c8)
+                vb = vl[:, :, g0:g0 + kn, c0:c0 + ct]  # (B, N, kn, ct)
+                e = torch.zeros(B, N, kn, qt)
                 for d in range(c8):                 # E over c8 in order
                     e += kb[..., d, None] * qs[:, :, None, :, d]
-                er = e.reshape(B, W, kn, rq, tq)
-                vr = vb.reshape(B, W, kn, tc, 4)
-                for g in range(kn):                 # O over the chunk's rows
+                er = e.reshape(B, N, kn, rq, tq)
+                if softmax:
+                    mc = torch.maximum(m, er.amax(2))
+                    er = torch.exp(er - mc[:, :, None])
+                    a = torch.exp(m - mc)           # 0 at the first chunk
+                    s = s * a + er.sum(2)
+                    m = mc
+                    o = o * a[..., None, None]
+                vr = vb.reshape(B, N, kn, tc, 4)
+                for g in range(kn):                 # O over the chunk's keys
                     o += er[:, :, g, :, :, None, None] * vr[:, :, g, None,
                                                             None]
-            out = o.reshape(B, W, qt, ct)[:, :, :rows]
-            y[:, :, q0:q0 + rows, c0:c0 + ct] = \
-                gamma * out + xc[:, :, q0:q0 + rows, c0:c0 + ct]
-    return y.permute(0, 2, 1, 3)
+            out[:, :, q0:q0 + rows, c0:c0 + ct] = \
+                o.reshape(B, N, qt, ct)[:, :, :rows]
+            if ci == 0:
+                m_out[:, :, q0:q0 + rows] = m.reshape(B, N, qt)[:, :, :rows]
+                s_out[:, :, q0:q0 + rows] = s.reshape(B, N, qt)[:, :, :rows]
+    return (out, m_out, s_out) if softmax else out
+
+
+def _vertical_model(q, k, v, x, gamma):
+    """K2 vertical: the line model over the columns, raw energies."""
+    B, H, W, C = x.shape
+    t = KA.vertical_tile(H, C, q.shape[-1])
+    o = _line_model(*(a.transpose(1, 2) for a in (q, k, v)), t, False)
+    return gamma * o.transpose(1, 2) + x
+
+
+def _criss_cross_model(q, k, v, x, gamma):
+    """K2 criss-cross: the row pass (the line model over the rows, partials
+    O_w, m_w, s_w), then the column pass over the columns and its merge
+    under the joint softmax, as the kernel's epilogue computes it."""
+    B, H, W, C = x.shape
+    t = KA.criss_cross_tile(H, W, C, q.shape[-1])
+    o_w, m_w, s_w = _line_model(q, k, v, t["row"], True)
+    o_h, m_h, s_h = (a.transpose(1, 2) for a in _line_model(
+        *(a.transpose(1, 2) for a in (q, k, v)), t["col"], True))
+    mx = torch.maximum(m_w, m_h)
+    a_w, a_h = torch.exp(m_w - mx), torch.exp(m_h - mx)
+    den = s_w * a_w + s_h * a_h
+    return gamma * ((o_w * a_w[..., None] + o_h * a_h[..., None])
+                    / den[..., None]) + x
 
 
 ROUTE_SHAPES = [(c, h, w, 1) for c, h, w in CCVA_640] + [

@@ -7,7 +7,7 @@ installed (``tests/conftest.py`` imports JAX, hence ``--noconftest``):
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py
 
 Tolerances: attention f32 atol = rtol = 1e-4 (summation order differs; K1
-and K2's column kernel also bit-identical on a second call);
+and K2, vertical and criss-cross, also bit-identical on a second call);
 NMS keep sets identical (K up to 8192, evaluation's max_nms); the row-3
 route (the train-form attention in eval() on K2) against the einsum path
 atol = rtol = 1e-4; the int8 kernels (K5 on the int8 tensor cores and
@@ -78,7 +78,8 @@ def _attention_inputs(c, h, w, seed, device, batch=2):
 
 
 @pytest.mark.parametrize("criss_cross", [True, False])
-@pytest.mark.parametrize("shape", [(64, 40, 40), (32, 13, 21), (256, 20, 20)])
+@pytest.mark.parametrize("shape", [(64, 40, 40), (32, 13, 21), (256, 20, 20),
+                                   (32, 21, 13), (8, 4, 1600)])
 def test_attention_kernels_match_plain(cuda, criss_cross, shape):
     x, wqk, pq, pv, gamma = _attention_inputs(*shape, seed=shape[1], device=cuda)
     with torch.no_grad():
@@ -151,6 +152,30 @@ def test_vertical_column_kernel_channel_tiles(cuda, shape):
             KA.attend_plain(q, k, v, x, gamma, False), **TOL)
 
 
+@pytest.mark.parametrize("batch", [1, 8])
+@pytest.mark.parametrize("shape", _K1_K2V_SHAPES + [(384, 20, 20),
+                                                    (8, 13, 21), (8, 4, 1600),
+                                                    (16, 45, 100)])
+def test_criss_cross_row_and_column_passes_match_plain(cuda, shape, batch):
+    """K2 criss-cross (the row pass, then the column pass that merges the
+    two under the joint softmax) against its plain version at the CCVA
+    shapes, the P3 map of 1280 px, a P6 width, C = 8, lines that are not a
+    multiple of the chunk, and a 4 x 1600 map past the 48 KB that the
+    first criss-cross kernel needed; a second call is bit-identical; one
+    wrapper call counts one launch."""
+    x, wqk, pq, pv, gamma = _attention_inputs(*shape, seed=shape[2] + batch,
+                                              device=cuda, batch=batch)
+    with torch.no_grad():
+        q, k, v = KA.project_plain(x, wqk, pq, pv)
+        reset_launch_counts()
+        y = KA.attend(q, k, v, x, gamma, True)
+        assert launch_counts()["axial_attend_criss_cross"] == 1
+        assert launch_counts()["axial_attend_vertical"] == 0
+        torch.testing.assert_close(
+            y, KA.attend_plain(q, k, v, x, gamma, True), **TOL)
+        assert torch.equal(y, KA.attend(q, k, v, x, gamma, True))
+
+
 def test_project_and_vertical_refuse_bad_input(cuda):
     x, wqk, pq, pv, gamma = _attention_inputs(32, 8, 8, 0, cuda)
     q, k, v = KA.project(x, wqk, pq, pv)
@@ -171,6 +196,8 @@ def test_project_and_vertical_refuse_bad_input(cuda):
         KA.attend(q, k.cpu(), v, x, gamma, False)
     with pytest.raises(ValueError):
         KA.attend(q[:, :4], k, v, x, gamma, False)
+    with pytest.raises(ValueError):
+        KA.attend(q.half(), k, v, x, gamma, True)
 
 
 @pytest.mark.parametrize("k", [64, 1000, 4096, 8192])
