@@ -23,8 +23,10 @@ Phases, one JSON line each:
      tile's shared memory against the kernel's formula, gamma 0.7,
      random BN constants, atol = rtol = 1e-4, a second call bit-identical;
      NMS keep masks on clustered boxes, zero-area
-     duplicates and IoU exactly at the threshold, K = 1024 and 4096, keep
-     sets identical (and equal to the greedy oracle at K = 1024)
+     duplicates, IoU exactly at the threshold, identical boxes (one kept),
+     disjoint boxes (all kept) and no valid slot, K = 1024 and 4096 at
+     batch 2 and ragged K (1, 63, 65, 1000 at batch 8; 4097 at batch 3),
+     keep sets identical (and equal to the greedy oracle up to K = 1024)
   3. golden: tests/golden/model_weights.npz -> fuse -> predict at 256 px vs
      model_io.npz zf, rtol 5e-3, atol 2e-2
   4. attention visible end to end: the same weights with every gamma 0.5, at
@@ -38,8 +40,8 @@ Phases, one JSON line each:
   7. times: per kernel at the served shapes (batch 4), the median of 20
      CUDA-event timed runs of 10 back-to-back calls each, beside the plain
      version and the bound (K1 also beside torch.matmul(x, wqk.t()) alone,
-     "q/k product only", a partial yardstick); end-to-end ms of one served
-     batch
+     "q/k product only", a partial yardstick; K3 also its mask kernel and
+     its scan apart); end-to-end ms of one served batch
 
 and for the int8 path:
 
@@ -174,9 +176,9 @@ cli.test, the checkpoints; the counts zeroed before each evaluation and read
 after it):
 
   16. kernels_eval_vs_plain (with the kernels, before training): K3 at
-     evaluation's K = 8192 on clustered boxes, zero-area duplicates and IoU
-     exactly at the threshold, keep sets identical to the plain version and,
-     on one image, to the greedy oracle; K12 dwconv5x5_f32w_q8 at the 18
+     evaluation's K = 8192 on phase 2's cases (batch 2), keep sets
+     identical to the plain version and, on one image of the clustered
+     boxes, to the greedy oracle; K12 dwconv5x5_f32w_q8 at the 18
      depthwise 5x5 calls of one int8 forward with Q8Region(dw5_dense=False)
      (batch 8, evaluation's; recorded on the way as in 5c), as 2b; the
      row-3 route (a train-form attention block in eval(), q, k, v
@@ -326,15 +328,23 @@ def attention_cost(c, h, w, batch, criss_cross):
     return (k1_bytes, k1_flops), (k2_bytes, k2_flops)
 
 
-def nms_cases(device, ks=(1024, 4096), batch=2, seed=0):
-    """(name, boxes (B,K,4), valid (B,K), thr) cases for the NMS check."""
+# (K, batch) of the NMS check's ragged cases: one partial tile, one tile and
+# a bit, a partial last tile at the served size, 65 tiles
+NMS_RAGGED = ((1, 8), (63, 8), (65, 8), (1000, 8), (4097, 3))
+
+
+def nms_cases(device, ks=(1024, 4096), batch=2, seed=0, ragged=NMS_RAGGED):
+    """(name, boxes (B,K,4), valid (B,K), thr) cases for the NMS check: for
+    each K of ``ks`` at ``batch``, then each (K, batch) of ``ragged``:
+    clustered boxes, zero-area duplicates, pairs at IoU exactly the
+    threshold, every box identical (one kept), all disjoint (all kept), no
+    valid slot."""
     import numpy as np
     import torch
 
     rng = np.random.default_rng(seed)
     cases = []
-    B = batch
-    for K in ks:
+    for K, B in [(k, batch) for k in ks] + list(ragged):
         centers = rng.uniform(0, 640, (B, 24, 2))
         pick = rng.integers(0, 24, (B, K))
         c = np.take_along_axis(centers, pick[..., None], 1) \
@@ -349,11 +359,20 @@ def nms_cases(device, ks=(1024, 4096), batch=2, seed=0):
         cases.append((f"zero_area_dups_K{K}", dup, valid, 0.45))
         # pairs at IoU exactly 0.5 (= thr: kept): [x, y, x+32, y+8] then
         # [x, y, x+16, y+8], inter 128, union 256, all exact in f32
-        xy = rng.integers(0, 75, (B, K // 2, 2)) * 8.0
+        xy = rng.integers(0, 75, (B, (K + 1) // 2, 2)) * 8.0
         edge = np.empty((B, K, 4))
         for j, wd in ((0, 32.0), (1, 16.0)):
-            edge[:, j::2] = np.concatenate([xy, xy + [wd, 8.0]], -1)
+            edge[:, j::2] = np.concatenate([xy, xy + [wd, 8.0]], -1)[
+                :, : edge[:, j::2].shape[1]]
         cases.append((f"iou_at_threshold_K{K}", edge, valid, 0.5))
+        all_valid = np.ones((B, K), bool)
+        cases.append((f"identical_K{K}",
+                      np.tile([10.0, 20.0, 50.0, 70.0], (B, K, 1)),
+                      all_valid, 0.45))
+        g = np.arange(K)[:, None] * 64.0
+        cases.append((f"disjoint_K{K}", np.tile(np.concatenate(
+            [g, g * 0, g + 32, g * 0 + 32], -1), (B, 1, 1)), all_valid, 0.45))
+        cases.append((f"no_valid_K{K}", boxes, ~all_valid, 0.45))
     return [(n, torch.as_tensor(b, dtype=torch.float32, device=device),
              torch.as_tensor(v, device=device), t) for n, b, v, t in cases]
 
@@ -773,16 +792,26 @@ def phase_kernels(torch, dev, errs):
             if not same:
                 raise AssertionError(f"a second call differs: {rows[-1]}")
     torch.cuda.synchronize()
+    for k in sorted({1, 1024, KN.MAX_K} | {k for k, _ in NMS_RAGGED}):
+        if (KN._lib().nms_mask_words(k), KN._lib().nms_scan_smem(k)) \
+                != (KN.mask_words(k), KN.scan_smem(k)):
+            raise AssertionError(f"the NMS mask layout differs from the "
+                                 f"kernel's at K={k}")
     nms_rows = []
     for name, boxes, valid, thr in nms_cases(dev):
         keep = KN.nms_keep(boxes, valid, thr)
         ref = KN.nms_keep_plain(boxes, valid, thr)
         same = bool(torch.equal(keep, ref))
-        row = {"case": name, "kept": int(keep.sum()), "identical": same}
-        if boxes.shape[1] == 1024:
+        row = {"case": name, "batch": boxes.shape[0], "kept": int(keep.sum()),
+               "identical": same}
+        if boxes.shape[1] <= 1024:
             oracle = N._greedy_keep(boxes.cpu(), valid.cpu(), thr)
             row["greedy_identical"] = bool(torch.equal(keep.cpu(), oracle))
             same &= row["greedy_identical"]
+        if name.startswith("identical"):
+            same &= keep.sum(1).tolist() == [1] * boxes.shape[0]
+        if name.startswith("disjoint"):
+            same &= bool(keep.all())
         nms_rows.append(row)
         if not same:
             raise AssertionError(f"NMS keep mask differs: {row}")
@@ -1268,24 +1297,45 @@ def _category(name: str) -> str:
     return "elementwise / other"
 
 
-def profiled(torch, fn, reps: int, counts: bool = False):
-    """Run ``fn`` ``reps`` times under torch.profiler: (host wall ms per
-    run, {kernel name: device ms per run}, device events recorded; with
-    ``counts``, {kernel name: events recorded})."""
+# The profiler has lost a prefix of a window's device events: after the
+# training phases 12-20 events of every window, and in one run one event of
+# every window from the timing phases on. So every window opens with
+# PROLOGUE launches of the spin kernel behind ``torch.cuda._sleep`` (no
+# memory traffic), which take up such a loss and are left out of every sum
+# and count; ``profiled_whole`` lengthens the prologue where none of it was
+# recorded.
+PROLOGUE = 32
+SPIN_CYCLES = 100_000       # ~50 us a launch at the H100's clock
+SPIN = "spin_kernel"
+
+
+def profiled(torch, fn, reps: int, counts: bool = False,
+             prologue: int = PROLOGUE):
+    """Run ``fn`` ``reps`` times under torch.profiler, after ``prologue``
+    spin launches: (host wall ms per run, {kernel name: device ms per run},
+    device events recorded; with ``counts``, {kernel name: events
+    recorded}; spin events recorded). The spin kernel is in none of the
+    first three."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        for _ in range(prologue):
+            torch.cuda._sleep(SPIN_CYCLES)
+        torch.cuda.synchronize()
         t = time.perf_counter()
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t) * 1e3 / reps
     names: dict[str, float] = {}
-    events, per_name = 0, {}
+    events, per_name, spins = 0, {}, 0
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        if SPIN in e.key:
+            spins += e.count
             continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
@@ -1294,7 +1344,7 @@ def profiled(torch, fn, reps: int, counts: bool = False):
             names[e.key] = names.get(e.key, 0.0) + us / 1e3 / reps
             events += e.count
             per_name[e.key] = per_name.get(e.key, 0) + e.count
-    return wall, names, per_name if counts else events
+    return wall, names, per_name if counts else events, spins
 
 
 def profiled_whole(torch, fn, reps: int, tries: int = 5,
@@ -1304,19 +1354,26 @@ def profiled_whole(torch, fn, reps: int, tries: int = 5,
     with ``per_name``, of each kernel name's events. The profiler now and
     then drops some or all of a window's events (about one window in a
     hundred on the card, a one-call window among them), so such a window is
-    measured again; after a window with no device event at all, a pause
+    measured again: with a prologue four times as long where the loss took
+    all of it, and after a window with no device event at all, a pause
     first (one chip run lost every event of five windows in a row)."""
+    prologue = PROLOGUE
     for _ in range(tries):
-        wall, names, events = profiled(torch, fn, reps, counts=per_name)
+        wall, names, events, spins = profiled(torch, fn, reps,
+                                              counts=per_name,
+                                              prologue=prologue)
         whole = (all(n % reps == 0 for n in events.values()) if per_name
                  else events % reps == 0)
         if events and whole:
             return wall, names, events
+        if not spins:
+            prologue *= 4
         if not events:
             torch.cuda.synchronize()
             time.sleep(0.5)
     raise AssertionError(f"the profiler recorded {events} device events "
-                         f"for {reps} calls in each of {tries} tries")
+                         f"for {reps} calls in each of {tries} tries (the "
+                         f"last after a prologue of {prologue} launches)")
 
 
 FLUSH_BYTES = 256 << 20     # > 5x the H100's 50 MB L2
@@ -1377,7 +1434,7 @@ def _profile_once(torch, engine, x, reps, whole=True):
     engine.infer(x)
     wall, names, _ = (profiled_whole(torch, lambda: engine.infer(x), reps)
                       if whole else profiled(torch, lambda: engine.infer(x),
-                                             reps))
+                                             reps)[:3])
     cats: dict[str, float] = {}
     for name, ms in names.items():
         c = _category(name)
@@ -1501,10 +1558,7 @@ def phase_times(torch, dev, counts, errs):
     boxes = torch.as_tensor(np.concatenate([c - wh / 2, c + wh / 2], -1),
                             dtype=torch.float32, device=dev)
     valid = torch.ones((batch, K), dtype=torch.bool, device=dev)
-    t = kernel_times(torch, lambda: KN.nms_keep(boxes, valid, 0.45),
-                     lambda: KN.nms_keep_plain(boxes, valid, 0.45))
-    nb, nf = batch * K * (16 + 1 + 1), batch * K * (K - 1) / 2 * 12
-    t.update(zip(("bound_ms", "bound_by"), bound(nb, nf)), bytes=nb, ops=nf)
+    t = nms_times(torch, boxes, valid, 0.45)
     add_times(agg["nms_keep"], t)
     reset_launch_counts()
 
@@ -1521,6 +1575,8 @@ def phase_times(torch, dev, counts, errs):
              "rep_yolo_tpu/ops/pallas/nms_kernel.py:97")):
         kernels.append(kernel_row(name, src, replaces, counts[name],
                                   errs[name], agg[name], F32_PEAK))
+    kernels[3].update(mask_ms=t["mask_ms"], scan_ms=t["scan_ms"],
+                      previous_design_ms=PREVIOUS_MS["nms_keep"])
     kernels[0]["qk_product_only_ms"] = agg["axial_project"][
         "qk_product_only_ms"]
     kernels[0]["qk_product_only"] = "torch.matmul(x, wqk.t()) alone: a " \
@@ -1528,7 +1584,8 @@ def phase_times(torch, dev, counts, errs):
     emit({"phase": "times", "ok": True, "batch": batch,
           "note": f"attention rows sum the six {SIZE}-px CCVA shapes of one "
                   "served batch (the projection twice per CCVA); nms_keep "
-                  "at K=1024, batch 4; ms, plain_ms: device time under the "
+                  "at K=1024, batch 4 (mask_ms, scan_ms: its two kernels "
+                  "launched apart); ms, plain_ms: device time under the "
                   "profiler from a cold L2, 10 calls after 3 warm-ups; "
                   "event_ms: CUDA events, median of 20 runs of 10 "
                   "back-to-back calls (L2-warm); qk_product_only_ms: "
@@ -1536,8 +1593,27 @@ def phase_times(torch, dev, counts, errs):
           "per_shape": per_shape,
           "previous_design_ms": {k: PREVIOUS_MS[k] for k in (
               "axial_project", "axial_attend_vertical",
-              "axial_attend_criss_cross")}})
+              "axial_attend_criss_cross", "nms_keep")}})
     return kernels
+
+
+def nms_times(torch, boxes, valid, thr) -> dict:
+    """K3's times at one input (``kernel_times``), its mask kernel and scan
+    timed apart (``mask_ms``, ``scan_ms``: device time under the profiler,
+    as ``ms``), and its bound: the boxes read and the keep mask written once,
+    K (K - 1) / 2 IoUs of 12 operations."""
+    from rep_yolo_tpu_torch.ops.kernels import nms as KN
+
+    t = kernel_times(torch, lambda: KN.nms_keep(boxes, valid, thr),
+                     lambda: KN.nms_keep_plain(boxes, valid, thr))
+    mask_fn, scan_fn, _ = KN.nms_stages(boxes, valid, thr)
+    mask_fn()
+    t["mask_ms"] = device_ms(torch, mask_fn)
+    t["scan_ms"] = device_ms(torch, scan_fn)
+    B, K = valid.shape
+    nb, nf = B * K * (16 + 1 + 1), B * K * (K - 1) / 2 * 12
+    t.update(zip(("bound_ms", "bound_by"), bound(nb, nf)), bytes=nb, ops=nf)
+    return t
 
 
 def phase_times_q8(torch, dev, counts, errs, calls):
@@ -1608,6 +1684,8 @@ def phase_times_q8(torch, dev, counts, errs, calls):
         if name == "spp_pools_q8":
             row["library_call"] = ("a sequence: three F.max_pool2d and a "
                                    "torch.cat on the f32 map")
+        if name == "dwconv5x5_q8":
+            row["previous_design_ms"] = PREVIOUS_MS[name]
         if name == "conv3x3_q8":
             routes = route_rows(by_route, {
                 r: counts[f"conv3x3_q8@{r}"] for r in K4_ROUTES})
@@ -1645,7 +1723,7 @@ def phase_times_q8(torch, dev, counts, errs, calls):
           "conv3x3_q8_by_route": kernels[0]["routes"],
           "previous_design_ms": {k: PREVIOUS_MS[k] for k in (
               "conv1x1_q8", "conv1x1_q8_backbone", "conv3x3_q8",
-              "conv3x3_q8_s2_dp4a")}})
+              "conv3x3_q8_s2_dp4a", "dwconv5x5_q8")}})
     return kernels
 
 
@@ -1695,8 +1773,11 @@ def phase_kernels_neck(torch, engine, x, errs):
         "K7, K8": {"dwconv5x5_q8", "spp_pools_q8"} <= seen}
     if not all(need.values()):
         raise AssertionError(f"the neck's calls lack a case: {need}")
+    k7 = [r for r in rows if r["kernel"] == "dwconv5x5_q8"]
     emit({"phase": "kernels_neck_vs_plain", "ok": True, "batch": 4,
           "calls": len(rows), "cases": need,
+          "dwconv5x5_q8_bit_exact": f"{sum(r['max_abs_err'] == 0 for r in k7)}"
+                                    f" of {len(k7)} calls",
           "tolerance": "int8 identical but for +-1 LSB on <= 1e-4 of the "
                        "elements; f32 out atol = rtol = 1e-5; pools (K6, "
                        "K8) identical", "rows": rows})
@@ -2625,7 +2706,11 @@ WGRAD_PER_STEP = sum(s[-1] for s in WGRAD_SHAPES)
 # first design (axial_attend_kernel: 8 query pixels of one row a block, a
 # warp a query walking its row and column of k and v from L2, a thread a
 # channel summing W + H products) per served batch of 4 and on the row-3
-# route per forward at batch 8
+# route per forward at batch 8; K3 in its first design (the full K x K/64
+# mask, one warp an image scanning the rows with a global load a kept row)
+# at K = 1024, batch 4, and at K = 8192, batch 8; K7 in its first design
+# (16 x 16 pixels a block, a thread a pixel of 16 channels, 4-byte staging)
+# per served int8 forward at batch 4
 PREVIOUS_MS = {"wgrad3x3": 6.166, "conv1x1_cmajor_q8": 3.312,
                "conv1x1_q8": 3.949, "conv1x1_q8_backbone": 1.445,
                "conv1x1_pm_q8": 1.330, "dwconv5x5_f32w_q8": 0.634,
@@ -2635,7 +2720,9 @@ PREVIOUS_MS = {"wgrad3x3": 6.166, "conv1x1_cmajor_q8": 3.312,
                "axial_project": 1.066, "axial_attend_vertical": 0.324,
                "axial_attend_vertical_row3": 0.571,
                "axial_attend_criss_cross": 0.449,
-               "axial_attend_criss_cross_row3": 0.817}
+               "axial_attend_criss_cross_row3": 0.817,
+               "nms_keep": 0.304, "nms_keep_k8192": 1.535,
+               "dwconv5x5_q8": 0.213}
 # K10 / K11 per forward at batch 4 and 128 in their mma.sync design, before
 # wgmma, as this script measured them on the same card
 PREVIOUS_MS_CM = {"conv3x3_cmajor": {"4": 2.326, "128": 51.39},
@@ -3021,8 +3108,10 @@ def phase_profiler_after_training(torch, dev, reps: int = 10,
                                   windows: int = 3):
     """Profiler windows of K9 (with the L2 flush's PyTorch kernel before
     each call) after the training phases: the device events recorded per
-    kernel name against the launches made. A report: in such windows the
-    profiler has lost the first events of a window, of every kernel alike."""
+    kernel name against the launches made, and the prologue's spin events
+    recorded against its PROLOGUE launches. A report: in such windows the
+    profiler has lost the first events of a window, of every kernel alike,
+    which the prologue is there to take up."""
     kfn = wgrad_case(torch, WGRAD_SHAPES[0], dev, 300)[0]
     flush, _ = l2_flush(torch)
 
@@ -3032,12 +3121,14 @@ def phase_profiler_after_training(torch, dev, reps: int = 10,
 
     for _ in range(3):
         call()
-    seen = [profiled(torch, call, reps, counts=True)[2]
+    seen = [profiled(torch, call, reps, counts=True)[2:]
             for _ in range(windows)]
     emit({"phase": "profiler_after_training", "ok": True,
           "calls_per_window": reps, "shape": list(WGRAD_SHAPES[0][:5]),
           "events_per_window": [{k[:48]: n for k, n in w.items()}
-                                for w in seen]})
+                                for w, _ in seen],
+          "prologue_launches": PROLOGUE,
+          "prologue_events_per_window": [n for _, n in seen]})
 
 
 # ---------------------------------------------------------------------------
@@ -3085,7 +3176,8 @@ def phase_kernels_eval(torch, dev, errs, x):
     from rep_yolo_tpu_torch.serve import build_engine
 
     nms_rows = []
-    for name, boxes, valid, thr in nms_cases(dev, ks=(EVAL_K,), seed=1):
+    for name, boxes, valid, thr in nms_cases(dev, ks=(EVAL_K,), seed=1,
+                                             ragged=()):
         keep = KN.nms_keep(boxes, valid, thr)
         ref = KN.nms_keep_plain(boxes, valid, thr)
         same = bool(torch.equal(keep, ref))
@@ -3206,14 +3298,11 @@ def phase_times_eval(torch, dev, calls):
             attn_shapes.append({"mode": mode,
                                 "shape": [EVAL_BATCH, h, w, c], **t})
     boxes = [c for c in nms_cases(dev, ks=(EVAL_K,), batch=EVAL_BATCH,
-                                  seed=2) if c[0].startswith("clustered")]
+                                  seed=2, ragged=())
+             if c[0].startswith("clustered")]
     _, b, v, thr = boxes[0]
     K = EVAL_K
-    nms = kernel_times(torch, lambda: KN.nms_keep(b, v, thr),
-                       lambda: KN.nms_keep_plain(b, v, thr))
-    nb, nf = EVAL_BATCH * K * (16 + 1 + 1), EVAL_BATCH * K * (K - 1) / 2 * 12
-    nms.update(zip(("bound_ms", "bound_by"), bound(nb, nf)), bytes=nb,
-               ops=nf)
+    nms = nms_times(torch, b, v, thr)
     reset_launch_counts()
     emit({"phase": "times_eval", "ok": True,
           "note": f"dwconv5x5_f32w_q8: the {DW5_PER_FORWARD} calls of one "
@@ -3222,7 +3311,8 @@ def phase_times_eval(torch, dev, calls):
                   "cuDNN's f32 depthwise conv of the same shape; "
                   "axial_attend_*_row3: K2 at the six CCVA shapes at batch "
                   f"{EVAL_BATCH}, summed per forward; nms_keep at "
-                  f"K={K}, batch {EVAL_BATCH}, clustered boxes; ms, plain_ms, "
+                  f"K={K}, batch {EVAL_BATCH}, clustered boxes (mask_ms, "
+                  "scan_ms: its two kernels launched apart); ms, plain_ms, "
                   "library_ms: device time under the profiler from a cold L2, "
                   "10 calls after 3 warm-ups; event_ms: CUDA events, median of "
                   "20 runs of 10 back-to-back calls (L2-warm)",
@@ -3230,7 +3320,7 @@ def phase_times_eval(torch, dev, calls):
           "dwconv5x5_f32w_q8_per_forward": {k: agg[k] for k in TIME_KEYS},
           "previous_design_ms": {k: PREVIOUS_MS[k] for k in (
               "dwconv5x5_f32w_q8", "axial_attend_vertical_row3",
-              "axial_attend_criss_cross_row3")},
+              "axial_attend_criss_cross_row3", "nms_keep_k8192")},
           "axial_attend_row3": attn_shapes,
           "axial_attend_row3_per_forward": {
               m: {k: a[k] for k in TIME_KEYS} for m, a in attn.items()},
@@ -3523,6 +3613,8 @@ def eval_rows(counts, errs, dw_agg, attn_agg, attn_err,
                            "rep_yolo_tpu/ops/pallas/nms_kernel.py:97",
                            counts["fused_f32"]["nms_keep"],
                            errs["nms_keep"], nms_t, F32_PEAK))
+    rows[-1].update(mask_ms=nms_t["mask_ms"], scan_ms=nms_t["scan_ms"],
+                    previous_design_ms=PREVIOUS_MS["nms_keep_k8192"])
     for mode, line in (("criss_cross", 295), ("vertical", 330)):
         rows.append(kernel_row(
             f"axial_attend_{mode}_row3",

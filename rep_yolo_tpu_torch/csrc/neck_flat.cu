@@ -7,10 +7,13 @@
 // quantized per output channel (zeros off the diagonal change no maximum and
 // add nothing to a sum), the int8 products sum exactly in s32, and the
 // epilogue is K4's (q8_common.cuh). Only the diagonal is computed here.
-// Bound: bytes (25 int8 multiply-adds per output byte); one thread per output
-// pixel and 16 channels reads a halo'd 20 x 20 tile staged in shared memory.
-// No __dp4a: a depthwise conv sums over taps, not over channels, so each
-// channel keeps its own s32 sum of byte products.
+// Bound: bytes (25 int8 multiply-adds per output byte). The block and thread
+// shapes are K12's (below): 32 channels a block, one a lane, five output
+// columns a thread walking the staged rows, the tile staged by 16-byte loads.
+// A depthwise conv sums over taps, not channels, so a thread packs the four
+// int8 inputs of taps 0-3 of a kernel row into one word in registers (a byte
+// permute, then one funnel shift a column) and takes that row's sum as one
+// __dp4a with its packed weights plus one multiply-add for tap 4.
 //
 // K8 spp_pools_q8 replaces rep_yolo_tpu/ops/pallas/neck_flat.py:spp_pools_flat:
 // SPPCSPC's stride-1 max pyramid, emitting the concat [x, mp5, mp9, mp13]
@@ -39,11 +42,12 @@
 // 5 adjacent output columns, its 25 weights in registers, and walks down the
 // tile's input rows: each input row is read once (9 bytes, each turned into
 // float32 once) and feeds the five output rows it belongs to, whose sums stay
-// in registers until their fifth row arrives. The tile height (16, 8 or 4
-// rows) is the tallest that still gives two blocks an SM, so the small maps
-// fill the card.
+// in registers until their fifth row arrives. The tile height (16, 8, 4, 2
+// or 1 rows, chosen by the wrapper: ops/kernels/neck_flat.dw5_tile) is the
+// tallest that still gives four blocks an SM, so the small maps spread over
+// the card.
 //
-// Layout: channels-last int8 (B, H, W, C); C a multiple of 4 for K7 and K8.
+// Layout: channels-last int8 (B, H, W, C); C a multiple of 4 for K8.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -53,91 +57,7 @@
 namespace {
 
 // ---------------------------------------------------------------------------
-// K7: depthwise 5x5, stride 1, pad 2
-// ---------------------------------------------------------------------------
-
-constexpr int DW_T = 16;           // output tile: 16 x 16 pixels, one a thread
-constexpr int DW_R = DW_T + 4;     // staged rows and columns (2-pixel halo)
-constexpr int DW_G = 4;            // channel words (16 channels) per block
-constexpr int DW_THREADS = DW_T * DW_T;
-
-__device__ __forceinline__ int32_t sbyte(int32_t v, int q) {
-    return (int32_t)(int8_t)(v >> (8 * q));
-}
-
-// x (B, H, W, 4*CW) int8 as words; w (CW, 25) words, word (g, tap) holding
-// channels 4g..4g+3 at that tap; s_w, bias (4*CW,); y (B, H, W, 4*CW).
-template <bool F32_OUT>
-__global__ void __launch_bounds__(DW_THREADS)
-dwconv5x5_q8_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__ w,
-                    const float* __restrict__ s_w, const float* __restrict__ bias,
-                    void* __restrict__ y, int H, int W, int CW, int tiles_x,
-                    float s_in, float inv_out, int act) {
-    __shared__ int32_t s_x[DW_G][DW_R * DW_R];
-    __shared__ int32_t s_wt[DW_G][25];
-    const int tile = blockIdx.x, g0 = blockIdx.y * DW_G, b = blockIdx.z;
-    const int ty0 = (tile / tiles_x) * DW_T, tx0 = (tile % tiles_x) * DW_T;
-    const int ng = min(DW_G, CW - g0);
-
-    for (int i = threadIdx.x; i < DW_R * DW_R * DW_G; i += DW_THREADS) {
-        const int g = i % DW_G, pix = i / DW_G;
-        const int ry = pix / DW_R, rx = pix - ry * DW_R;
-        const int iy = ty0 - 2 + ry, ix = tx0 - 2 + rx;
-        int32_t v = 0;
-        if (g < ng && iy >= 0 && iy < H && ix >= 0 && ix < W)
-            v = x[(((long long)b * H + iy) * W + ix) * CW + g0 + g];
-        s_x[g][pix] = v;
-    }
-    for (int i = threadIdx.x; i < DW_G * 25; i += DW_THREADS) {
-        const int g = i / 25, t = i - 25 * g;
-        s_wt[g][t] = g < ng ? w[(long long)(g0 + g) * 25 + t] : 0;
-    }
-    __syncthreads();
-
-    const int ly = threadIdx.x / DW_T, lx = threadIdx.x - ly * DW_T;
-    const int oy = ty0 + ly, ox = tx0 + lx;
-    if (oy >= H || ox >= W) return;
-    const long long pix = ((long long)b * H + oy) * W + ox;
-    for (int g = 0; g < ng; ++g) {
-        int32_t acc[4] = {0, 0, 0, 0};
-#pragma unroll
-        for (int ky = 0; ky < 5; ++ky)
-#pragma unroll
-            for (int kx = 0; kx < 5; ++kx) {
-                const int32_t xv = s_x[g][(ly + ky) * DW_R + lx + kx];
-                const int32_t wv = s_wt[g][ky * 5 + kx];
-#pragma unroll
-                for (int q = 0; q < 4; ++q) acc[q] += sbyte(xv, q) * sbyte(wv, q);
-            }
-        const int c0 = 4 * (g0 + g);
-        float v[4];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) v[q] = epi(acc[q], s_w[c0 + q], s_in, bias[c0 + q], act);
-        if (F32_OUT) {
-            *(float4*)((float*)y + pix * 4 * CW + c0) = make_float4(v[0], v[1], v[2], v[3]);
-        } else {
-            uint32_t word = 0;
-#pragma unroll
-            for (int q = 0; q < 4; ++q)
-                word |= ((uint32_t)(quant1(v[q], inv_out) & 0xff)) << (8 * q);
-            ((uint32_t*)y)[pix * CW + g0 + g] = word;
-        }
-    }
-}
-
-template <bool F32_OUT>
-cudaError_t launch_dw(const int32_t* x, const int32_t* w, const float* s_w,
-                      const float* bias, void* y, int B, int H, int W, int CW,
-                      float s_in, float inv_out, int act, cudaStream_t stream) {
-    const int tiles_x = (W + DW_T - 1) / DW_T;
-    dim3 grid(tiles_x * ((H + DW_T - 1) / DW_T), (CW + DW_G - 1) / DW_G, B);
-    dwconv5x5_q8_kernel<F32_OUT><<<grid, DW_THREADS, 0, stream>>>(
-        x, w, s_w, bias, y, H, W, CW, tiles_x, s_in, inv_out, act);
-    return cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
-// K12: depthwise 5x5 on float32 weights, stride 1, pad 2
+// K7 and K12: depthwise 5x5, stride 1, pad 2, on one staging and walk
 // ---------------------------------------------------------------------------
 
 constexpr int FW_NX = 5;                  // output columns a thread
@@ -150,33 +70,17 @@ constexpr int FW_TY = 16;                 // output rows a block, at most
 constexpr int FW_ITEMS = (FW_TY + 4) * FW_RX * 2;   // 16-byte loads, at most
 constexpr int FW_IPT = (FW_ITEMS + FW_THREADS - 1) / FW_THREADS;
 
-// The float32 value of a staged int8 byte b: 2^23 + (b ^ 0x80) is
-// 2^23 + 128 + x exactly, so one logic op and one exact add.
-__device__ __forceinline__ float byte_to_float(uint32_t b) {
-    return __fadd_rn(__int_as_float(0x4B000000u | (b ^ 0x80u)), -8388736.0f);
-}
-
-// x (B, H, W, C) int8; w (25, C) f32, tap u * 5 + v; bias (C,); y (B, H,
-// W, C) f32 (F32_OUT) or int8 at 1 / inv_out. A block: ty <= FW_TY output
-// rows x FW_TX columns x FW_C channels; a thread: one channel, FW_NX
-// adjacent columns, walking the ty + 4 staged input rows. Input row r adds
-// its kernel-row-u sum to output row r - u, so each output row's five row
-// sums arrive in u order; five rows of sums are in flight (slot = row % 5).
-// VEC: C % 16 == 0 and x 16-byte aligned, so the tile is staged by 16-byte
-// loads (16 channels of a pixel a load).
-template <bool F32_OUT, bool VEC>
-__global__ void __launch_bounds__(FW_THREADS)
-dwconv5x5_f32w_kernel(const int8_t* __restrict__ x, const float* __restrict__ w,
-                      const float* __restrict__ bias, void* __restrict__ y,
-                      int H, int W, int C, int ty, int tiles_x, float inv_out,
-                      int act) {
-    __shared__ __align__(16) uint8_t s_x[(FW_TY + 4) * FW_RX * FW_C];
-    const int ty0 = (blockIdx.x / tiles_x) * ty;
-    const int tx0 = (blockIdx.x % tiles_x) * FW_TX;
-    const int c0 = blockIdx.y * FW_C, b = blockIdx.z;
-    const int tid = threadIdx.x, nr = ty + 4;
+// Stages the (ty + 4) x FW_RX pixel tile at (ty0 - 2, tx0 - 2) of x (B, H,
+// W, C) int8, channels c0..c0 + FW_C - 1, into s_x (FW_C bytes a pixel),
+// zeros outside the map and past C. VEC: C % 16 == 0 and x 16-byte aligned,
+// so a pixel's 32 channels are two 16-byte loads, every load of the thread
+// issued before its first store; else byte loads.
+template <bool VEC>
+__device__ __forceinline__ void dw5_stage(uint8_t* s_x, const int8_t* __restrict__ x,
+                                          int b, int H, int W, int C, int ty0,
+                                          int tx0, int c0, int nr) {
+    const int tid = threadIdx.x;
     if (VEC) {
-        // every load of the thread issued before its first store
         const int items = nr * FW_RX * 2;
         uint4 v[FW_IPT];
 #pragma unroll
@@ -204,6 +108,126 @@ dwconv5x5_f32w_kernel(const int8_t* __restrict__ x, const float* __restrict__ w,
             s_x[i] = (uint8_t)v;
         }
     }
+}
+
+// K7. x (B, H, W, C) int8; w (25, C) int8, tap u * 5 + v, per-channel
+// scales s_w; bias (C,); y (B, H, W, C) f32 (F32_OUT) or int8 at
+// 1 / inv_out. A block: ty <= FW_TY output rows x FW_TX columns x FW_C
+// channels; a thread: one channel, FW_NX adjacent columns, walking the
+// ty + 4 staged input rows. Input row r adds its kernel-row-u sum to output
+// row r - u, so five rows of s32 sums are in flight (slot = row % 5). A
+// row sum is one __dp4a (taps 0-3: the four input bytes packed by a byte
+// permute and funnel shifts) and one multiply-add (tap 4), exact in s32.
+template <bool F32_OUT, bool VEC>
+__global__ void __launch_bounds__(FW_THREADS)
+dwconv5x5_q8_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
+                    const float* __restrict__ s_w, const float* __restrict__ bias,
+                    void* __restrict__ y, int H, int W, int C, int ty, int tiles_x,
+                    float s_in, float inv_out, int act) {
+    __shared__ __align__(16) uint8_t s_x[(FW_TY + 4) * FW_RX * FW_C];
+    const int ty0 = (blockIdx.x / tiles_x) * ty;
+    const int tx0 = (blockIdx.x % tiles_x) * FW_TX;
+    const int c0 = blockIdx.y * FW_C, b = blockIdx.z;
+    const int tid = threadIdx.x, nr = ty + 4;
+    dw5_stage<VEC>(s_x, x, b, H, W, C, ty0, tx0, c0, nr);
+    __syncthreads();
+
+    const int lane = tid & 31, lx0 = (tid >> 5) * FW_NX;
+    const int c = c0 + lane, cl = min(c, C - 1);
+    int32_t w4[5], w1[5];                  // a kernel row: taps 0-3 packed, tap 4
+#pragma unroll
+    for (int u = 0; u < 5; ++u) {
+        uint32_t pk = 0;
+#pragma unroll
+        for (int v = 0; v < 4; ++v)
+            pk |= (uint32_t)(uint8_t)w[(long long)(u * 5 + v) * C + cl] << (8 * v);
+        w4[u] = (int32_t)pk;
+        w1[u] = w[(long long)(u * 5 + 4) * C + cl];
+    }
+    const float sws = __fmul_rn(s_w[cl], s_in), bc = bias[cl];
+    int32_t acc[5][FW_NX];
+    for (int r5 = 0; r5 < nr; r5 += 5) {
+#pragma unroll
+        for (int rr = 0; rr < 5; ++rr) {
+            const int r = r5 + rr;              // staged input row
+            if (r >= nr) break;
+            const int8_t* px = reinterpret_cast<const int8_t*>(s_x)
+                               + (r * FW_RX + lx0) * FW_C + lane;
+            int32_t xv[FW_NX + 4];
+#pragma unroll
+            for (int q = 0; q < FW_NX + 4; ++q) xv[q] = px[q * FW_C];
+            // xp[q]: the bytes of input columns q..q+3
+            uint32_t xp[FW_NX];
+            xp[0] = __byte_perm(__byte_perm(xv[0], xv[1], 0x0040),
+                                __byte_perm(xv[2], xv[3], 0x0040), 0x5410);
+#pragma unroll
+            for (int q = 1; q < FW_NX; ++q)
+                xp[q] = __funnelshift_r(xp[q - 1], (uint32_t)xv[q + 3], 8);
+#pragma unroll
+            for (int u = 0; u < 5; ++u) {
+                const int ly = r - u;           // the output row it feeds
+                if (ly < 0 || ly >= ty) continue;
+                const int sl = (rr - u + 5) % 5;
+#pragma unroll
+                for (int xo = 0; xo < FW_NX; ++xo) {
+                    const int32_t row = __dp4a((int32_t)xp[xo], w4[u],
+                                               w1[u] * xv[xo + 4]);
+                    acc[sl][xo] = u == 0 ? row : acc[sl][xo] + row;
+                }
+            }
+            // output row r - 4 has all five row sums
+            const int oy = ty0 + r - 4;
+            if (r < 4 || r - 4 >= ty || oy >= H || c >= C) continue;
+            const long long row_off = ((long long)b * H + oy) * W;
+#pragma unroll
+            for (int xo = 0; xo < FW_NX; ++xo) {
+                const int ox = tx0 + lx0 + xo;
+                if (ox >= W) break;
+                const float yv = epi_s(acc[(rr + 1) % 5][xo], sws, bc, act);
+                const long long o = (row_off + ox) * C + c;
+                if (F32_OUT)
+                    static_cast<float*>(y)[o] = yv;
+                else
+                    static_cast<int8_t*>(y)[o] = (int8_t)quant1(yv, inv_out);
+            }
+        }
+    }
+}
+
+template <bool F32_OUT, bool VEC>
+cudaError_t launch_dw(const int8_t* x, const int8_t* w, const float* s_w,
+                      const float* bias, void* y, int B, int H, int W, int C,
+                      int ty, float s_in, float inv_out, int act,
+                      cudaStream_t stream) {
+    const int tiles_x = (W + FW_TX - 1) / FW_TX;
+    dim3 grid(tiles_x * ((H + ty - 1) / ty), (C + FW_C - 1) / FW_C, B);
+    dwconv5x5_q8_kernel<F32_OUT, VEC><<<grid, FW_THREADS, 0, stream>>>(
+        x, w, s_w, bias, y, H, W, C, ty, tiles_x, s_in, inv_out, act);
+    return cudaGetLastError();
+}
+
+// The float32 value of a staged int8 byte b: 2^23 + (b ^ 0x80) is
+// 2^23 + 128 + x exactly, so one logic op and one exact add.
+__device__ __forceinline__ float byte_to_float(uint32_t b) {
+    return __fadd_rn(__int_as_float(0x4B000000u | (b ^ 0x80u)), -8388736.0f);
+}
+
+// K12. x (B, H, W, C) int8; w (25, C) f32, tap u * 5 + v; bias (C,); y (B,
+// H, W, C) f32 (F32_OUT) or int8 at 1 / inv_out. The block and thread
+// shapes and the walk are K7's; the sums are float32, each kernel row's
+// five taps left to right, then the row added to the accumulator.
+template <bool F32_OUT, bool VEC>
+__global__ void __launch_bounds__(FW_THREADS)
+dwconv5x5_f32w_kernel(const int8_t* __restrict__ x, const float* __restrict__ w,
+                      const float* __restrict__ bias, void* __restrict__ y,
+                      int H, int W, int C, int ty, int tiles_x, float inv_out,
+                      int act) {
+    __shared__ __align__(16) uint8_t s_x[(FW_TY + 4) * FW_RX * FW_C];
+    const int ty0 = (blockIdx.x / tiles_x) * ty;
+    const int tx0 = (blockIdx.x % tiles_x) * FW_TX;
+    const int c0 = blockIdx.y * FW_C, b = blockIdx.z;
+    const int tid = threadIdx.x, nr = ty + 4;
+    dw5_stage<VEC>(s_x, x, b, H, W, C, ty0, tx0, c0, nr);
     __syncthreads();
 
     const int lane = tid & 31, lx0 = (tid >> 5) * FW_NX;
@@ -261,14 +285,10 @@ dwconv5x5_f32w_kernel(const int8_t* __restrict__ x, const float* __restrict__ w,
 
 template <bool F32_OUT, bool VEC>
 cudaError_t launch_dw_f32w(const int8_t* x, const float* w, const float* bias,
-                           void* y, int B, int H, int W, int C, float inv_out,
-                           int act, cudaStream_t stream) {
-    // the tallest tile (16, 8 or 4 rows) that still gives two blocks an SM
-    const int tiles_x = (W + FW_TX - 1) / FW_TX, cg = (C + FW_C - 1) / FW_C;
-    int ty = FW_TY;
-    while (ty > 4 && (long long)tiles_x * ((H + ty - 1) / ty) * cg * B < 2 * 132)
-        ty /= 2;
-    dim3 grid(tiles_x * ((H + ty - 1) / ty), cg, B);
+                           void* y, int B, int H, int W, int C, int ty,
+                           float inv_out, int act, cudaStream_t stream) {
+    const int tiles_x = (W + FW_TX - 1) / FW_TX;
+    dim3 grid(tiles_x * ((H + ty - 1) / ty), (C + FW_C - 1) / FW_C, B);
     dwconv5x5_f32w_kernel<F32_OUT, VEC><<<grid, FW_THREADS, 0, stream>>>(
         x, w, bias, y, H, W, C, ty, tiles_x, inv_out, act);
     return cudaGetLastError();
@@ -344,31 +364,42 @@ cudaError_t launch_spp(const void* x, void* y, int B, int H, int W, int cv,
 
 }  // namespace
 
-// x (B, H, W, 4*cw) int8 as words; w (cw, 25) packed words; y (B, H, W, 4*cw)
-// f32 (f32_out) or int8. Returns a cudaError_t.
-extern "C" int dwconv5x5_q8(const int32_t* x, const int32_t* w, const float* s_w,
-                            const float* bias, void* y, int B, int H, int W, int cw,
-                            int f32_out, float s_in, float inv_out, int act,
+// The depthwise 5x5's launch checks: ty, the output rows a block (16, 8, 4,
+// 2 or 1, ops/kernels/neck_flat.dw5_tile), and the grid's limits.
+static bool dw5_args_ok(int B, int ty) {
+    return ty >= 1 && ty <= FW_TY && (ty & (ty - 1)) == 0 && B <= 65535;
+}
+
+// x (B, H, W, C) int8; w (25, C) int8; s_w, bias (C,) f32; y (B, H, W, C)
+// f32 (f32_out) or int8 at 1 / inv_out; ty output rows a block. Returns a
+// cudaError_t.
+extern "C" int dwconv5x5_q8(const int8_t* x, const int8_t* w, const float* s_w,
+                            const float* bias, void* y, int B, int H, int W, int C,
+                            int ty, int f32_out, float s_in, float inv_out, int act,
                             void* stream_ptr) {
     cudaStream_t stream = (cudaStream_t)stream_ptr;
-    if (B <= 0 || H <= 0 || W <= 0 || cw <= 0) return 0;
-    return (int)(f32_out ? launch_dw<true>(x, w, s_w, bias, y, B, H, W, cw, s_in,
-                                           inv_out, act, stream)
-                         : launch_dw<false>(x, w, s_w, bias, y, B, H, W, cw, s_in,
-                                            inv_out, act, stream));
+    if (B <= 0 || H <= 0 || W <= 0 || C <= 0) return 0;
+    if (!dw5_args_ok(B, ty)) return (int)cudaErrorInvalidValue;
+    const bool vec = C % 16 == 0 && (uintptr_t)x % 16 == 0;
+#define LD(F, V) launch_dw<F, V>(x, w, s_w, bias, y, B, H, W, C, ty, s_in, \
+                                 inv_out, act, stream)
+    if (f32_out) return (int)(vec ? LD(true, true) : LD(true, false));
+    return (int)(vec ? LD(false, true) : LD(false, false));
+#undef LD
 }
 
 // x (B, H, W, C) int8; w (25, C) f32; bias (C,) f32; y (B, H, W, C) f32
-// (f32_out) or int8 at 1 / inv_out. Returns a cudaError_t.
+// (f32_out) or int8 at 1 / inv_out; ty as K7's. Returns a cudaError_t.
 extern "C" int dwconv5x5_f32w_q8(const int8_t* x, const float* w, const float* bias,
-                                 void* y, int B, int H, int W, int C, int f32_out,
-                                 float inv_out, int act, void* stream_ptr) {
+                                 void* y, int B, int H, int W, int C, int ty,
+                                 int f32_out, float inv_out, int act,
+                                 void* stream_ptr) {
     cudaStream_t stream = (cudaStream_t)stream_ptr;
     if (B <= 0 || H <= 0 || W <= 0 || C <= 0) return 0;
-    if (B > 65535) return (int)cudaErrorInvalidValue;
+    if (!dw5_args_ok(B, ty)) return (int)cudaErrorInvalidValue;
     const bool vec = C % 16 == 0 && (uintptr_t)x % 16 == 0;
-#define LD(F, V) launch_dw_f32w<F, V>(x, w, bias, y, B, H, W, C, inv_out, act, \
-                                      stream)
+#define LD(F, V) launch_dw_f32w<F, V>(x, w, bias, y, B, H, W, C, ty, inv_out, \
+                                      act, stream)
     if (f32_out) return (int)(vec ? LD(true, true) : LD(true, false));
     return (int)(vec ? LD(false, true) : LD(false, false));
 #undef LD

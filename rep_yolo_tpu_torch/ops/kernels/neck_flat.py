@@ -9,8 +9,9 @@ calls it (GSConv's depthwise 5x5, a block-diagonal dense 5x5 on the TPU: K7
 spp_pools_flat`` (K8 ``spp_pools_q8``). Source: ``csrc/neck_flat.cu``.
 
 Maps are channels-last int8 ``(B, H, W, C)``, C a multiple of 4 for K7 and
-K8. The wrappers take the plain versions for CPU tensors only; on a CUDA
-tensor they launch the kernel or raise.
+K8. K7 and K12 share one tiling (``dw5_tile``, picked here and passed to the
+kernels). The wrappers take the plain versions for CPU tensors only; on a
+CUDA tensor they launch the kernel or raise.
 """
 
 from __future__ import annotations
@@ -27,15 +28,19 @@ LAUNCHES = {"dwconv5x5_q8": 0, "dwconv5x5_f32w_q8": 0, "spp_pools_q8": 0}
 _ACTS = {"silu": 1, None: 0}
 SPP_K = (5, 9, 13)
 _SMEM = 232448              # bytes of shared memory a block may use
+SMS = 132                   # the H100's SMs
+DW5_TX, DW5_C = 20, 32      # output columns and channels a depthwise block
+DW5_TY = (16, 8, 4, 2, 1)   # its output rows, tallest first
+DW5_BLOCKS_PER_SM = 4       # the grid the tile height aims for
 
 
 def _lib():
     lib = D.load_kernel("neck_flat")
     if not getattr(lib, "_typed", False):
         vp, i32, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.dwconv5x5_q8.argtypes = [vp] * 5 + [i32] * 5 + [f] * 2 + [i32, vp]
+        lib.dwconv5x5_q8.argtypes = [vp] * 5 + [i32] * 6 + [f] * 2 + [i32, vp]
         lib.dwconv5x5_q8.restype = i32
-        lib.dwconv5x5_f32w_q8.argtypes = [vp] * 4 + [i32] * 5 + [f, i32, vp]
+        lib.dwconv5x5_f32w_q8.argtypes = [vp] * 4 + [i32] * 6 + [f, i32, vp]
         lib.dwconv5x5_f32w_q8.restype = i32
         lib.spp_pools_q8.argtypes = [vp, vp] + [i32] * 4 + [vp]
         lib.spp_pools_q8.restype = i32
@@ -43,12 +48,30 @@ def _lib():
     return lib
 
 
+def dw5_tile(B: int, H: int, W: int, C: int) -> dict:
+    """The depthwise 5x5 kernels' tiling (K7, K12): a block computes ``ty``
+    output rows x 20 columns x 32 channels (``csrc/neck_flat.cu``), ``ty``
+    the tallest of 16, 8, 4, 2 and 1 whose grid still gives four blocks an
+    SM (else 1: the 20-px maps of a served batch).
+    ``smem``: the block's staged tile in bytes ((16 + 4) x 24 pixels x 32
+    channels, the kernels' static array)."""
+    tiles_x, cg = -(-W // DW5_TX), -(-C // DW5_C)
+    for ty in DW5_TY:
+        blocks = tiles_x * -(-H // ty) * cg * B
+        if blocks >= DW5_BLOCKS_PER_SM * SMS:
+            break
+    return {"ty": ty, "grid": (tiles_x * -(-H // ty), cg, B),
+            "blocks": blocks,
+            "smem": (DW5_TY[0] + 4) * (DW5_TX + 4) * DW5_C}
+
+
 class QDepthwise:
     """A depthwise 5x5 conv's weights, quantized once when the int8 plan is
     built: ``w_q`` (C, 25) int8 per output channel at ``s_w`` (C,) f32, after
     ``in_scale`` (C,) is folded into the float weights; ``bias`` (C,) f32.
     These are the block-diagonal dense kernel's values: its per-channel
-    maximum runs over the diagonal and zeros."""
+    maximum runs over the diagonal and zeros. ``w_t`` (25, C) int8 is
+    ``w_q`` tap-major, as K7 reads it (a lane a channel)."""
 
     def __init__(self, weight: torch.Tensor, bias: torch.Tensor | None,
                  in_scale: torch.Tensor | None = None):
@@ -62,9 +85,7 @@ class QDepthwise:
         self.w_q, self.s_w = quantize_weights(w)
         self.bias = (torch.zeros(C, device=w.device) if bias is None
                      else bias.detach().float().contiguous())
-        # word (g, tap): channels 4g..4g+3 at that tap, as the kernel reads
-        self.words = self.w_q.reshape(C // 4, 4, 25).permute(
-            0, 2, 1).contiguous().view(torch.int32).reshape(C // 4, 25)
+        self.w_t = self.w_q.t().contiguous()
 
     @property
     def c(self) -> int:
@@ -93,15 +114,16 @@ def dwconv5x5_q8(x: torch.Tensor, qd: QDepthwise, s_in: float = 1.0,
             or act not in _ACTS:
         raise ValueError(f"dwconv5x5_q8: expected int8 (B, H, W, {qd.c}), "
                          f"got {x.dtype} {tuple(x.shape)}, act={act}")
-    if any(t.device != x.device for t in (qd.words, qd.s_w, qd.bias)):
+    if any(t.device != x.device for t in (qd.w_t, qd.s_w, qd.bias)):
         raise ValueError(f"dwconv5x5_q8: weights not on {x.device}")
     x = x.contiguous()
     B, H, W, C = x.shape
     y = torch.empty((B, H, W, C), device=x.device,
                     dtype=torch.float32 if out_scale is None else torch.int8)
     err = _lib().dwconv5x5_q8(
-        D.ptr(x), D.ptr(qd.words), D.ptr(qd.s_w), D.ptr(qd.bias), D.ptr(y),
-        B, H, W, C // 4, int(out_scale is None), float(s_in),
+        D.ptr(x), D.ptr(qd.w_t), D.ptr(qd.s_w), D.ptr(qd.bias), D.ptr(y),
+        B, H, W, C, dw5_tile(B, H, W, C)["ty"], int(out_scale is None),
+        float(s_in),
         0.0 if out_scale is None else 1.0 / float(out_scale), _ACTS[act],
         D.stream_handle(x))
     D.check_launch("dwconv5x5_q8", err)
@@ -176,7 +198,7 @@ def dwconv5x5_f32w_q8(x: torch.Tensor, qd: QDepthwiseF32,
                     dtype=torch.float32 if out_scale is None else torch.int8)
     err = _lib().dwconv5x5_f32w_q8(
         D.ptr(x), D.ptr(qd.w), D.ptr(qd.bias), D.ptr(y), B, H, W, C,
-        int(out_scale is None),
+        dw5_tile(B, H, W, C)["ty"], int(out_scale is None),
         0.0 if out_scale is None else 1.0 / float(out_scale), _ACTS[act],
         D.stream_handle(x))
     D.check_launch("dwconv5x5_f32w_q8", err)

@@ -1,8 +1,12 @@
 """Greedy-NMS keep mask: CUDA kernel + plain version.
 
 Replaces ``rep_yolo_tpu/ops/pallas/nms_kernel.py:nms_keep_pallas`` (kernel
-``_nms_kernel``). Source: ``csrc/nms.cu`` (a 64-bit suppression bitmask per
-row, then one warp per image scanning the rows in score order).
+``_nms_kernel``). Source: ``csrc/nms.cu``: a 64-bit suppression bitmask of
+the words on or right of each 64-row tile's diagonal (``mask_words``,
+``tile_offset``: packed tile after tile, each tile row-major; then the
+rows' valid bits), then one block per image scanning the row tiles in score
+order, each tile one TMA bulk copy (a ring of ``STAGES``) resolved by a warp
+from its diagonal words.
 
 boxes ``(B, K, 4)`` f32 xyxy, score-descending per image with class
 offsets applied; valid ``(B, K)`` bool. Returns keep ``(B, K)`` bool,
@@ -20,7 +24,9 @@ import torch
 from rep_yolo_tpu_torch import device as D
 
 LAUNCHES = {"nms_keep": 0}
-MAX_K = 8192             # csrc/nms.cu: 4 mask words per lane
+MAX_K = 8192             # csrc/nms.cu: a ring of three 64 KB tiles at most
+BITS = 64                # rows of a tile, columns of a mask word
+STAGES = 3               # tiles in the scan's ring
 
 
 def _lib():
@@ -30,8 +36,49 @@ def _lib():
         lib.nms_keep.argtypes = [vp] * 4 + [ctypes.c_int, ctypes.c_int,
                                            ctypes.c_float, vp]
         lib.nms_keep.restype = ctypes.c_int
+        lib.nms_mask.argtypes = [vp] * 3 + [ctypes.c_int, ctypes.c_int,
+                                            ctypes.c_float, vp]
+        lib.nms_mask.restype = ctypes.c_int
+        lib.nms_scan.argtypes = [vp] * 2 + [ctypes.c_int] * 2 + [vp]
+        lib.nms_scan.restype = ctypes.c_int
+        lib.nms_mask_words.argtypes = [ctypes.c_int]
+        lib.nms_mask_words.restype = ctypes.c_longlong
+        lib.nms_scan_smem.argtypes = [ctypes.c_int]
+        lib.nms_scan_smem.restype = ctypes.c_int
         lib._typed = True
     return lib
+
+
+def words(K: int) -> int:
+    """Mask words of a row, and row tiles of an image: ceil(K / 64)."""
+    return -(-K // BITS)
+
+
+def tile_offset(t: int, W: int) -> int:
+    """Offset of row tile t in an image's packed mask, in words: tiles
+    0..t-1 hold 64 (W - s) words each (the words s..W-1 of their rows)."""
+    return BITS * (t * W - t * (t - 1) // 2)
+
+
+def valid_words(W: int) -> int:
+    """The valid bits' words after an image's tiles: a word a tile, padded
+    to an even count (whole 16-byte copies)."""
+    return W + W % 2
+
+
+def mask_words(K: int) -> int:
+    """Words of one image's packed mask (``csrc/nms.cu:nms_mask_words``):
+    the tiles, then the valid bits."""
+    W = words(K)
+    return tile_offset(W, W) + valid_words(W)
+
+
+def scan_smem(K: int) -> int:
+    """Shared memory of the scan in bytes (``nms_scan_smem``): a ring of
+    ``STAGES`` tiles of 64 x W words, the valid bits, the removed set (W
+    words) and an mbarrier a stage."""
+    W = words(K)
+    return (STAGES * BITS * W + valid_words(W) + W + STAGES) * 8
 
 
 def box_iou(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -81,14 +128,40 @@ def nms_keep(boxes: torch.Tensor, valid: torch.Tensor,
         raise ValueError(f"nms_keep: bad shapes {boxes.shape} {valid.shape}")
     if K > MAX_K:
         raise ValueError(f"nms_keep: K={K} exceeds {MAX_K}")
-    boxes = boxes.float().contiguous()
-    valid_u8 = valid.to(torch.uint8).contiguous()
-    words = -(-K // 64)
-    mask = torch.empty((B, K, words), device=boxes.device, dtype=torch.int64)
-    keep = torch.empty((B, K), device=boxes.device, dtype=torch.uint8)
+    boxes, valid_u8, mask, keep = _buffers(boxes, valid)
     err = _lib().nms_keep(D.ptr(boxes), D.ptr(valid_u8), D.ptr(mask),
                           D.ptr(keep), B, K, float(iou_thres),
                           D.stream_handle(boxes))
     D.check_launch("nms_keep", err)
     LAUNCHES["nms_keep"] += 1
     return keep.bool()
+
+
+def _buffers(boxes, valid):
+    B, K = valid.shape
+    mask = torch.empty((B, mask_words(K)), device=boxes.device,
+                       dtype=torch.int64)
+    keep = torch.empty((B, K), device=boxes.device, dtype=torch.uint8)
+    return (boxes.float().contiguous(), valid.to(torch.uint8).contiguous(),
+            mask, keep)
+
+
+def nms_stages(boxes: torch.Tensor, valid: torch.Tensor,
+               iou_thres: float):
+    """The mask kernel and the scan as two callables on CUDA tensors, for
+    timing each apart; they launch what ``nms_keep`` launches and count
+    nothing. Returns (mask_fn, scan_fn, keep): keep is the scan's output."""
+    B, K = valid.shape
+    boxes, valid_u8, mask, keep = _buffers(boxes, valid)
+    lib, stream = _lib(), D.stream_handle(boxes)
+
+    def mask_fn():
+        D.check_launch("nms_mask", lib.nms_mask(
+            D.ptr(boxes), D.ptr(valid_u8), D.ptr(mask), B, K,
+            float(iou_thres), stream))
+
+    def scan_fn():
+        D.check_launch("nms_scan", lib.nms_scan(
+            D.ptr(mask), D.ptr(keep), B, K, stream))
+
+    return mask_fn, scan_fn, keep

@@ -218,6 +218,77 @@ def test_nms_keep_matches_plain_and_greedy(cuda, k):
         assert torch.equal(keep.cpu(), TN._greedy_keep(b.cpu(), v.cpu(), 0.45))
 
 
+def _nms_case(name, k, b, seed):
+    """(boxes, valid, thr) of one degenerate or ragged NMS case."""
+    rng = np.random.default_rng(seed)
+    c = rng.uniform(0, 600, (b, 16, 2))
+    xy = np.take_along_axis(c, rng.integers(0, 16, (b, k))[..., None], 1) \
+        + rng.normal(0, 6, (b, k, 2))
+    wh = rng.uniform(10, 60, (b, k, 2))
+    boxes = np.concatenate([xy - wh / 2, xy + wh / 2], -1)
+    valid = rng.uniform(size=(b, k)) < 0.9
+    thr = 0.45
+    if name == "identical":                  # one kept an image
+        boxes = np.tile([10.0, 20.0, 50.0, 70.0], (b, k, 1))
+        valid = np.ones((b, k), bool)
+    elif name == "disjoint":                 # all kept
+        g = np.arange(k, dtype=np.float64)[:, None] * 64.0
+        boxes = np.tile(np.concatenate([g, g * 0, g + 32, g * 0 + 32], -1),
+                        (b, 1, 1))
+        valid = np.ones((b, k), bool)
+    elif name == "no_valid":
+        valid = np.zeros((b, k), bool)
+    elif name == "zero_area_dups":           # NaN IoU suppresses
+        boxes = boxes.copy()
+        boxes[:, ::3, 2:] = boxes[:, ::3, :2]
+        boxes[:, 1::3] = boxes[:, ::3][:, : boxes[:, 1::3].shape[1]]
+    elif name == "iou_at_threshold":         # inter 128 / union 256 = thr
+        xy = rng.integers(0, 75, (b, (k + 1) // 2, 2)) * 8.0
+        boxes = np.empty((b, k, 4))
+        for j, wd in ((0, 32.0), (1, 16.0)):
+            boxes[:, j::2] = np.concatenate([xy, xy + [wd, 8.0]], -1)[
+                :, : boxes[:, j::2].shape[1]]
+        thr = 0.5
+    return boxes, valid, thr
+
+
+def test_nms_layout_matches_the_kernel(cuda):
+    """The wrapper allocates the packed mask by ``mask_words``; the kernel
+    addresses it by its own copy of the layout."""
+    lib = KN._lib()
+    for k in (1, 63, 64, 65, 1000, 1024, 4097, 8192):
+        assert lib.nms_mask_words(k) == KN.mask_words(k)
+        assert lib.nms_scan_smem(k) == KN.scan_smem(k)
+
+
+@pytest.mark.parametrize("case", ["clustered", "identical", "disjoint",
+                                  "no_valid", "zero_area_dups",
+                                  "iou_at_threshold"])
+@pytest.mark.parametrize("k,b", [(1, 8), (63, 8), (65, 3), (1000, 8),
+                                 (4097, 2), (8192, 8)])
+def test_nms_keep_tiles_ragged_and_degenerate(cuda, k, b, case):
+    """K3's tiled scan at ragged K (a partial last tile, one tile, 129
+    tiles) with up to 8 images, against the plain fixed point and, up to
+    K = 1000, the greedy oracle; the mask kernel and the scan launched apart
+    give the same keep set."""
+    boxes, valid, thr = _nms_case(case, k, b, k + b)
+    bx = torch.as_tensor(boxes, dtype=torch.float32, device=cuda)
+    v = torch.as_tensor(valid, device=cuda)
+    keep = KN.nms_keep(bx, v, thr)
+    assert torch.equal(keep, KN.nms_keep_plain(bx, v, thr))
+    if k <= 1000:
+        assert torch.equal(keep.cpu(), TN._greedy_keep(bx.cpu(), v.cpu(), thr))
+    if case == "identical":
+        assert keep.sum(1).tolist() == [1] * b
+    if case == "disjoint":
+        assert bool(keep.all())
+    mask_fn, scan_fn, kept = KN.nms_stages(bx, v, thr)
+    mask_fn()
+    scan_fn()
+    assert torch.equal(kept.bool(), keep)
+    assert torch.equal(KN.nms_keep(bx, v, thr), keep)
+
+
 def _assert_q8_close(got, ref):
     assert got.dtype == ref.dtype and got.shape == ref.shape
     if got.dtype == torch.int8:
@@ -636,6 +707,42 @@ def test_dwconv5x5_q8_matches_plain(cuda, c, h, w, act, out_scale):
     args = (qd, 1.0, act, out_scale)
     _assert_q8_close(KNF.dwconv5x5_q8(x, *args),
                      KNF.dwconv5x5_q8_plain(x, *args))
+
+
+# (B, H, W, C), act, f32 out: the nine signatures of K7's 18 calls in a
+# served int8 forward at 640 px, batch 4; then ragged H, W and C (C off 32,
+# off 16: byte staging; a map smaller than the halo)
+K7_SIGNATURES = [((4, 20, 20, 64), "silu", False),
+                 ((4, 40, 40, 128), "silu", False),
+                 ((4, 40, 40, 64), "silu", False),
+                 ((4, 40, 40, 64), None, True),
+                 ((4, 80, 80, 64), "silu", False),
+                 ((4, 80, 80, 32), "silu", False),
+                 ((4, 80, 80, 32), None, True),
+                 ((4, 20, 20, 128), "silu", False),
+                 ((4, 20, 20, 128), None, True),
+                 ((3, 17, 23, 48), "silu", False),
+                 ((2, 9, 41, 40), None, False),
+                 ((2, 33, 7, 36), "silu", True),
+                 ((1, 5, 3, 8), "silu", False)]
+
+
+@pytest.mark.parametrize("shape,act,f32_out", K7_SIGNATURES)
+def test_dwconv5x5_q8_signatures(cuda, shape, act, f32_out):
+    """K7 at the flagship's served signatures and ragged ones against its
+    plain version; a second call is identical."""
+    b, h, w, c = shape
+    rng = np.random.default_rng(b * h + w + c)
+    wt = torch.from_numpy(rng.normal(0, 0.1, (c, 1, 5, 5)).astype(np.float32))
+    bias = torch.from_numpy(rng.normal(0, 0.5, (c,)).astype(np.float32))
+    qd = KNF.QDepthwise(wt.to(cuda), bias.to(cuda),
+                        torch.full((c,), 0.02, device=cuda))
+    x = torch.from_numpy(rng.integers(-128, 128, shape).astype(np.int8)).to(
+        cuda)
+    args = (qd, 0.7, act, None if f32_out else 0.03)
+    got = KNF.dwconv5x5_q8(x, *args)
+    _assert_q8_close(got, KNF.dwconv5x5_q8_plain(x, *args))
+    assert torch.equal(KNF.dwconv5x5_q8(x, *args), got)
 
 
 @pytest.mark.parametrize("c,h,w,act,out_scale", [
