@@ -51,7 +51,11 @@ and for the int8 path:
      the elements, the float exit atol = rtol = 1e-5, pools identical; each
      K4 line names the route the call took (k4_route: "wgmma" for a
      stride-1 3x3 on int8 input, "wgmma_s2" for stride 2 on int8 input,
-     "wgmma_f32" for stride 1 on float32 input, else "dp4a")
+     "wgmma_f32" for stride 1 on float32 input, else "dp4a"); K6 and K8
+     at POOL_EXTRA's maps besides (ragged, C off 16, H or W below the
+     13-window, a map wider than one K8 tile), each also as a view 4 bytes
+     into a buffer (the word route), identical to the plain version and on
+     a second call
   4b. int8_e2e: golden weights, calibrated on the seeded uniform batch, at
      640 px, batch 2, the backbone region alone: the int8 kernel path vs the
      int8 plain path (region maps as above, raw maps atol = rtol = 1e-3,
@@ -82,7 +86,11 @@ and for the int8 path:
      materialised concat; K4: cuDNN's bf16 conv of the int8-valued map);
      summed per forward (the backbone apart too) and, for the neck, per
      layer; K4's sums also split by route (launches, ms, bound, the bf16
-     yardstick over the same calls), beside the earlier designs' ms
+     yardstick over the same calls), beside the earlier designs' ms; each
+     K6 / K8 call beside its launch floor (floor_ms: an empty kernel,
+     csrc/launch_floor.cu, at the call's grid, block and shared memory, and
+     at the previous design's); the earlier designs' ms, readings of
+     earlier runs, stand in the phase line only, not in the kernels line
   8. served_ab: one served batch of 4, the four engines in turns (the
      three above and the bfloat16 one of 5d)
 
@@ -820,8 +828,45 @@ def phase_kernels(torch, dev, errs):
           "attention": rows, "nms": nms_rows})
 
 
+# (kernel, (B, H, W, C)) held in phase 2b beside the backbone's shapes
+POOL_EXTRA = [("max_pool2_q8", s) for s in (
+    (4, 80, 80, 128), (4, 40, 40, 256), (3, 10, 14, 4), (2, 6, 8, 8),
+    (2, 4, 6, 12), (1, 6, 4, 1024))] + [("spp_pools_q8", s) for s in (
+        (4, 20, 20, 512), (2, 2, 2, 32), (1, 1, 5, 16), (2, 13, 12, 12),
+        (1, 5, 1, 32), (1, 14, 2, 64), (8, 40, 40, 256), (1, 3, 600, 16))]
+
+
+def pool_extra_rows(torch, dev) -> list[dict]:
+    """K6 and K8 at POOL_EXTRA's maps, contiguous and as a view 4 bytes into
+    a buffer: identical to the plain version, and a second call identical
+    to the first."""
+    rows = []
+    for i, (name, shape) in enumerate(POOL_EXTRA):
+        mod = q8_module(name)
+        g = torch.Generator(device=dev).manual_seed(300 + i)
+        x0 = torch.randint(-128, 128, shape, generator=g, device=dev,
+                           dtype=torch.int8)
+        for offset in (0, 4):
+            x = x0
+            if offset:
+                buf = torch.zeros(x0.numel() + offset, dtype=torch.int8,
+                                  device=dev)
+                buf[offset:] = x0.reshape(-1)
+                x = buf[offset:].view(shape)
+            got = getattr(mod, name)(x)
+            same = torch.equal(got, getattr(mod, name)(x))
+            ok = torch.equal(got, getattr(mod, name + "_plain")(x)) and same
+            rows.append({"kernel": name, "shape": list(shape),
+                         "offset": offset, "identical": ok})
+            if not ok:
+                raise AssertionError(f"{name} differs from its plain version "
+                                     f"or from itself: {rows[-1]}")
+    return rows
+
+
 def phase_kernels_q8(torch, dev, errs):
-    """K4-K6 against their plain versions at every backbone shape."""
+    """K4-K6 against their plain versions at every backbone shape; K6 and
+    K8 at POOL_EXTRA's maps."""
     rows = []
     for i, row in enumerate(backbone_q8_shapes()):
         kfn, pfn, _, out_s, _, _, _ = q8_case(torch, row, 4, dev, 100 + i)
@@ -845,10 +890,11 @@ def phase_kernels_q8(torch, dev, errs):
             raise AssertionError(f"{row[1]} differs from its plain version: "
                                  f"{r}")
         errs[row[1]] = max(errs.get(row[1], 0.0), err)
+    pools = pool_extra_rows(torch, dev)
     emit({"phase": "kernels_q8_vs_plain", "ok": True, "batch": 4,
           "tolerance": "int8 identical but for +-1 LSB on <= 1e-4 of the "
-                       "elements; float exit atol = rtol = 1e-5; pool "
-                       "identical", "shapes": rows})
+                       "elements; float exit atol = rtol = 1e-5; pools "
+                       "identical", "shapes": rows, "pools": pools})
 
 
 def phase_golden(torch, dev):
@@ -1473,6 +1519,62 @@ def phase_profile(torch, engines, x, reps: int = 5):
                   names.items(), key=lambda kv: -kv[1])[:10]]})
 
 
+def pool_launches(name, shape) -> dict:
+    """The (grid, block, dynamic shared memory) of K6's or K8's launch on a
+    contiguous int8 map of ``shape``: ``design`` as the kernel picks it
+    (``launch_dims``, ``spp_launch_dims``), ``previous`` in the design
+    before (K6: one thread a 16-byte output vector, at most 132 x 32 blocks
+    of 256; K8: a block of 256 a vector slot and image, the whole map twice
+    in shared memory)."""
+    from rep_yolo_tpu_torch.ops.kernels import neck_flat as KNF
+    from rep_yolo_tpu_torch.ops.kernels import pool_flat as KP
+
+    B, H, W, C = shape
+    vec = 16 if C % 16 == 0 else 4
+    if name == "max_pool2_q8":
+        n = B * (H // 2) * (W // 2) * (C // vec)
+        return {"design": KP.launch_dims(B, H, W, C),
+                "previous": ((min(-(-n // 256), 132 * 32),), (256,), 0)}
+    return {"design": KNF.spp_launch_dims(B, H, W, C),
+            "previous": ((C // vec, B), (256,), 2 * H * W * vec)}
+
+
+def floor_times(torch, kfn, name, shape) -> dict:
+    """The launch floor beside a K6 / K8 call: the empty kernel
+    (``csrc/launch_floor.cu``) at the call's grid, block and shared memory
+    (``floor_ms``) and at the previous design's (``floor_previous_design_
+    ms``), each timed under the profiler in the windows that time ``kfn``:
+    every call of ``kfn`` from a cold L2 is followed by one empty launch, as
+    ``device_ms`` times a kernel. ``warm_ms``: the call's own device time
+    back to back, its input L2-resident as in a served forward, where the
+    kernel before wrote it."""
+    from rep_yolo_tpu_torch.ops.kernels.launch_floor import (KERNEL_NAME,
+                                                             launch_floor)
+
+    flush, _ = l2_flush(torch)
+    out = {}
+    shapes = pool_launches(name, shape)
+    for key, (grid, block, smem) in (("floor_ms", shapes["design"]),
+                                     ("floor_previous_design_ms",
+                                      shapes["previous"])):
+        def call(grid=grid, block=block, smem=smem):
+            flush()
+            kfn()
+            launch_floor(grid, block, smem)
+
+        for _ in range(3):
+            call()
+        _, names, _ = profiled_whole(torch, call, 10, per_name=True)
+        out[key] = sum(ms for k, ms in names.items() if KERNEL_NAME in k)
+    for _ in range(3):
+        kfn()
+    out["warm_ms"] = sum(profiled_whole(torch, kfn, 10, per_name=True)[1]
+                         .values())
+    out["launch"] = {k: {"grid": list(g), "block": list(b), "smem": m}
+                     for k, (g, b, m) in shapes.items()}
+    return out
+
+
 def kernel_times(torch, kfn, pfn, lib=None) -> dict:
     """One kernel call's times at one shape: ``ms`` its device time (the
     profiler), ``event_ms`` the back-to-back CUDA-event time (which also
@@ -1625,7 +1727,7 @@ def phase_times_q8(torch, dev, counts, errs, calls):
     from rep_yolo_tpu_torch.ops.kernels import reset_launch_counts
 
     agg = {n: {} for n in Q8_KERNELS}
-    per_shape = []
+    per_shape, pool_calls = [], []
     backbone = {n: {} for n in Q8_KERNELS}
     by_route = {r: {} for r in K4_ROUTES}      # K4's calls by route
     for i, row in enumerate(backbone_q8_shapes()):
@@ -1635,6 +1737,11 @@ def phase_times_q8(torch, dev, counts, errs, calls):
         time_yardsticks(torch, t, extra())
         t.update(zip(("bound_ms", "bound_by"), bound(nbytes, ops, INT8_PEAK)),
                  bytes=nbytes, ops=ops)
+        if row[1] == "max_pool2_q8":
+            t.update(floor_times(torch, kfn, row[1],
+                                 (4, row[4], row[4], row[2][0])))
+            pool_calls.append({"call": row[0], "kernel": row[1],
+                               "shape": [4, row[4], row[4], row[2][0]], **t})
         sums = [agg[row[1]], backbone[row[1]]]
         if row[1] == "conv3x3_q8":
             t["route"] = k4_call(kfn)[1]
@@ -1660,6 +1767,10 @@ def phase_times_q8(torch, dev, counts, errs, calls):
                      bytes=nbytes, ops=ops)
             if name == "conv3x3_q8":
                 t["route"] = k4_call(kfn)[1]
+            if name in ("max_pool2_q8", "spp_pools_q8"):
+                t.update(floor_times(torch, kfn, name, sig[1]))
+                pool_calls.append({"call": f"layer {layer}", "kernel": name,
+                                   "shape": list(sig[1]), **t})
             timed[sig] = {"kernel": name, "signature": str(sig[1:]),
                           "calls_per_forward": 0, **t}
         row = timed[sig]
@@ -1686,6 +1797,16 @@ def phase_times_q8(torch, dev, counts, errs, calls):
                                    "torch.cat on the f32 map")
         if name == "dwconv5x5_q8":
             row["previous_design_ms"] = PREVIOUS_MS[name]
+        if name in ("max_pool2_q8", "spp_pools_q8"):
+            calls_ = [c for c in pool_calls if c["kernel"] == name]
+            for k in ("floor_ms", "floor_previous_design_ms"):
+                row[k] = sum(c[k] for c in calls_)
+            row["calls"] = [
+                {"call": c["call"], "shape": c["shape"],
+                 **{k: c[k] for k in ("ms", "warm_ms", "bound_ms",
+                                      "floor_ms", "floor_previous_design_ms",
+                                      "plain_ms", "library_ms")}}
+                for c in calls_]
         if name == "conv3x3_q8":
             routes = route_rows(by_route, {
                 r: counts[f"conv3x3_q8@{r}"] for r in K4_ROUTES})
@@ -1711,11 +1832,19 @@ def phase_times_q8(torch, dev, counts, errs, calls):
                   "depthwise conv, "
                   "for K6 one amax over the (B, H/2, 2, W/2, 2, C) view, for "
                   "K8 three F.max_pool2d and a torch.cat (a sequence, not "
-                  "one call); ms, plain_ms, library_ms: device time under "
-                  "the profiler from a cold L2, 10 calls after 3 warm-ups; "
+                  "one call); pool_calls: each K6 / K8 call beside floor_ms, "
+                  "the empty kernel at its grid, block and shared memory "
+                  "(floor_previous_design_ms: at the previous design's), "
+                  "timed in the windows that time the call, each call "
+                  "followed by one empty launch, and warm_ms, the call "
+                  "back to back (its input L2-resident); ms, plain_ms, "
+                  "library_ms: device time under the profiler from a cold "
+                  "L2, 10 calls after 3 warm-ups; "
                   "event_ms: CUDA events, median of 20 runs of 10 "
                   "back-to-back calls (L2-warm)",
           "per_shape": per_shape, "neck_calls": list(timed.values()),
+          "pool_calls": [{k: v for k, v in c.items()
+                          if k not in ("bytes", "ops")} for c in pool_calls],
           "neck_by_layer": layers,
           "backbone_per_forward": {
               n: {k: v for k, v in a.items() if k not in ("bytes", "ops")}
@@ -1723,7 +1852,9 @@ def phase_times_q8(torch, dev, counts, errs, calls):
           "conv3x3_q8_by_route": kernels[0]["routes"],
           "previous_design_ms": {k: PREVIOUS_MS[k] for k in (
               "conv1x1_q8", "conv1x1_q8_backbone", "conv3x3_q8",
-              "conv3x3_q8_s2_dp4a", "dwconv5x5_q8")}})
+              "conv3x3_q8_s2_dp4a", "dwconv5x5_q8", "max_pool2_q8",
+              "spp_pools_q8")},
+          "previous_design_ms_per_call": PREVIOUS_MS_POOL})
     return kernels
 
 
@@ -2710,7 +2841,9 @@ WGRAD_PER_STEP = sum(s[-1] for s in WGRAD_SHAPES)
 # mask, one warp an image scanning the rows with a global load a kept row)
 # at K = 1024, batch 4, and at K = 8192, batch 8; K7 in its first design
 # (16 x 16 pixels a block, a thread a pixel of 16 channels, 4-byte staging)
-# per served int8 forward at batch 4
+# per served int8 forward at batch 4; K6 (a thread a 16-byte output vector)
+# and K8 (a block a vector slot of the whole map, six separable passes) in
+# their first designs per served int8 forward at batch 4, and per call
 PREVIOUS_MS = {"wgrad3x3": 6.166, "conv1x1_cmajor_q8": 3.312,
                "conv1x1_q8": 3.949, "conv1x1_q8_backbone": 1.445,
                "conv1x1_pm_q8": 1.330, "dwconv5x5_f32w_q8": 0.634,
@@ -2722,7 +2855,12 @@ PREVIOUS_MS = {"wgrad3x3": 6.166, "conv1x1_cmajor_q8": 3.312,
                "axial_attend_criss_cross": 0.449,
                "axial_attend_criss_cross_row3": 0.817,
                "nms_keep": 0.304, "nms_keep_k8192": 1.535,
-               "dwconv5x5_q8": 0.213}
+               "dwconv5x5_q8": 0.213, "max_pool2_q8": 0.0121167,
+               "spp_pools_q8": 0.0079487}
+PREVIOUS_MS_POOL = {"max_pool2_q8": {"(4, 80, 80, 256)": 0.0052145,
+                                     "(4, 80, 80, 128)": 0.0039485,
+                                     "(4, 40, 40, 256)": 0.0029537},
+                    "spp_pools_q8": {"(4, 20, 20, 512)": 0.0079487}}
 # K10 / K11 per forward at batch 4 and 128 in their mma.sync design, before
 # wgmma, as this script measured them on the same card
 PREVIOUS_MS_CM = {"conv3x3_cmajor": {"4": 2.326, "128": 51.39},

@@ -17,12 +17,28 @@
 //
 // K8 spp_pools_q8 replaces rep_yolo_tpu/ops/pallas/neck_flat.py:spp_pools_flat:
 // SPPCSPC's stride-1 max pyramid, emitting the concat [x, mp5, mp9, mp13]
-// (pads are -inf). Max pools compose (5 o 5 = 9, 9 o 5 = 13), so three chained
-// separable 5-windows give the three maps; the scale is unchanged and the
-// result exact. One block holds a whole map (H * W pixels of one 16-channel
-// vector, or one 4-channel word when C is not a multiple of 16) twice in
-// shared memory and takes bytewise signed maxima (__vmaxs4). Bound: bytes
-// (the map read once, four times its size written).
+// (pads are -inf). A k x k max with -inf pads is the horizontal k-window max
+// of the vertical k-window max, each window clipped to the map, and the
+// windows nest (9 = 5 and rows +-3..4, 13 = 9 and rows +-5..6); so this
+// equals the chained 5 o 5 and 5 o 5 o 5 of the TPU kernel bit for bit, as
+// max is exact, and the scale is unchanged. -128, the least int8, stands
+// for the -inf pad: it moves no max. A block takes th output rows by tw
+// output columns by cw 4-channel words of one image in two passes and one
+// barrier: a column pass, a thread a column of the tile and its 6-column
+// halo and a word, reads the band's th + 12 rows straight from the map and
+// writes the vertical maxima v5, v9, v13 of its th rows to shared memory
+// (and the x section); a row pass, a thread 5 output columns of a row and
+// a word, takes their horizontal windows and writes mp5, mp9, mp13. Each
+// word is widened to two words of sign-extended 16-bit pairs, on which a
+// three-way max is one instruction (__vimax3_s16x2; a bytewise __vmaxs4 is
+// six). Lanes run across the words, so a warp reads and writes runs of a
+// pixel's channels. One tile, picked in spp_dims: 4 rows by 8 words (4
+// where the map has fewer than 8), as wide as the map or, where that tile
+// would take over half an SM's shared memory, column tiles: 320 blocks, two
+// an SM, at the served (4, 20, 20, 512). (5 x 8 was faster there in an A/B
+// but gives 256 blocks.) -DSPP_TH and -DSPP_LGW set another tile for
+// pool_ab.py's A/B only. Bound: bytes (the map read once, four times its
+// size written); the halo rows are read again, from L2.
 //
 // K12 dwconv5x5_f32w_q8 replaces rep_yolo_tpu/ops/pallas/neck_flat.py:
 // dwconv5x5_flat_q8 (kernel _dw5_kernel), the exact-weight depthwise 5x5 that
@@ -298,67 +314,180 @@ cudaError_t launch_dw_f32w(const int8_t* x, const float* w, const float* bias,
 // K8: the SPP max pyramid [x, mp5, mp9, mp13]
 // ---------------------------------------------------------------------------
 
+constexpr int SPP_R = 6;                  // the 13-window's reach
+constexpr int SPP_QS = 5;                 // output columns a thread, row pass
 constexpr int SPP_THREADS = 256;
+constexpr size_t SPP_SMEM = 232448 / 2;   // a block's at most: two an SM
+#ifndef SPP_TH
+#define SPP_TH 4                          // output rows a block
+#endif
+#ifndef SPP_LGW
+#define SPP_LGW 3                         // log2 of its channel words
+#endif
+constexpr uint32_t SPP_PAD = 0x80808080u; // four int8 -128s: move no max
 
-__device__ __forceinline__ uint32_t vmax(uint32_t a, uint32_t b) {
-    return __vmaxs4(a, b);
+// Four int8 channels <-> two words of sign-extended 16-bit pairs (channels
+// 0, 2 and 1, 3), on which a three-way max is one instruction on this card
+// (VIMNMX3.S16x2; __vmaxs4 on the bytes is six).
+template <uint32_t S>
+__device__ __forceinline__ uint32_t prmt_sext(uint32_t v) {
+    uint32_t r;
+    asm("prmt.b32 %0, %1, 0, %2;" : "=r"(r) : "r"(v), "n"(S));
+    return r;
 }
 
-__device__ __forceinline__ uint4 vmax(uint4 a, uint4 b) {
-    return make_uint4(__vmaxs4(a.x, b.x), __vmaxs4(a.y, b.y),
-                      __vmaxs4(a.z, b.z), __vmaxs4(a.w, b.w));
+__device__ __forceinline__ uint2 widen(uint32_t v) {
+    return make_uint2(prmt_sext<0xA280>(v), prmt_sext<0xB391>(v));
 }
 
-// One block: vector slot p (of cv per pixel) of image b. x (B, H*W, cv) and
-// y (B, H*W, 4*cv) in vectors V; the map lives in shared memory as a (the
-// current pyramid level) and t (its horizontal 5-window maxima).
-template <typename V>
+__device__ __forceinline__ uint32_t narrow(uint2 v) {
+    return __byte_perm(v.x, v.y, 0x6240);
+}
+
+__device__ __forceinline__ uint2 max3(uint2 a, uint2 b, uint2 c) {
+    return make_uint2(__vimax3_s16x2(a.x, b.x, c.x),
+                      __vimax3_s16x2(a.y, b.y, c.y));
+}
+
+__device__ __forceinline__ uint2 max5(uint2 a, uint2 b, uint2 c, uint2 d,
+                                      uint2 e) {
+    return max3(max3(a, b, c), d, e);
+}
+
+// x (B, H, W, cw) and y (B, H, W, 4 cw) in 4-byte words. Block (chunk,
+// band, b * col_tiles + ct): words chunk * CW .. + CW - 1 of output rows
+// band * TH .. + TH - 1 and columns ct * tw .. + tw - 1, clipped to the map.
+// Shared memory: the vertical maxima v5, v9, v13 of the tile's TH rows over
+// its NU = TW + 12 columns (TW = tw rounded up to SPP_QS), rows VS words of
+// uint2 apart (NU rounded up to odd: no bank conflict between rows).
+template <int TH, int LGW>
 __global__ void __launch_bounds__(SPP_THREADS)
-spp_pools_q8_kernel(const V* __restrict__ x, V* __restrict__ y, int H, int W,
-                    int cv) {
+spp_pools_q8_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
+                    int H, int W, int cw, int tw, int col_tiles) {
+    constexpr int CW = 1 << LGW;
+    constexpr int NR = TH + 2 * SPP_R;       // rows a column pass reads
     extern __shared__ int4 smem4[];
-    const int HW = H * W;
-    V* a = (V*)smem4;
-    V* t = a + HW;
-    const int p = blockIdx.x, b = blockIdx.y;
-    const V* xb = x + (size_t)b * HW * cv + p;
-    V* yb = y + (size_t)b * HW * 4 * cv + p;
-    for (int i = threadIdx.x; i < HW; i += SPP_THREADS) {
-        const V v = xb[(size_t)i * cv];
-        a[i] = v;
-        yb[(size_t)i * 4 * cv] = v;
+    const int b = blockIdx.z / col_tiles;
+    const int ct = blockIdx.z - b * col_tiles;
+    const int c0 = blockIdx.x * CW;
+    const int r0 = blockIdx.y * TH, n = min(TH, H - r0);
+    const int q0 = ct * tw, m = min(tw, W - q0);
+    const int strips = (tw + SPP_QS - 1) / SPP_QS;
+    const int NU = strips * SPP_QS + 2 * SPP_R;
+    const int VS = (NU | 1) * CW;
+    uint2* V5 = (uint2*)smem4;
+    uint2* V9 = V5 + TH * VS;
+    uint2* V13 = V9 + TH * VS;
+    const size_t img = (size_t)b * H * W;
+    const uint32_t* xb = x + img * cw + c0;
+    uint32_t* yb = y + img * 4 * cw + c0;
+
+    // column pass: a thread a column and word of the tile and its halo,
+    // straight from the map (out of it: -128), down the band's NR rows; it
+    // writes the x section of the tile's own pixels
+    for (int i = threadIdx.x; i < NU * CW; i += SPP_THREADS) {
+        const int u = i >> LGW, w = i & (CW - 1);
+        const int q = q0 - SPP_R + u;
+        const bool live = q >= 0 && q < W && c0 + w < cw;
+        const uint32_t* src = xb + (size_t)(live ? q : 0) * cw + w;
+        uint32_t raw[NR];
+        uint2 v[NR];
+#pragma unroll
+        for (int k = 0; k < NR; ++k) {
+            const int r = r0 - SPP_R + k;
+            raw[k] = live && r >= 0 && r < H ? src[(size_t)r * W * cw] : SPP_PAD;
+        }
+#pragma unroll
+        for (int k = 0; k < NR; ++k) v[k] = widen(raw[k]);
+#pragma unroll
+        for (int k = 0; k < TH; ++k) {      // the windows nest: 5 in 9 in 13
+            const uint2 m5 = max5(v[k + 4], v[k + 5], v[k + 6], v[k + 7],
+                                  v[k + 8]);
+            const uint2 m9 = max5(m5, v[k + 2], v[k + 3], v[k + 9], v[k + 10]);
+            const uint2 m13 = max5(m9, v[k], v[k + 1], v[k + 11], v[k + 12]);
+            V5[k * VS + i] = m5;
+            V9[k * VS + i] = m9;
+            V13[k * VS + i] = m13;
+        }
+        if (live && u >= SPP_R && u < SPP_R + m) {
+            uint32_t* dst = yb + ((size_t)r0 * W + q) * 4 * cw + w;
+#pragma unroll
+            for (int k = 0; k < TH; ++k)
+                if (k < n) dst[(size_t)k * W * 4 * cw] = raw[SPP_R + k];
+        }
     }
     __syncthreads();
-    for (int sec = 1; sec <= 3; ++sec) {
-        for (int i = threadIdx.x; i < HW; i += SPP_THREADS) {
-            const int c = i % W;
-            V m = a[i];
-            for (int d = -2; d <= 2; ++d)
-                if (d != 0 && c + d >= 0 && c + d < W) m = vmax(m, a[i + d]);
-            t[i] = m;
+
+    // row pass: a thread SPP_QS output columns of a row and word
+    for (int i = threadIdx.x; i < strips * TH * CW; i += SPP_THREADS) {
+        const int w = i & (CW - 1), t = i >> LGW;
+        const int k = t % TH, s = t / TH;
+        if (k >= n || c0 + w >= cw) continue;
+        const int p0 = s * SPP_QS;
+        uint2 h5[SPP_QS + 4], h9[SPP_QS + 8], h13[SPP_QS + 12];
+#pragma unroll
+        for (int j = 0; j < SPP_QS + 12; ++j) {
+            const int o = k * VS + (p0 + j) * CW + w;
+            if (j >= 4 && j < SPP_QS + 8) h5[j - 4] = V5[o];
+            if (j >= 2 && j < SPP_QS + 10) h9[j - 2] = V9[o];
+            h13[j] = V13[o];
         }
-        __syncthreads();
-        for (int i = threadIdx.x; i < HW; i += SPP_THREADS) {
-            const int r = i / W;
-            V m = t[i];
-            for (int d = -2; d <= 2; ++d)
-                if (d != 0 && r + d >= 0 && r + d < H) m = vmax(m, t[i + d * W]);
-            a[i] = m;
-            yb[(size_t)i * 4 * cv + sec * cv] = m;
+        uint32_t* dst = yb + ((size_t)(r0 + k) * W + q0 + p0) * 4 * cw + w;
+#pragma unroll
+        for (int j = 0; j < SPP_QS; ++j) {
+            if (p0 + j >= m) break;
+            const uint2 o5 = max5(h5[j], h5[j + 1], h5[j + 2], h5[j + 3],
+                                  h5[j + 4]);
+            const uint2 o9 = max5(max5(h9[j], h9[j + 1], h9[j + 2], h9[j + 3],
+                                       h9[j + 4]),
+                                  h9[j + 5], h9[j + 6], h9[j + 7], h9[j + 8]);
+            const uint2 o13 = max5(
+                max5(max5(h13[j], h13[j + 1], h13[j + 2], h13[j + 3],
+                          h13[j + 4]),
+                     h13[j + 5], h13[j + 6], h13[j + 7], h13[j + 8]),
+                h13[j + 9], h13[j + 10], h13[j + 11], h13[j + 12]);
+            uint32_t* o = dst + (size_t)j * 4 * cw;
+            o[cw] = narrow(o5);
+            o[2 * cw] = narrow(o9);
+            o[3 * cw] = narrow(o13);
         }
-        __syncthreads();
     }
 }
 
-template <typename V>
-cudaError_t launch_spp(const void* x, void* y, int B, int H, int W, int cv,
-                       cudaStream_t stream) {
-    const size_t bytes = (size_t)2 * H * W * sizeof(V);
-    cudaError_t err = set_smem(spp_pools_q8_kernel<V>, bytes);
+// The shared memory of one block in bytes.
+inline size_t spp_bytes(int th, int tw, int lgw) {
+    const int nu = (tw + SPP_QS - 1) / SPP_QS * SPP_QS + 2 * SPP_R;
+    return (size_t)3 * th * ((nu | 1) << lgw) * sizeof(uint2);
+}
+
+// K8's launch on a (B, H, W) map of cw words a pixel: SPP_TH rows by tw
+// columns by 2^lgw words a block, tw = W halved until the block's shared
+// memory is at most SPP_SMEM; false if the grid is too large.
+struct SppDims {
+    int lgw, tw, col_tiles;
+    dim3 grid;
+    size_t smem;
+};
+
+bool spp_dims(int B, int H, int W, int cw, SppDims* d) {
+    d->lgw = cw >= (1 << SPP_LGW) ? SPP_LGW : 2;
+    d->tw = W;
+    while (d->tw > 1 && spp_bytes(SPP_TH, d->tw, d->lgw) > SPP_SMEM)
+        d->tw = (d->tw + 1) / 2;
+    d->col_tiles = (W + d->tw - 1) / d->tw;
+    d->grid = dim3((cw + (1 << d->lgw) - 1) >> d->lgw, (H + SPP_TH - 1) / SPP_TH,
+                   B * d->col_tiles);
+    d->smem = spp_bytes(SPP_TH, d->tw, d->lgw);
+    return d->grid.y <= 65535 && (long long)B * d->col_tiles <= 65535;
+}
+
+template <int LGW>
+cudaError_t launch_spp(const uint32_t* x, uint32_t* y, int H, int W, int cw,
+                       const SppDims& d, cudaStream_t stream) {
+    cudaError_t err = set_smem(spp_pools_q8_kernel<SPP_TH, LGW>, d.smem);
     if (err != cudaSuccess) return err;
-    dim3 grid(cv, B);
-    spp_pools_q8_kernel<V><<<grid, SPP_THREADS, bytes, stream>>>(
-        (const V*)x, (V*)y, H, W, cv);
+    spp_pools_q8_kernel<SPP_TH, LGW><<<d.grid, SPP_THREADS, d.smem, stream>>>(
+        x, y, H, W, cw, d.tw, d.col_tiles);
     return cudaGetLastError();
 }
 
@@ -405,16 +534,30 @@ extern "C" int dwconv5x5_f32w_q8(const int8_t* x, const float* w, const float* b
 #undef LD
 }
 
-// x (B, H, W, 4*cw) int8 as words; y (B, H, W, 16*cw). The map (2 * H * W
-// vectors) must fit a block's shared memory. Returns a cudaError_t.
+// x (B, H, W, 4*cw) int8 as words, 4-byte aligned; y (B, H, W, 16*cw).
+// Returns a cudaError_t.
 extern "C" int spp_pools_q8(const void* x, void* y, int B, int H, int W, int cw,
                             void* stream_ptr) {
     cudaStream_t stream = (cudaStream_t)stream_ptr;
     if (B <= 0 || H <= 0 || W <= 0 || cw <= 0) return 0;
-    if (cw % 4 == 0 && ((uintptr_t)x | (uintptr_t)y) % 16 == 0) {
-        if ((size_t)2 * H * W * 16 > 232448) return (int)cudaErrorInvalidValue;
-        return (int)launch_spp<uint4>(x, y, B, H, W, cw / 4, stream);
-    }
-    if ((size_t)2 * H * W * 4 > 232448) return (int)cudaErrorInvalidValue;
-    return (int)launch_spp<uint32_t>(x, y, B, H, W, cw, stream);
+    SppDims d;
+    if (!spp_dims(B, H, W, cw, &d) || ((uintptr_t)x | (uintptr_t)y) % 4 != 0)
+        return (int)cudaErrorInvalidValue;
+    const uint32_t* xw = (const uint32_t*)x;
+    uint32_t* yw = (uint32_t*)y;
+    if (d.lgw == SPP_LGW)
+        return (int)launch_spp<SPP_LGW>(xw, yw, H, W, cw, d, stream);
+    return (int)launch_spp<2>(xw, yw, H, W, cw, d, stream);
+}
+
+// The launch spp_pools_q8 makes on such a map: dims = grid x, y, z, block
+// x, y, z, dynamic shared memory. Returns a cudaError_t.
+extern "C" int spp_pools_q8_dims(int B, int H, int W, int cw, int* dims) {
+    SppDims d;
+    if (B <= 0 || H <= 0 || W <= 0 || cw <= 0 || !spp_dims(B, H, W, cw, &d))
+        return (int)cudaErrorInvalidValue;
+    const int out[7] = {(int)d.grid.x, (int)d.grid.y, (int)d.grid.z,
+                        SPP_THREADS, 1, 1, (int)d.smem};
+    for (int i = 0; i < 7; ++i) dims[i] = out[i];
+    return 0;
 }

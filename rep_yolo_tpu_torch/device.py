@@ -71,6 +71,14 @@ def _flags(src: pathlib.Path) -> list[str]:
     return ARCH_FLAGS + COMMON_FLAGS + EXTRA_FLAGS.get(src.name, [])
 
 
+def nvcc_command(src: pathlib.Path, out: pathlib.Path,
+                 defines: tuple[str, ...] = ()) -> list[str]:
+    """The ``nvcc`` command that builds ``src`` into the shared library
+    ``out`` as the port builds its kernels, with ``-D`` ``defines``."""
+    return [_nvcc(), *_flags(src), *(f"-D{d}" for d in defines), "-o",
+            str(out), str(src)]
+
+
 def _build_key() -> str:
     h = hashlib.sha256()
     for src in sorted(CSRC_DIR.glob("*.cu*")):
@@ -85,7 +93,6 @@ def build_kernels() -> dict[str, pathlib.Path]:
     Returns {source stem: path of its shared library}."""
     out_dir = BUILD_DIR / _build_key()
     out_dir.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
     procs, libs = [], {}
     for src in sorted(CSRC_DIR.glob("*.cu")):
         lib = out_dir / f"lib{src.stem}.so"
@@ -93,7 +100,7 @@ def build_kernels() -> dict[str, pathlib.Path]:
         if lib.exists():
             continue
         tmp = out_dir / f"lib{src.stem}.so.tmp{os.getpid()}"
-        cmd = [nvcc, *_flags(src), "-o", str(tmp), str(src)]
+        cmd = nvcc_command(src, tmp)
         procs.append((src, lib, tmp, cmd, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
     errors = []

@@ -10,8 +10,9 @@ spp_pools_flat`` (K8 ``spp_pools_q8``). Source: ``csrc/neck_flat.cu``.
 
 Maps are channels-last int8 ``(B, H, W, C)``, C a multiple of 4 for K7 and
 K8. K7 and K12 share one tiling (``dw5_tile``, picked here and passed to the
-kernels). The wrappers take the plain versions for CPU tensors only; on a
-CUDA tensor they launch the kernel or raise.
+kernels); K8 picks its own grid (``spp_launch_dims`` reads it). The
+wrappers take the plain versions for CPU tensors only; on a CUDA tensor
+they launch the kernel or raise.
 """
 
 from __future__ import annotations
@@ -27,7 +28,6 @@ from rep_yolo_tpu_torch.ops.quant import epilogue, quantize_weights, requant
 LAUNCHES = {"dwconv5x5_q8": 0, "dwconv5x5_f32w_q8": 0, "spp_pools_q8": 0}
 _ACTS = {"silu": 1, None: 0}
 SPP_K = (5, 9, 13)
-_SMEM = 232448              # bytes of shared memory a block may use
 SMS = 132                   # the H100's SMs
 DW5_TX, DW5_C = 20, 32      # output columns and channels a depthwise block
 DW5_TY = (16, 8, 4, 2, 1)   # its output rows, tallest first
@@ -44,6 +44,8 @@ def _lib():
         lib.dwconv5x5_f32w_q8.restype = i32
         lib.spp_pools_q8.argtypes = [vp, vp] + [i32] * 4 + [vp]
         lib.spp_pools_q8.restype = i32
+        lib.spp_pools_q8_dims.argtypes = [i32] * 4 + [ctypes.POINTER(i32)]
+        lib.spp_pools_q8_dims.restype = i32
         lib._typed = True
     return lib
 
@@ -206,6 +208,17 @@ def dwconv5x5_f32w_q8(x: torch.Tensor, qd: QDepthwiseF32,
     return y
 
 
+def spp_launch_dims(B: int, H: int, W: int,
+                    C: int) -> tuple[tuple, tuple, int]:
+    """(grid, block, dynamic shared memory) of K8's launch on a (B, H, W, C)
+    int8 map, as the kernel picks them (on the card: it loads the
+    kernel)."""
+    dims = (ctypes.c_int * 7)()
+    D.check_launch("spp_pools_q8_dims",
+                   _lib().spp_pools_q8_dims(B, H, W, C // 4, dims))
+    return tuple(dims[:3]), tuple(dims[3:6]), dims[6]
+
+
 def spp_pools_q8_plain(x: torch.Tensor) -> torch.Tensor:
     """(B, H, W, C) int8 -> (B, H, W, 4C): [x, mp5, mp9, mp13], stride 1,
     pads -inf (max pools of the exact float copy)."""
@@ -222,12 +235,11 @@ def spp_pools_q8(x: torch.Tensor) -> torch.Tensor:
     if x.dtype != torch.int8 or x.dim() != 4 or x.shape[-1] % 4:
         raise ValueError(f"spp_pools_q8: expected int8 (B, H, W, C), C % 4 "
                          f"== 0, got {x.dtype} {tuple(x.shape)}")
-    B, H, W, C = x.shape
-    vec = 16 if C % 16 == 0 else 4
-    if 2 * H * W * vec > _SMEM:
-        raise ValueError(f"spp_pools_q8: a {H}x{W} map does not fit a block's "
-                         f"shared memory")
     x = x.contiguous()
+    if x.data_ptr() % 4:
+        raise ValueError("spp_pools_q8: the map must start on a 4-byte "
+                         "boundary")
+    B, H, W, C = x.shape
     y = torch.empty((B, H, W, 4 * C), device=x.device, dtype=torch.int8)
     err = _lib().spp_pools_q8(D.ptr(x), D.ptr(y), B, H, W, C // 4,
                               D.stream_handle(x))

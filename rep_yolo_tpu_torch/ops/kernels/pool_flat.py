@@ -2,8 +2,10 @@
 
 Replaces ``rep_yolo_tpu/ops/pallas/pool_flat.py:max_pool2_flat``. Source:
 ``csrc/pool_flat.cu`` (K6 ``max_pool2_q8``: bytewise signed max of each
-window's four 16-channel vectors). x ``(B, H, W, C)`` int8, H and W even, C a
-multiple of 4; the output keeps x's scale. The wrapper takes the plain
+window's four 16-channel vectors, or 4-channel words when C % 16 or an
+address is off 16 bytes). x ``(B, H, W, C)`` int8, H and W even, C a
+multiple of 4; the output keeps x's scale. The kernel picks its own grid
+from the shape (``launch_dims`` reads it). The wrapper takes the plain
 version for CPU tensors only; on a CUDA tensor it launches the kernel or
 raises.
 """
@@ -25,8 +27,21 @@ def _lib():
         vp, i32 = ctypes.c_void_p, ctypes.c_int
         lib.max_pool2_q8.argtypes = [vp, vp] + [i32] * 4 + [vp]
         lib.max_pool2_q8.restype = i32
+        lib.max_pool2_q8_dims.argtypes = [i32] * 5 + [ctypes.POINTER(i32)]
+        lib.max_pool2_q8_dims.restype = i32
         lib._typed = True
     return lib
+
+
+def launch_dims(B: int, H: int, W: int, C: int,
+                aligned16: bool = True) -> tuple[tuple, tuple, int]:
+    """(grid, block, dynamic shared memory) of K6's launch on a (B, H, W, C)
+    int8 map whose pointers are 16-byte aligned or not, as the kernel picks
+    them (on the card: it loads the kernel)."""
+    dims = (ctypes.c_int * 7)()
+    D.check_launch("max_pool2_q8_dims", _lib().max_pool2_q8_dims(
+        B, H, W, C // 4, int(aligned16), dims))
+    return tuple(dims[:3]), tuple(dims[3:6]), dims[6]
 
 
 def max_pool2_q8_plain(x: torch.Tensor) -> torch.Tensor:
@@ -47,6 +62,9 @@ def max_pool2_q8(x: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"max_pool2_q8: needs even H, W and C % 4 == 0, "
                          f"got {tuple(x.shape)}")
     x = x.contiguous()
+    if x.data_ptr() % 4:
+        raise ValueError("max_pool2_q8: the map must start on a 4-byte "
+                         "boundary")
     y = torch.empty((B, H // 2, W // 2, C), device=x.device,
                     dtype=torch.int8)
     err = _lib().max_pool2_q8(D.ptr(x), D.ptr(y), B, H, W, C // 4,

@@ -14,7 +14,8 @@ atol = rtol = 1e-4; the int8 kernels (K5 on the int8 tensor cores and
 K12's float32 sums included): int8 outputs identical but for +-1 LSB on at
 most 1e-4 of the elements (CUDA's expf against torch's sigmoid), float32
 outputs atol = rtol = 1e-5, bfloat16 outputs within one bfloat16 ulp
-(``_q8_out_close``), pools (K6, K8) identical;
+(``_q8_out_close``), pools (K6, K8) identical, on maps off 16 bytes too
+(the word route), and on a second call;
 K9 wgrad3x3: |dW - plain| <= 1e-4 |plain| + 1e-4 max|plain| (sums of up to
 51,200 products in another order, as Winograd tiles in 3xTF32), and two
 calls identical; K10 / K11 (conv3x3_cmajor,
@@ -682,14 +683,47 @@ def test_conv1x1_q8_refuses_unaligned_float_sections(cuda):
         KC.conv1x1_q8([x], qw, 0.01)
 
 
-@pytest.mark.parametrize("shape", [(2, 80, 80, 256), (3, 10, 14, 4),
-                                   (2, 6, 8, 8)])
-def test_max_pool2_q8_matches_plain(cuda, shape):
-    x = torch.from_numpy(np.random.default_rng(0).integers(
-        -128, 128, shape).astype(np.int8)).to(cuda)
-    assert torch.equal(KP.max_pool2_q8(x), KP.max_pool2_q8_plain(x))
+def _int8_view(shape, seed, device, offset=0):
+    """A seeded int8 map; ``offset`` > 0: a contiguous view that many bytes
+    into a buffer (off 16 bytes: the kernels' word route)."""
+    n = int(np.prod(shape))
+    x = torch.from_numpy(np.random.default_rng(seed).integers(
+        -128, 128, shape).astype(np.int8)).to(device)
+    if not offset:
+        return x
+    buf = torch.zeros(n + offset, dtype=torch.int8, device=device)
+    buf[offset:] = x.reshape(-1)
+    return buf[offset:].view(shape)
 
 
+# K6's three served calls (batch 4 at 640 px), a batch-2 l6, ragged maps,
+# C off 16 (words), a map of more vectors a pixel than lanes
+K6_CARD_SHAPES = [(2, 80, 80, 256), (3, 10, 14, 4), (2, 6, 8, 8),
+                  (4, 80, 80, 256), (4, 80, 80, 128), (4, 40, 40, 256),
+                  (1, 2, 2, 4), (2, 4, 6, 12), (1, 6, 4, 1024),
+                  (1, 2, 130, 8)]
+
+
+@pytest.mark.parametrize("offset", [0, 4])
+@pytest.mark.parametrize("shape", K6_CARD_SHAPES)
+def test_max_pool2_q8_matches_plain(cuda, shape, offset):
+    x = _int8_view(shape, 0, cuda, offset)
+    y = KP.max_pool2_q8(x)
+    assert torch.equal(y, KP.max_pool2_q8_plain(x))
+    assert torch.equal(KP.max_pool2_q8(x), y)        # a second call
+
+
+def test_max_pool2_q8_launch_dims(cuda):
+    """The grids the kernel picks: each served call one wave of at least a
+    block an SM, whole warps, two output rows a thread; the word route on a
+    map off 16 bytes."""
+    want = {(4, 80, 80, 256): ((5, 20, 4), (16, 8, 1)),
+            (4, 80, 80, 128): ((5, 20, 4), (8, 8, 1)),
+            (4, 40, 40, 256): ((5, 10, 4), (16, 4, 1))}
+    for shape, (grid, block) in want.items():
+        assert KP.launch_dims(*shape) == (grid, block, 0)
+    grid, block, _ = KP.launch_dims(4, 80, 80, 256, aligned16=False)
+    assert block == (32, 8, 1) and grid == (5, 20, 4)
 @pytest.mark.parametrize("c,h,w,act,out_scale", [
     (64, 80, 80, "silu", 0.03),     # l17's GSConv depthwise
     (128, 20, 20, None, 0.05),      # a GSBottleneck gs2, no activation
@@ -818,12 +852,42 @@ def test_row3_route_on_the_card(cuda):
     assert sum(launch_counts().values()) == 2
 
 
-@pytest.mark.parametrize("shape", [(4, 20, 20, 512), (2, 7, 9, 8),
-                                   (1, 40, 40, 64)])
-def test_spp_pools_q8_matches_plain(cuda, shape):
-    x = torch.from_numpy(np.random.default_rng(1).integers(
-        -128, 128, shape).astype(np.int8)).to(cuda)
-    assert torch.equal(KNF.spp_pools_q8(x), KNF.spp_pools_q8_plain(x))
+# K8's served call, the tiny config's map, H or W in {1, 2, 5, 12, 13, 14},
+# C off 16, a map wider than one tile's shared memory (column tiles)
+K8_CARD_SHAPES = [(4, 20, 20, 512), (2, 7, 9, 8), (1, 40, 40, 64),
+                  (2, 2, 2, 32), (1, 1, 5, 16), (2, 2, 13, 8), (1, 5, 1, 32),
+                  (1, 12, 14, 16), (2, 13, 12, 12), (1, 14, 2, 64),
+                  (8, 40, 40, 256), (1, 3, 600, 16)]
+
+
+@pytest.mark.parametrize("offset", [0, 4])
+@pytest.mark.parametrize("shape", K8_CARD_SHAPES)
+def test_spp_pools_q8_matches_plain(cuda, shape, offset):
+    x = _int8_view(shape, 1, cuda, offset)
+    y = KNF.spp_pools_q8(x)
+    assert torch.equal(y, KNF.spp_pools_q8_plain(x))
+    assert torch.equal(KNF.spp_pools_q8(x), y)       # a second call
+
+
+def test_spp_pools_q8_launch_dims(cuda):
+    """The tile the kernel picks: 4 rows by 8 words at the served call, 320
+    blocks (two an SM) within half an SM's shared memory; 4 words on a map
+    of fewer; column tiles on a map too wide for one."""
+    assert KNF.spp_launch_dims(4, 20, 20, 512) == ((16, 5, 4), (256, 1, 1),
+                                                  25344)
+    assert KNF.spp_launch_dims(2, 2, 2, 16)[0] == (1, 1, 2)
+    grid, _, smem = KNF.spp_launch_dims(1, 3, 600, 16)
+    assert grid == (1, 1, 4) and smem <= 232448 // 2
+
+
+@pytest.mark.parametrize("fill", [-128, 127])
+def test_spp_pools_q8_constant_and_border_maxima(cuda, fill):
+    x = torch.full((2, 13, 14, 16), fill, dtype=torch.int8, device=cuda)
+    assert bool((KNF.spp_pools_q8(x) == fill).all())
+    for r, c in ((0, 0), (0, 13), (12, 0), (12, 13), (6, 0), (0, 7)):
+        x.fill_(-128)
+        x[1, r, c, 5] = 127
+        assert torch.equal(KNF.spp_pools_q8(x), KNF.spp_pools_q8_plain(x))
 
 
 def test_q8_wrappers_count_launches_and_refuse_bad_input(cuda):
@@ -853,6 +917,22 @@ def test_q8_wrappers_count_launches_and_refuse_bad_input(cuda):
     with pytest.raises(ValueError):                  # odd map for the pool
         KP.max_pool2_q8(torch.zeros((1, 5, 4, 4), dtype=torch.int8,
                                     device=cuda))
+
+
+def test_pool_wrappers_refuse_maps_off_4_bytes(cuda):
+    """K6 and K8 read words at least: a map that starts off a 4-byte
+    boundary is refused, C % 4 too; no launch is counted."""
+    reset_launch_counts()
+    x = _int8_view((1, 4, 4, 8), 0, cuda, offset=1)
+    with pytest.raises(ValueError):
+        KP.max_pool2_q8(x)
+    with pytest.raises(ValueError):
+        KNF.spp_pools_q8(x)
+    with pytest.raises(ValueError):
+        KNF.spp_pools_q8(torch.zeros((1, 4, 4, 6), dtype=torch.int8,
+                                     device=cuda))
+    assert launch_counts()["max_pool2_q8"] == 0
+    assert launch_counts()["spp_pools_q8"] == 0
 
 
 # (B, H, W, C, O): the nine convs of a flagship train step at 640 px, batch
