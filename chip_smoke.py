@@ -176,6 +176,15 @@ as cli.train runs:
   13. train_cli: python -m rep_yolo_tpu_torch.cli.train --data synthetic:16
      --epochs 1 (batch 8, 640 px, no augment, no autoanchor, no eval) exits
      0 with finite step lines
+  13a. train_augment: augmentation (data/augment.py, scratch.p5 with
+     mosaic-9 and paste-in off) on one batch from one CPU generator's
+     draws, on the card against the CPU (masks identical, labels 1e-5,
+     images AUG_IMG_TOL); 5 augmented train steps: each step's batch in
+     [0, 1], finite losses; host ms of a step and of the augmentation,
+     device ms of the step and of its train/augment range, with the card's
+     name and power limit
+  13b. train_cli_augment: the train CLI of 13 with augmentation on (--hyp
+     with mosaic-9 and paste-in off) exits 0 with finite step lines
   14. profiler_after_training: the device events the profiler records in
      windows of K9 calls after the training phases (a report)
 
@@ -1677,8 +1686,7 @@ def phase_times(torch, dev, counts, errs):
              "rep_yolo_tpu/ops/pallas/nms_kernel.py:97")):
         kernels.append(kernel_row(name, src, replaces, counts[name],
                                   errs[name], agg[name], F32_PEAK))
-    kernels[3].update(mask_ms=t["mask_ms"], scan_ms=t["scan_ms"],
-                      previous_design_ms=PREVIOUS_MS["nms_keep"])
+    kernels[3].update(mask_ms=t["mask_ms"], scan_ms=t["scan_ms"])
     kernels[0]["qk_product_only_ms"] = agg["axial_project"][
         "qk_product_only_ms"]
     kernels[0]["qk_product_only"] = "torch.matmul(x, wqk.t()) alone: a " \
@@ -1795,8 +1803,6 @@ def phase_times_q8(torch, dev, counts, errs, calls):
         if name == "spp_pools_q8":
             row["library_call"] = ("a sequence: three F.max_pool2d and a "
                                    "torch.cat on the f32 map")
-        if name == "dwconv5x5_q8":
-            row["previous_design_ms"] = PREVIOUS_MS[name]
         if name in ("max_pool2_q8", "spp_pools_q8"):
             calls_ = [c for c in pool_calls if c["kernel"] == name]
             for k in ("floor_ms", "floor_previous_design_ms"):
@@ -2925,25 +2931,27 @@ def phase_kernels_wgrad(torch, dev, errs):
 
 
 def train_setup(torch, dev, cfg=CFG, size=SIZE, batch=TRAIN_BATCH, n=16,
-                warmup=True):
+                warmup=True, hyp=None):
     """The flagship's training as ``cli.train`` builds it
     (``build_training``: seeded init, scratch.p5, simOTA, nesterov SGD, EMA)
     with ``--no-accumulate`` (the CLI's accumulation also applies the
     optimizer at every call for its first 72 iterations at batch 8), the
     select-all wgrad route, and the synthetic batches (seed 0) on
-    the card."""
+    the card: (``cli.train.Training``, batches). ``--no-augment`` unless a
+    ``hyp`` YAML is given, then augmentation with that hyp."""
     from rep_yolo_tpu_torch.cli import train as cli
 
     args = cli.parse_args([
         "--cfg", cfg, "--data", f"synthetic:{n}", "--batch-size", str(batch),
-        "--img-size", str(size), "--no-augment", "--no-autoanchor",
-        "--eval-every", "0", "--no-accumulate", "--device", str(dev)])
+        "--img-size", str(size), "--no-autoanchor", "--eval-every", "0",
+        "--no-accumulate", "--device", str(dev)]
+        + (["--no-augment"] if hyp is None else ["--hyp", str(hyp)]))
     t = cli.build_training(args, warmup=warmup)
     t.model.net.set_wgrad(True, select=lambda c1, c2: True)
     batches = [[torch.from_numpy(b[k]).to(dev)
                 for k in ("images", "hw", "labels", "mask")]
                for b in t.loader.epoch(0)]
-    return t.model, t.state, t.step, batches
+    return t, batches
 
 
 def _grad_check(torch, model, state, step, batch):
@@ -3015,8 +3023,8 @@ def _train_category(name: str) -> str:
     return "other conv" if c == "convolutions (cuDNN)" else c
 
 
-TRAIN_RANGES = ("train/forward", "train/loss", "train/backward",
-                "train/optimizer")
+TRAIN_RANGES = ("train/augment", "train/forward", "train/loss",
+                "train/backward", "train/optimizer")
 
 
 def profiled_train(torch, fn, reps: int):
@@ -3024,7 +3032,7 @@ def profiled_train(torch, fn, reps: int):
     wall ms per step, device ms per step by kernel name, and the device ms
     of the kernels launched inside each of the step's ranges (the
     backward's kernels run on autograd's thread and fall outside it), and
-    the K9 launches per step the profiler saw."""
+    the launches per step the profiler saw by kernel name."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -3035,7 +3043,7 @@ def profiled_train(torch, fn, reps: int):
             fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t) * 1e3 / reps
-    names, ranges, k9_seen = {}, {}, 0
+    names, ranges, seen = {}, {}, {}
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", None)
         if us is None:
@@ -3045,13 +3053,13 @@ def profiled_train(torch, fn, reps: int):
             continue            # the ranges' own spans on the device
         if e.device_type == torch.autograd.DeviceType.CUDA and us > 0:
             names[e.key] = names.get(e.key, 0.0) + us / 1e3 / reps
-            k9_seen += e.count if "wgrad3x3_gemm" in e.key else 0
+            seen[e.key] = seen.get(e.key, 0) + e.count / reps
         elif e.key in TRAIN_RANGES:
             tot = getattr(e, "device_time_total", None)
             if tot is None:
                 tot = e.cuda_time_total
             ranges[e.key] = tot / 1e3 / reps
-    return wall, names, ranges, k9_seen / reps
+    return wall, names, ranges, seen
 
 
 def phase_train_step(torch, dev, size=SIZE, cfg=CFG, batch=TRAIN_BATCH,
@@ -3065,7 +3073,8 @@ def phase_train_step(torch, dev, size=SIZE, cfg=CFG, batch=TRAIN_BATCH,
     from rep_yolo_tpu_torch.ops.kernels import launch_counts, \
         reset_launch_counts
 
-    model, state, step, batches = train_setup(torch, dev, cfg, size, batch)
+    t, batches = train_setup(torch, dev, cfg, size, batch)
+    model, state, step = t.model, t.state, t.step
     comps = []
     for i in range(warm):
         comps.append(step(state, *batches[i % len(batches)]))
@@ -3089,8 +3098,9 @@ def phase_train_step(torch, dev, size=SIZE, cfg=CFG, batch=TRAIN_BATCH,
     if counts["wgrad3x3"] != WGRAD_PER_STEP * timed:
         raise AssertionError(f"K9 launched {counts['wgrad3x3']} times in "
                              f"{timed} steps, want {WGRAD_PER_STEP} a step")
-    wall, names, ranges, k9_seen = profiled_train(
+    wall, names, ranges, seen = profiled_train(
         torch, lambda: step(state, *batches[0]), 3)
+    k9_seen = sum(n for k, n in seen.items() if "wgrad3x3_gemm" in k)
     cats: dict[str, float] = {}
     for n, ms in names.items():
         c = _train_category(n)
@@ -3129,9 +3139,9 @@ def phase_train_overfit(torch, dev, size=SIZE, cfg=CFG, batch=TRAIN_BATCH,
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False
     try:
-        model, state, step, batches = train_setup(torch, dev, cfg, size,
-                                                  batch, n=batch,
-                                                  warmup=False)
+        t, batches = train_setup(torch, dev, cfg, size, batch, n=batch,
+                                 warmup=False)
+        state, step = t.state, t.step
         totals = [float(step(state, *batches[0])["total"])
                   for _ in range(steps)]
     finally:
@@ -3143,14 +3153,16 @@ def phase_train_overfit(torch, dev, size=SIZE, cfg=CFG, batch=TRAIN_BATCH,
           "cudnn_deterministic": True, "total": totals})
 
 
-def phase_train_cli(torch, timeout=900):
-    """``python -m rep_yolo_tpu_torch.cli.train`` as a user runs it."""
+def phase_train_cli(torch, timeout=900, hyp=None):
+    """``python -m rep_yolo_tpu_torch.cli.train`` as a user runs it:
+    ``--no-augment``, or with augmentation on and the ``hyp`` YAML."""
     import numpy as np
 
     cmd = [sys.executable, "-m", "rep_yolo_tpu_torch.cli.train",
            "--data", "synthetic:16", "--epochs", "1", "--batch-size",
-           str(TRAIN_BATCH), "--img-size", str(SIZE), "--no-augment",
-           "--no-autoanchor", "--eval-every", "0"]
+           str(TRAIN_BATCH), "--img-size", str(SIZE), "--no-autoanchor",
+           "--eval-every", "0"] + (["--no-augment"] if hyp is None
+                                   else ["--hyp", str(hyp)])
     t = time.perf_counter()
     p = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
                        timeout=timeout)
@@ -3164,8 +3176,140 @@ def phase_train_cli(torch, timeout=900):
     if not ok:
         raise AssertionError(f"cli.train failed (exit {p.returncode}):\n"
                              f"{p.stdout[-3000:]}\n{p.stderr[-3000:]}")
-    emit({"phase": "train_cli", "ok": True, "cmd": " ".join(cmd[1:]),
-          "exit": p.returncode, "seconds": secs, "steps": steps})
+    emit({"phase": "train_cli" if hyp is None else "train_cli_augment",
+          "ok": True, "cmd": " ".join(cmd[1:]), "exit": p.returncode,
+          "seconds": secs, "steps": steps})
+
+
+AUG_HYP = {"mosaic9": 0.0, "paste_in": 0.0}     # over scratch.p5
+# card against CPU, images on [0, 1]: a 640-px mosaic's canvas coordinate
+# Minv00 x + Minv02 has terms below 16,384 (scale draws down to 0.1), where
+# a float32 ulp is 2**-10 px; 4 ulps times the 255-a-pixel gradient, / 255,
+# times HSV's value gain up to 1.4
+AUG_IMG_TOL = 4 * 2.0 ** -10 * 1.4
+AUG_LABEL_TOL = 1e-5
+
+
+def augment_hyp():
+    """A hyp YAML (over scratch.p5) with mosaic-9 and paste-in off, under
+    the gitignored run directory."""
+    EVAL_RUNS.mkdir(parents=True, exist_ok=True)
+    path = EVAL_RUNS / "hyp_mosaic4.yaml"
+    path.write_text("".join(f"{k}: {v}\n" for k, v in AUG_HYP.items()))
+    return path
+
+
+def phase_train_augment(torch, dev, card, size=SIZE, cfg=CFG,
+                        batch=TRAIN_BATCH, steps=5, reps=3):
+    """Augmentation on the flagship's training at 640 px, batch 8: one
+    batch's draws from a CPU generator, ``augment_batch`` on the card
+    against the same on the CPU (masks identical, labels within
+    ``AUG_LABEL_TOL``, images within ``AUG_IMG_TOL``); then ``steps``
+    augmented train steps (each step's batch, recomputed from the augment
+    generator's state before it, in range: images and valid labels in [0,
+    1]; every loss finite); host ms of a step and of the augmentation
+    alone; under the profiler the device ms of the step and of its
+    ``train/augment`` range."""
+    import argparse
+
+    import numpy as np
+
+    from rep_yolo_tpu_torch.cli import train as cli
+    from rep_yolo_tpu_torch.data import augment as A
+    from rep_yolo_tpu_torch.train.hyp import load_hyp
+
+    hyp = augment_hyp()
+    t, batches = train_setup(torch, dev, cfg, size, batch, hyp=hyp)
+    acfg = cli.augment_config(argparse.Namespace(
+        img_size=size, max_labels=batches[0][2].shape[1]), load_hyp(str(hyp)))
+    draws = A.draw_batch(torch.Generator().manual_seed(0), batch, acfg)
+    card_out = A.augment_batch(*batches[0], A.Draws(
+        *(d.to(dev) for d in draws)), acfg)
+    cpu_out = A.augment_batch(*(b.cpu() for b in batches[0]), draws, acfg)
+    torch.cuda.synchronize()
+    if card_out.images.device.type != "cuda":
+        raise AssertionError("augment_batch left the card")
+    img_err = float((card_out.images.cpu() - cpu_out.images).abs().max())
+    lab_err = float((card_out.labels.cpu() - cpu_out.labels).abs().max())
+    above = int(((card_out.images.cpu() - cpu_out.images).abs()
+                 > 1e-5).sum())
+    same_mask = bool(torch.equal(card_out.mask.cpu(), cpu_out.mask))
+    if not (same_mask and lab_err <= AUG_LABEL_TOL
+            and img_err <= AUG_IMG_TOL):
+        raise AssertionError(f"augment_batch on the card differs from the "
+                             f"CPU: masks equal {same_mask}, labels "
+                             f"{lab_err}, images {img_err}")
+
+    gen, state, step = t.state.aug_generator, t.state, t.step
+    comps, host, ranges_ok = [], [], []
+    for i in range(steps):
+        b = batches[i % len(batches)]
+        before = gen.get_state()
+        out = t.augment(*b, gen)
+        lab = out.labels[out.mask]
+        ranges_ok.append(bool(
+            out.images.min() >= 0 and out.images.max() <= 1
+            and (lab[:, 1:].min() >= 0 if len(lab) else True)
+            and (lab[:, 1:].max() <= 1 if len(lab) else True)))
+        gen.set_state(before)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        comps.append({k: float(v) for k, v in step(state, *b).items()})
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+    if not all(ranges_ok):
+        raise AssertionError(f"an augmented batch is out of [0, 1]: "
+                             f"{ranges_ok}")
+    if not all(np.isfinite(c[k]) for c in comps for k in c):
+        raise AssertionError(f"a loss component is not finite: {comps}")
+    aug_host = []
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        t.augment(*batches[i % len(batches)], gen)
+        torch.cuda.synchronize()
+        aug_host.append((time.perf_counter() - t0) * 1e3)
+    wall, names, ranges, _ = profiled_train(
+        torch, lambda: step(state, *batches[0]), reps)
+    dev_ms = sum(names.values())
+    aug_dev = ranges.get("train/augment", 0.0)
+    # the augmentation alone: its kernels and launches
+    aug_wall, aug_names, _, aug_seen = profiled_train(
+        torch, lambda: t.augment(*batches[0], gen), reps)
+    emit({"phase": "train_augment", "ok": True, "card": card,
+          "batch": batch, "size": size, "hyp": f"scratch.p5 with {AUG_HYP}",
+          "card_vs_cpu": {
+              "masks_identical": same_mask, "labels_max_abs_err": lab_err,
+              "images_max_abs_err": img_err,
+              "images_elements_above_1e-5": above,
+              "valid_labels": int(cpu_out.mask.sum()),
+              "tolerance": f"masks identical, labels {AUG_LABEL_TOL}, "
+                           f"images {AUG_IMG_TOL} on [0, 1]"},
+          "losses": comps, "batches_in_range": ranges_ok,
+          "step_host_ms": host,
+          "step_host_ms_median": statistics.median(host),
+          "augment_host_ms": aug_host,
+          "augment_host_ms_median": statistics.median(aug_host),
+          "profiled_wall_ms_per_step": wall,
+          "device_ms_per_step": dev_ms if dev_ms > 0 else "not measured",
+          "augment_device_ms_per_step": aug_dev if aug_dev > 0
+          else "not measured",
+          "range_device_ms": ranges,
+          "device_busy_share": dev_ms / wall if dev_ms > 0
+          else "not measured",
+          "augment_alone": {
+              "profiled_wall_ms": aug_wall,
+              "device_ms": sum(aug_names.values()),
+              "launches": sum(aug_seen.values()),
+              "top_kernels_ms_launches": [
+                  [k[:90], v, aug_seen[k]] for k, v in sorted(
+                      aug_names.items(), key=lambda kv: -kv[1])[:15]]},
+          "note": "host ms: synchronised wall time, a step after its "
+                  "batch's check, the augmentation alone after the steps; "
+                  "device ms: torch.profiler over the profiled steps, the "
+                  "kernels inside train/augment in augment_device_ms; "
+                  "augment_alone: the augmentation alone under the "
+                  "profiler, per call"})
 
 
 def cold_event_ms(torch, fn, reps: int = 10, warmup: int = 3) -> float:
@@ -3751,8 +3895,7 @@ def eval_rows(counts, errs, dw_agg, attn_agg, attn_err,
                            "rep_yolo_tpu/ops/pallas/nms_kernel.py:97",
                            counts["fused_f32"]["nms_keep"],
                            errs["nms_keep"], nms_t, F32_PEAK))
-    rows[-1].update(mask_ms=nms_t["mask_ms"], scan_ms=nms_t["scan_ms"],
-                    previous_design_ms=PREVIOUS_MS["nms_keep_k8192"])
+    rows[-1].update(mask_ms=nms_t["mask_ms"], scan_ms=nms_t["scan_ms"])
     for mode, line in (("criss_cross", 295), ("vertical", 330)):
         rows.append(kernel_row(
             f"axial_attend_{mode}_row3",
@@ -3841,6 +3984,8 @@ def main(argv=None) -> int:
     counts_train = phase_train_step(torch, dev)
     phase_train_overfit(torch, dev)
     phase_train_cli(torch)
+    phase_train_augment(torch, dev, card)
+    phase_train_cli(torch, hyp=augment_hyp())
     run = phase_eval_train_cli(torch)
     with torch.inference_mode():
         counts_eval = phase_eval_modes(torch, dev, run)

@@ -4,14 +4,18 @@
 Example:
     python -m rep_yolo_tpu_torch.cli.train --data synthetic:64 \
         --val-data synthetic:32 --epochs 3 --batch-size 8 --img-size 640 \
-        --no-augment --no-autoanchor --eval-every 1
+        --hyp hyp.yaml --no-autoanchor --eval-every 1
 
-Seeded init of the train-form model, the hyp preset's loss gains and
-optimizer (simOTA by default, 3-group nesterov SGD with warmup and
-one-cycle, gradient accumulation to the nominal batch 64 ramped over the
-warmup), the EMA; one JSON line per step (per call of the train step, which
-advances the iteration counter) with the loss components and the step's
-host ms. Every ``--eval-every`` epochs and at the last one the EMA weights
+where ``hyp.yaml`` holds ``mosaic9: 0.0`` and ``paste_in: 0.0`` (over
+scratch.p5), or pass ``--no-augment``.
+
+Seeded init of the train-form model, the hyp preset's augmentation (on the
+card, in the train step: mosaic-4 with the random affine, mixup, HSV and
+flips; ``data/augment.py``), loss gains and optimizer (simOTA by default,
+3-group nesterov SGD with warmup and one-cycle, gradient accumulation to
+the nominal batch 64 ramped over the warmup), the EMA; one JSON line per
+step (per call of the train step, which advances the iteration counter)
+with the loss components and the step's host ms. Every ``--eval-every`` epochs and at the last one the EMA weights
 are scored on the validation set (``train/evaluate.py``; the train-form
 model, whose attention runs on K2 on the card), one JSON line each with
 the kernel launches of that evaluation. The run
@@ -28,8 +32,10 @@ is scored, as in the JAX CLI. ``--eval-every 0`` turns evaluation off.
 
 The flags are the JAX CLI's. Paths not ported yet raise instead of being
 ignored: a YOLO-directory training set (``--data`` takes ``synthetic[:N]``),
-augmentation and autoanchor (``--no-augment`` and ``--no-autoanchor`` are
-required), and ``--bf16``, ``--multi-scale``, ``--aux``, ``--resume``,
+autoanchor (``--no-autoanchor`` is required), a hyp whose ``mosaic9``,
+``paste_in`` or ``cutout`` is above 0 with augmentation on (mosaic-9,
+paste-in and cutout: scratch.p5 and scratch.tiny set paste-in, and mosaic9
+defaults to 0.2), and ``--bf16``, ``--multi-scale``, ``--aux``, ``--resume``,
 ``--evolve``, ``--multihost`` and the other flags listed in ``NOT_PORTED``.
 ``--device`` (the port's entry points' flag) picks the device: the card
 unless ``cpu`` is asked for.
@@ -96,7 +102,6 @@ def parse_args(argv=None):
 # flag -> (the value that leaves its path unused, what the path is)
 NOT_PORTED = {
     "aux": (False, "the aux-head loss"),
-    "no_augment": (True, "augmentation (pass --no-augment)"),
     "no_autoanchor": (True, "autoanchor (pass --no-autoanchor)"),
     "multi_scale": (False, "multi-scale training"),
     "image_weights": (False, "image weights"),
@@ -113,7 +118,25 @@ NOT_PORTED = {
 }
 
 
+def augment_config(args, hyp: dict):
+    """The ``AugmentConfig`` of the hyp, as the JAX CLI builds it."""
+    from rep_yolo_tpu_torch.data.augment import AugmentConfig
+
+    return AugmentConfig(
+        img_size=args.img_size, degrees=hyp["degrees"],
+        translate=hyp["translate"], scale=hyp["scale"], shear=hyp["shear"],
+        perspective=hyp["perspective"], hsv_h=hyp["hsv_h"],
+        hsv_s=hyp["hsv_s"], hsv_v=hyp["hsv_v"], flipud=hyp["flipud"],
+        fliplr=hyp["fliplr"], mosaic=hyp["mosaic"],
+        mosaic9=hyp.get("mosaic9", 0.2), mixup=hyp["mixup"],
+        paste_in=hyp.get("paste_in", 0.0), cutout=hyp.get("cutout", 0.0),
+        max_labels=args.max_labels)
+
+
 def check_ported(args) -> None:
+    from rep_yolo_tpu_torch.data.augment import refuse_unported
+    from rep_yolo_tpu_torch.train.hyp import load_hyp
+
     for flag, (ok, what) in NOT_PORTED.items():
         if getattr(args, flag) != ok:
             raise NotImplementedError(
@@ -125,6 +148,8 @@ def check_ported(args) -> None:
     if not args.data.startswith("synthetic"):
         raise NotImplementedError("--data: only 'synthetic[:N]' is ported "
                                   "(a YOLO directory needs a decoder)")
+    if not args.no_augment:
+        refuse_unported(augment_config(args, load_hyp(args.hyp)))
 
 
 def _synthetic_n(spec: str) -> int:
@@ -138,6 +163,7 @@ class Training(NamedTuple):
     loader: object              # data.datasets.Loader
     opt_cfg: object             # train.optim.OptimConfig
     accum: int                  # final accumulation count (1: off)
+    augment: Callable | None    # the step's augment_fn (None: --no-augment)
 
 
 def build_training(args, warmup: bool = True) -> Training:
@@ -146,6 +172,7 @@ def build_training(args, warmup: bool = True) -> Training:
     state and step, on ``args.device``. ``warmup=False`` turns the warmup
     off (``warmup_epochs=0, warmup_floor=0``), as a run on one repeated
     batch wants."""
+    from rep_yolo_tpu_torch.data.augment import augment_batch, draw_batch
     from rep_yolo_tpu_torch.data.datasets import Loader, make_synthetic_dataset
     from rep_yolo_tpu_torch.device import resolve_device
     from rep_yolo_tpu_torch.models.model import RepYOLO
@@ -183,13 +210,17 @@ def build_training(args, warmup: bool = True) -> Training:
         warmup_bias_lr=hyp["warmup_bias_lr"], epochs=args.epochs,
         nb=len(loader), linear_lr=args.linear_lr, adam=args.adam,
         **({} if warmup else {"warmup_floor": 0}))
+    aug_cfg = augment_config(args, hyp)
+    augment_fn = None if args.no_augment else (
+        lambda im, hw, lb, mk, gen: augment_batch(
+            im, hw, lb, mk, draw_batch(gen, im.shape[0], aug_cfg), aug_cfg))
     accum = (1 if args.no_accumulate
              else optim_lib.accumulate_steps(args.batch_size))
     step = make_train_step(model, loss_cfg, opt_cfg, args.img_size,
                            loss_mode="classic" if args.no_ota else "ota",
-                           accumulate=accum > 1)
+                           accumulate=accum > 1, augment_fn=augment_fn)
     return Training(model, create_train_state(model, seed=args.seed + 1),
-                    step, loader, opt_cfg, accum)
+                    step, loader, opt_cfg, accum, augment_fn)
 
 
 def build_val_set(args):

@@ -12,21 +12,21 @@ PAD_VALUE = 114.0
 
 def _interp_matrix(coords: torch.Tensor, src_size: int,
                    bound: torch.Tensor | None = None):
-    """Dense bilinear matrix R (out, src) sampling at ``coords``; taps
-    outside [0, bound) get zero weight. Also returns the row sums."""
+    """Dense bilinear matrices R (..., out, src) sampling at ``coords``
+    (..., out); taps outside [0, bound) get zero weight. Also returns the row
+    sums."""
     i0 = torch.floor(coords)
     f = coords - i0
-    src = torch.arange(src_size, dtype=torch.float32,
-                       device=coords.device)[None, :]
+    src = torch.arange(src_size, dtype=torch.float32, device=coords.device)
     hi = float(src_size) if bound is None else bound
-    r = torch.zeros((coords.shape[0], src_size), dtype=torch.float32,
+    r = torch.zeros((*coords.shape, src_size), dtype=torch.float32,
                     device=coords.device)
     for d, wgt in ((0, 1.0 - f), (1, f)):
         idx = i0 + d
         ok = (idx >= 0) & (idx < hi)
-        r = r + torch.where((src == idx[:, None]) & ok[:, None],
-                            wgt[:, None], torch.zeros_like(r))
-    return r, r.sum(1)
+        r = r + torch.where((src == idx[..., None]) & ok[..., None],
+                            wgt[..., None], torch.zeros_like(r))
+    return r, r.sum(-1)
 
 
 def letterbox_batch(images: torch.Tensor, hw: torch.Tensor,

@@ -1,10 +1,11 @@
 """Training state and the train step (port of ``rep_yolo_tpu/train/trainer.py``).
 
-One step: the no-augment input normalization, the train-form forward (batch
-statistics, running averages moved, dropout from the state's generator),
-the simOTA or classic loss times the batch, autograd, the 3-group SGD
-(nesterov) or Adam update with warmup and one-cycle, and the EMA of the
-parameters and BN statistics. With ``accumulate`` the gradients are summed
+One step: the augmentation (``augment_fn``, drawing from the state's augment
+generator) or the no-augment input normalization, the train-form forward
+(batch statistics, running averages moved, dropout from the state's
+generator), the simOTA or classic loss times the batch, autograd, the
+3-group SGD (nesterov) or Adam update with warmup and one-cycle, and the
+EMA of the parameters and BN statistics. With ``accumulate`` the gradients are summed
 over micro-batches and the optimizer and EMA apply every ``accum_target``
 of them; the iteration counter advances every micro-batch, as in the JAX
 package. The state is updated in place (the JAX step returns a new one).
@@ -42,6 +43,7 @@ class TrainState:
     generator: torch.Generator         # dropout masks
     acc: dict[str, torch.Tensor]       # accumulated gradient
     acc_n: int = 0
+    aug_generator: torch.Generator | None = None   # augmentation draws
 
     @property
     def params(self) -> dict[str, torch.nn.Parameter]:
@@ -49,8 +51,10 @@ class TrainState:
 
 
 def create_train_state(model, seed: int = 0) -> TrainState:
-    """Zero optimizer buffers, the EMA at the current weights, and a
-    dropout generator seeded with ``seed`` on the model's device."""
+    """Zero optimizer buffers, the EMA at the current weights, a dropout
+    generator seeded with ``seed`` on the model's device and an augment
+    generator there seeded with ``seed + 2**32`` (no run's two streams share
+    a seed)."""
     net = model.net
     if getattr(model, "deploy", False):
         raise ValueError("training needs the train-form model")
@@ -61,13 +65,16 @@ def create_train_state(model, seed: int = 0) -> TrainState:
     return TrainState(model=model, groups=optim_lib.param_groups(net),
                       momentum=zeros(), second=zeros(), step=0,
                       ema=init_ema(net), ema_updates=0, generator=gen,
-                      acc=zeros(), acc_n=0)
+                      acc=zeros(), acc_n=0,
+                      aug_generator=torch.Generator(
+                          device=model.device).manual_seed(seed + 2 ** 32))
 
 
 def make_train_step(model, loss_cfg: LossConfig,
                     opt_cfg: optim_lib.OptimConfig, img_size: int,
                     loss_mode: str = "ota", resize_to: int | None = None,
-                    mixed_precision: bool = False, accumulate: bool = False):
+                    mixed_precision: bool = False, accumulate: bool = False,
+                    augment_fn=None):
     """The train step ``step(state, images, hw, labels, mask[,
     accum_target]) -> components`` ({box, obj, cls, total} tensors).
     ``step.grads(state, images, hw, labels, mask)`` is its forward and
@@ -76,7 +83,10 @@ def make_train_step(model, loss_cfg: LossConfig,
 
     images (B, S, S, 3) uint8 canvases, hw (B, 2) content sizes, labels
     (B, M, 5) normalized to the content, mask (B, M), on the model's
-    device. ``loss_mode``: 'ota' (default) or 'classic'."""
+    device. ``loss_mode``: 'ota' (default) or 'classic'. ``augment_fn(images,
+    hw, labels, mask, generator) -> data.augment.Batch`` augments in float32
+    on the device, drawing from ``state.aug_generator``; its result is cast
+    to the parameters' dtype. Without it, ``identity_batch``."""
     if loss_mode not in ("ota", "classic"):
         raise NotImplementedError(f"loss_mode {loss_mode!r} is not ported "
                                   f"yet")
@@ -93,11 +103,18 @@ def make_train_step(model, loss_cfg: LossConfig,
         net = state.model.net
         net.train()
         params = state.params
+        # labels and images in the parameters' dtype (float64 in a test), as
+        # the JAX step promotes them
+        dt = next(iter(params.values())).dtype
+        if augment_fn is not None:
+            with record_function("train/augment"):
+                images, labels, mask = augment_fn(images, hw, labels, mask,
+                                                  state.aug_generator)
+                labels = labels.to(dt)
         with record_function("train/forward"):
-            # labels and images in the parameters' dtype (float64 in a
-            # test), as the JAX step promotes them
-            dt = next(iter(params.values())).dtype
-            images, labels = identity_batch(images, hw.to(dt), labels.to(dt))
+            if augment_fn is None:
+                images, labels = identity_batch(images, hw.to(dt),
+                                                labels.to(dt))
             preds = net(images.to(dt))
         with record_function("train/loss"):
             if loss_mode == "ota":

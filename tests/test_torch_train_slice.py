@@ -46,6 +46,7 @@ from rep_yolo_tpu_torch.nn import blocks as B
 from rep_yolo_tpu_torch.nn.fuse import fuse_state_dict
 from rep_yolo_tpu_torch.train import loss as TL
 from rep_yolo_tpu_torch.train import optim as TO
+from rep_yolo_tpu_torch.train.hyp import load_hyp
 from rep_yolo_tpu_torch.train.trainer import create_train_state, make_train_step
 from rep_yolo_tpu_torch.utils.weights import (load_weights, state_dict_from_jax,
                                               train_state_from_jax)
@@ -579,16 +580,42 @@ def test_identity_batch_matches_jax():
     np.testing.assert_allclose(lab_t.numpy(), np.asarray(lab_j), rtol=1e-7)
 
 
+# augmentation on with a hyp that needs mosaic-9 or paste-in (not ported)
+AUGMENT_ON = ["--no-autoanchor", "--eval-every", "0", "--hyp", "scratch.p5"]
+
+
 @pytest.mark.parametrize("flags", [[], ["--bf16"], ["--multi-scale"],
                                    ["--aux"], ["--resume", "x"],
                                    ["--evolve", "2"], ["--multihost"],
-                                   ["--data", "runs/yolo_dir"]])
+                                   ["--data", "runs/yolo_dir"], AUGMENT_ON])
 def test_cli_refuses_unported_paths(flags):
-    base = ["--data", "synthetic:4"] + ([] if flags == [] else [
+    base = ["--data", "synthetic:4"] + ([] if flags in ([], AUGMENT_ON) else [
         "--no-augment", "--no-autoanchor", "--eval-every", "0"])
     args = cli.parse_args(base + flags)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError,
+                       match="A2b" if flags == AUGMENT_ON else None):
         cli.check_ported(args)
+
+
+@pytest.mark.parametrize("hyp", [dict(mosaic9=0.2, paste_in=0.0),
+                                 dict(mosaic9=0.0, paste_in=0.05),
+                                 dict(mosaic9=0.0, paste_in=0.0, cutout=0.5),
+                                 dict(mosaic9=0.0, paste_in=0.0)])
+def test_cli_augment_hyp(tmp_path, hyp):
+    """With augmentation on, a hyp YAML (over scratch.p5) that asks for
+    mosaic-9, paste-in or cutout is refused, naming A2b; one with all three
+    at 0 is accepted, and builds an augmenting step."""
+    path = tmp_path / "hyp.yaml"
+    path.write_text("".join(f"{k}: {v}\n" for k, v in hyp.items()))
+    args = cli.parse_args(["--data", "synthetic:4", "--no-autoanchor",
+                           "--eval-every", "0", "--hyp", str(path)])
+    if any(hyp.get(k, 0) > 0 for k in ("mosaic9", "paste_in", "cutout")):
+        with pytest.raises(NotImplementedError, match="A2b"):
+            cli.check_ported(args)
+    else:
+        cli.check_ported(args)
+        cfg = cli.augment_config(args, load_hyp(str(path)))
+        assert (cfg.mosaic9, cfg.paste_in, cfg.mixup) == (0.0, 0.0, 0.15)
 
 
 def test_cli_needs_cuda_unless_cpu_asked():
@@ -616,4 +643,32 @@ def test_cli_trains_tiny_graph_on_cpu():
                for k in ("box", "obj", "cls", "total"))
     assert cli.build_training(args).opt_cfg.nw == 1000
     off = cli.build_training(args, warmup=False)
-    assert off.opt_cfg.nw == 0 and off.accum == 32
+    assert off.opt_cfg.nw == 0 and off.accum == 32 and off.augment is None
+
+
+def test_cli_trains_tiny_graph_with_augmentation_on_cpu(tmp_path):
+    """``run_training`` with augmentation on (a hyp with mosaic-9 and
+    paste-in off), as ``chip_smoke.py``'s ``train_cli_augment`` runs it on
+    the card: finite losses, and the step's augmented batch in range."""
+    hyp = tmp_path / "hyp.yaml"
+    hyp.write_text("mosaic9: 0.0\npaste_in: 0.0\n")
+    args = cli.parse_args(["--cfg", TINY, "--data", "synthetic:4",
+                           "--epochs", "1", "--batch-size", "2",
+                           "--img-size", str(SIZE), "--hyp", str(hyp),
+                           "--no-autoanchor", "--eval-every", "0",
+                           "--device", "cpu", "--project",
+                           str(tmp_path / "runs")])
+    records = cli.run_training(args, emit=lambda line: None)
+    assert [r["step"] for r in records] == [1, 2]
+    assert all(np.isfinite(r[k]) for r in records
+               for k in ("box", "obj", "cls", "total"))
+    t = cli.build_training(args)
+    batch = next(iter(t.loader.epoch(0)))
+    out = t.augment(*[torch.from_numpy(batch[k]) for k in
+                      ("images", "hw", "labels", "mask")],
+                    t.state.aug_generator)
+    assert out.images.shape == (2, SIZE, SIZE, 3)
+    assert 0 <= float(out.images.min()) and float(out.images.max()) <= 1
+    lab = out.labels[out.mask]
+    assert len(lab) and 0 <= float(lab[:, 1:].min()) and \
+        float(lab[:, 1:].max()) <= 1
