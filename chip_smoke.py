@@ -137,22 +137,25 @@ conv3x3_pm_q8 / conv1x1_pm_q8 on K4 / K5) and the "xla_q8" mode:
      block's st1 reads the float32 map), 0 dp4a
   2d. kernels_q8_rest (after 5c): K13 / K14 at kernel_bench's 15 shapes and
      the JAX test's, batch 2, float32 / bfloat16 / int8 in, bfloat16 / int8
-     out (K14 over three sections at the cv1 shapes); the pixel-major pair
-     at the 20 DER shapes, batch 2, ReLU included; int8 identical but
-     +-1 LSB on <= 1e-4, bfloat16 within one ulp; conv5x5_q8 at the 18
-     depthwise calls of 5c's forward with the block-diagonal weights of the
-     JAX dw5_dense route: identical to K7 and within the gate of its plain
+     out (K14 over three sections at the cv1 shapes; K13's tile from
+     k13_route beside each call); the pixel-major pair at the 20 DER
+     shapes, batch 2, ReLU included; int8 identical but +-1 LSB on <= 1e-4,
+     bfloat16 within one ulp; conv5x5_q8 at the 18 depthwise calls of 5c's
+     forward with the block-diagonal weights of the JAX dw5_dense route: 18
+     launches of its 25-tap wgmma route (dense5_route, the route and tile
+     beside each call), identical to K7 and within the gate of its plain
      version
   7e. kernel_bench: both benches of the port at batch 8, in process, their
      tables on one line
   7f. times_q8_rest: K13 / K14 summed over kernel_bench's 3x3 / 1x1 shapes
      at batch 8 (bf16 in and out; cuDNN bf16 and f32 conv + bias + SiLU
-     beside); the pixel-major pair over one xla_q8 served forward at batch
-     4 (cuDNN f32 beside, and as in 7b torch._int_mm for conv1x1_pm_q8
-     and the bf16 conv for conv3x3_pm_q8; conv3x3_pm_q8 split by K4's
-     route too); conv5x5_q8 over the 18
+     beside; K13's tile per shape); the pixel-major pair over one xla_q8
+     served forward at batch 4 (cuDNN f32 beside, and as in 7b
+     torch._int_mm for conv1x1_pm_q8 and the bf16 conv for conv3x3_pm_q8;
+     conv3x3_pm_q8 split by K4's route too); conv5x5_q8 over the 18
      block-diagonal calls (the dense F.conv2d of the same block-diagonal
-     weights, f32 and bf16, cuDNN's f32 depthwise and K7 beside)
+     weights, f32 and bf16, cuDNN's f32 depthwise and K7 beside; the route
+     and tile per call); the two rows' designs before beside
 
 and, outside inference_mode, training cfg/rep_yolo.yaml at 640 px, batch 8
 as cli.train builds it (build_training: seeded init, synthetic batches from
@@ -2295,6 +2298,18 @@ XLQ_FLOAT_REL, XLQ_FLOAT_CORR = 0.15, 0.99
 # the dense 5x5's other yardsticks: the dense conv in bf16, the depthwise
 # conv (the function of the calls' weights, not of the kernel) and K7
 DENSE_EXTRA_KEYS = ("library_bf16_ms", "library_depthwise_ms", "k7_ms")
+# the kernels line's description of the two rows redesigned on K4's int8
+# wgmma core (csrc/conv_wgmma.cuh)
+DESIGNS = {"conv3x3_cmajor_q8": "K4's stride-1 int8 wgmma core on NCHW "
+                                "input: 16-byte plane loads quantized in "
+                                "registers, __byte_perm into the K-major "
+                                "operand, the nine taps as descriptor "
+                                "offsets, a [channel][pixel] epilogue tile, "
+                                "4 pixels a store",
+           "conv5x5_q8": "K4's stride-1 int8 wgmma core with 25 taps as "
+                         "descriptor offsets over a (th + 4) x (tw + 4) "
+                         "halo'd tile, three stages (dense5_route: wgmma "
+                         "on int8 input)"}
 BENCH_BATCH = 8          # the kernel benches' batch here
 BENCH_ITERS = 5          # back-to-back calls per timed run (standalone: 20)
 S_IN_BENCH = 0.5 / 127.0
@@ -2377,13 +2392,15 @@ def phase_kernels_q8_rest(torch, dev, errs, neck_calls):
         for xi in (x, x.bfloat16(), quantize(x, s_in)):
             if k == 1 and C % 3 == 0 and C >= 144 and xi.dtype == torch.int8:
                 xi = [t.contiguous() for t in xi.chunk(3, 1)]
+            tile = ({"tile": list(KCM.k13_route(C, O, 2, H, W, xi.dtype))}
+                    if k == 3 else {})
             for o in (None, out_s):
                 check(name, lambda: kf(xi, qw, s_in, "silu", o),
                       lambda: pf(xi, qw, s_in, "silu", o), o,
                       shape=[2, C, H, W, O, k],
                       sections=len(xi) if isinstance(xi, list) else 1,
                       input=str(xi[0].dtype if isinstance(xi, list)
-                                else xi.dtype))
+                                else xi.dtype), **tile)
     for i, row in enumerate(der_cm_shapes()):
         label, k, cins, cout, hw, _ = row
         g = torch.Generator(device=dev).manual_seed(700 + i)
@@ -2422,21 +2439,30 @@ def phase_kernels_q8_rest(torch, dev, errs, neck_calls):
             for a, bd in dw]
     torch.cuda.synchronize()
     bd_counts = launch_counts()
+    bd_counts.update({f"conv5x5_q8@{r}": n
+                      for r, n in KC.LAUNCHES_DENSE5_ROUTE.items()})
     same = []
     for (a, bd), got in zip(dw, outs):
         ref = KNF.dwconv5x5_q8(**a)
         same.append(bool(torch.equal(got, ref)))
+        B, H, W, C = a["x"].shape
         check("conv5x5_q8", lambda: got,
               lambda: KC.conv5x5_q8_plain(a["x"], bd, a["s_in"], a["act"],
                                           a["out_scale"]), a["out_scale"],
               shape=list(a["x"].shape), block_diagonal=True,
-              identical_to_k7=same[-1])
+              identical_to_k7=same[-1], route=list(KC.dense5_route(
+                  C, bd.c_out, B, H, W, a["x"].dtype, a["x"].data_ptr())))
     if len(dw) != DW5_PER_FORWARD or not all(same):
         raise AssertionError(f"the dense 5x5 with block-diagonal weights "
                              f"differs from K7: {len(dw)} calls, {same}")
+    want = {"wgmma": DW5_PER_FORWARD, "wgmma_f32": 0, "dp4a": 0}
+    if KC.LAUNCHES_DENSE5_ROUTE != want:
+        raise AssertionError(f"the dense 5x5's 18 calls by route: "
+                             f"{KC.LAUNCHES_DENSE5_ROUTE}, want {want}")
     emit({"phase": "kernels_q8_rest", "ok": True, "tolerance": Q8_REST_TOL,
           "k13_k14_batch": 2, "pm_batch": 2, "dense5x5_batch": 4,
-          "dense5x5_launches": bd_counts["conv5x5_q8"], "rows": rows})
+          "dense5x5_launches": bd_counts["conv5x5_q8"],
+          "dense5x5_by_route": dict(KC.LAUNCHES_DENSE5_ROUTE), "rows": rows})
     return bd_counts, dw
 
 
@@ -2634,6 +2660,7 @@ def phase_times_q8_rest(torch, dev, counts, errs, dw, xlq_engine, x4):
     import torch.nn.functional as F
 
     from rep_yolo_tpu_torch.ops.kernels import conv_flat as KC
+    from rep_yolo_tpu_torch.ops.kernels import conv_kernel as KCM
     from rep_yolo_tpu_torch.ops.kernels import conv_pm as KPM
     from rep_yolo_tpu_torch.ops.kernels import neck_flat as KNF
     from rep_yolo_tpu_torch.ops.kernels import reset_launch_counts
@@ -2671,6 +2698,8 @@ def phase_times_q8_rest(torch, dev, counts, errs, dw, xlq_engine, x4):
         add_times(agg[name], t)
         agg[name]["library_f32_ms"] = agg[name].get(
             "library_f32_ms", 0.0) + t["library_f32_ms"]
+        if k == 3:
+            t["tile"] = list(KCM.k13_route(C, O, B, H, H, torch.bfloat16))
         per_shape.append({"kernel": name, "shape": [B, C, H, H, O, k], **t})
         del fns
     # rows 11 / 12: each distinct call of one served "xla_q8" forward
@@ -2750,7 +2779,9 @@ def phase_times_q8_rest(torch, dev, counts, errs, dw, xlq_engine, x4):
         t.update(zip(("bound_ms", "bound_by"), bound(nbytes, ops, INT8_PEAK)),
                  bytes=nbytes, ops=ops)
         add_times(agg["conv5x5_q8"], t)
-        dense_rows.append({"shape": list(x.shape), **t})
+        dense_rows.append({"shape": list(x.shape), "route": list(
+            KC.dense5_route(C, C, *x.shape[:3], x.dtype, x.data_ptr())),
+            **t})
     reset_launch_counts()
     kernels = []
     for name, src, replaces, lib_call in (
@@ -2775,8 +2806,13 @@ def phase_times_q8_rest(torch, dev, counts, errs, dw, xlq_engine, x4):
             row["library_f32_ms"] = agg[name]["library_f32_ms"]
         if name == "conv5x5_q8":
             row.update(extra)
+            row["design"] = DESIGNS[name]
+            row["routes"] = {r: counts[f"conv5x5_q8@{r}"]
+                             for r in KC.LAUNCHES_DENSE5_ROUTE}
         else:
             copy_yardsticks(row, agg[name])
+        if name == "conv3x3_cmajor_q8":
+            row["design"] = DESIGNS[name]
         if name == "conv3x3_pm_q8":
             routes = route_rows(by_route, {
                 r: counts[f"conv3x3_q8@{r}"] for r in K4_ROUTES})
@@ -2803,7 +2839,8 @@ def phase_times_q8_rest(torch, dev, counts, errs, dw, xlq_engine, x4):
           "dense5x5_yardsticks": extra,
           "conv3x3_pm_q8_by_route": kernels[3]["routes"],
           "previous_design_ms": {
-              k: PREVIOUS_MS[k] for k in ("conv1x1_cmajor_q8",
+              k: PREVIOUS_MS[k] for k in ("conv3x3_cmajor_q8",
+                                          "conv1x1_cmajor_q8", "conv5x5_q8",
                                           "conv1x1_pm_q8", "conv3x3_q8",
                                           "conv3x3_pm_q8",
                                           "conv3x3_pm_q8_f32_dp4a")},
@@ -2849,8 +2886,13 @@ WGRAD_PER_STEP = sum(s[-1] for s in WGRAD_SHAPES)
 # (16 x 16 pixels a block, a thread a pixel of 16 channels, 4-byte staging)
 # per served int8 forward at batch 4; K6 (a thread a 16-byte output vector)
 # and K8 (a block a vector slot of the whole map, six separable passes) in
-# their first designs per served int8 forward at batch 4, and per call
+# their first designs per served int8 forward at batch 4, and per call; K13
+# (mma.sync, 32 output channels a block, staged a value at a time) over
+# kernel_bench's 3x3 shapes at batch 8 and the dense 5x5 (K4's dp4a kernel
+# with 25 taps) over its 18 block-diagonal calls at batch 4, both their
+# first designs
 PREVIOUS_MS = {"wgrad3x3": 6.166, "conv1x1_cmajor_q8": 3.312,
+               "conv3x3_cmajor_q8": 2.672, "conv5x5_q8": 0.945,
                "conv1x1_q8": 3.949, "conv1x1_q8_backbone": 1.445,
                "conv1x1_pm_q8": 1.330, "dwconv5x5_f32w_q8": 0.634,
                "conv3x3_q8": 3.946, "conv3x3_pm_q8": 2.406,
@@ -3966,7 +4008,8 @@ def main(argv=None) -> int:
         bench_counts = phase_kernel_bench(torch, dev)
         rest_counts = {**{k: bench_counts[k] for k in (
             "conv3x3_cmajor_q8", "conv1x1_cmajor_q8")},
-            "conv5x5_q8": bd_counts["conv5x5_q8"],
+            **{k: n for k, n in bd_counts.items()
+               if k.startswith("conv5x5_q8")},
             **{k: counts_xlq[k] for k in PM_KERNELS},
             **{f"conv3x3_q8@{r}": counts_xlq[f"conv3x3_q8@{r}"]
                for r in K4_ROUTES}}

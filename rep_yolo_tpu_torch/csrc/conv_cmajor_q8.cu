@@ -12,19 +12,7 @@
 //
 // Layout: NCHW (B, C, H, W), as the JAX contract has it; the input is int8,
 // float32 or bfloat16 (widened exactly to float32, then quantized). The
-// weights are int8 per output channel (ops/quant.quantize_weights), packed
-// once by the wrapper (ops/kernels/conv_kernel.py CMQConv.packed_cm) with the
-// output channels padded to a multiple of 32 and the input channels to a
-// multiple of 32, all with zeros (exact).
-//
-// Both are implicit GEMMs on the int8 tensor cores, as K10 is on the bf16
-// ones: mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32, M = output
-// channels, N = output pixels, K = taps x input channels. The B fragment's
-// register is a 32-bit word of four channels of one pixel, so the staged
-// input is a plane of such words per channel quad, and the plane and
-// weight-row pitches make the fragment loads free of bank conflicts. s32
-// sums do not depend on their order, so both are exact against their plain
-// versions whatever the tile order.
+// weights are int8 per output channel (ops/quant.quantize_weights).
 //
 // What bounds them on this card: 2 * MACs int8 operations over 1,979 TOP/s
 // against the bytes of the input (1, 2 or 4 a value), the weights and the
@@ -32,14 +20,30 @@
 // px) most calls are bound by their bytes, so what counts is how often and
 // how wide the input is read.
 //
-// K13 (4 warps, 32 output channels x an 8 x 16 tile of the map, each warp
-// 32 x 32) stages its halo'd tile a value at a time from four channel
-// planes, with no double buffering, for every 32 output channels; it pads C
-// to 32 per tap. That is the staging K14 had before this design.
+// K13 runs on K4's int8 wgmma core (conv_wgmma.cuh, conv_q8_wgmma_kernel
+// with CM = the input type): pixels on M, output channels on N, the nine
+// taps as descriptor offsets into a halo'd tile staged once per chunk of 32
+// input channels for a block of BN = 24-128 output channels (the tile from
+// ops/kernels/conv_kernel.py:k13_route), so at 512 -> 1024 the input is read
+// 8 times, not 32. Only its staging and its store depend on the layout:
+// - staging: a thread loads 16-byte vectors (16 int8, 8 bfloat16 or 4
+//   float32 pixels of a plane row; 8 / 4 / 2 / 1-byte loads where a row is
+//   not 16-byte aligned) of 4 channel planes, quantizes them in registers
+//   and turns each 4 channels x 4 pixels into the K-major operand's
+//   (pixel, 4 channels) words by __byte_perm (transpose4, shared with K14);
+//   the next chunk is staged while this one's wgmma group runs;
+// - epilogue: the sums of the kept positions transposed into a [channel]
+//   [pixel] tile in shared memory, then 4 consecutive pixels of one output
+//   channel a thread: one 8-byte (bfloat16) or 4-byte (int8) store.
+// The weights are QConv.packed_wgmma3 ([chunk][tap][O/8][2][8][16], zeros
+// in every pad), the operand of K4's stride-1 route. Where a plane row or
+// the tile width is not a multiple of 4 pixels the stores go a value at a
+// time.
 //
 // K14 (8 warps, 128 consecutive pixels of H*W x an M tile of 64 output
 // channels where O <= 64, else 128, each warp 32 channels x 32 or 64
-// pixels):
+// pixels; int8 mma.sync.aligned.m16n8k32, weights CMQConv.packed_cm, the
+// output channels padded to 32 and the input channels to 32):
 // - the input is staged once per M tile, so once for O <= 128 and four
 //   times at O = 512 (32-channel tiles staged it 16 times at 768 -> 512);
 // - it comes in as 16-byte loads along a plane (16 int8, 8 bf16 or 4 f32
@@ -55,41 +59,26 @@
 // - the epilogue (q8_common.cuh) goes through a (BM, 128) tile in shared
 //   memory, so each store is 16 bytes of consecutive pixels of one output
 //   channel.
-// Rows of the packing past O are zero-filled in the kernel, so K14 reads
-// K13's packing as it is. wgmma with TMA-staged tiles is later work. The TPU
-// kernels' KP = round_up(9C, 32), 128-lane row pitch and row tiles were
-// Mosaic's constraints and have no counterpart.
+// Rows of the packing past O are zero-filled in the kernel. The s32 sums do
+// not depend on their order, so both are exact against their plain versions
+// whatever the tile order. The TPU kernels' KP = round_up(9C, 32), 128-lane
+// row pitch and row tiles were Mosaic's constraints and have no counterpart.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "conv_wgmma.cuh"
 #include "q8_common.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
-constexpr int NT = 128;               // K13 threads per block: 4 warps
-constexpr int BM = 32;                // K13 output channels per block
-constexpr int TH = 8;                 // 3x3 output tile: 8 rows x 16 columns
-constexpr int TW = 16;
-constexpr int SH = TH + 2;            // the halo'd input tile
-constexpr int SW = TW + 2;
-constexpr int TP = 128;               // 1x1: pixels per block
-constexpr int KQ = 32;                // input channels per k-step
-constexpr int PLANE3 = 200;           // words per channel quad of the 3x3 tile
-                                      // (>= SH*SW, 8 mod 32: conflict-free)
-constexpr int WCH3 = 9 * KQ / 4;      // words of one output channel's chunk
-constexpr int WROW3 = WCH3 + 4;       // its row pitch in shared memory: 76
-constexpr int KC1 = 64;               // 1x1: input channels per stage
+constexpr int TP = 128;               // K14: pixels per block
+constexpr int KQ = 32;                // K14: input channels per k-step
+constexpr int KC1 = 64;               // K14: input channels per stage
 constexpr int PLANE1 = TP + 8;        // 136 words, 8 mod 32
 constexpr int WROW1 = KC1 / 4 + 4;    // 20 words
-
-// input types and output modes, as the wrapper passes them
-constexpr int IN_I8 = 0;
-constexpr int IN_F32 = 1;
-constexpr int IN_BF16 = 2;
-constexpr int OUT_I8 = 0;
-constexpr int OUT_BF16 = 2;
 
 __device__ __forceinline__ void mma_s8(int32_t* d, const uint32_t* a,
                                        const uint32_t* b) {
@@ -101,166 +90,6 @@ __device__ __forceinline__ void mma_s8(int32_t* d, const uint32_t* a,
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool valid) {
-    const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-                 "l"(gmem), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-    asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-    asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// The int8 byte of element i of x: as it is, or quantized at 1 / inv_s.
-// The input type is a template parameter: this load is the staging loop,
-// which bounds these kernels.
-template <int IN>
-__device__ __forceinline__ uint32_t load_q(const void* x, long long i,
-                                           float inv_s) {
-    if (IN == IN_I8) return (uint32_t)(uint8_t)((const int8_t*)x)[i];
-    const float v = IN == IN_F32 ? ((const float*)x)[i]
-                                 : __bfloat162float(((const __nv_bfloat16*)x)[i]);
-    return (uint32_t)(quant1(v, inv_s) & 0xff);
-}
-
-// Two neighbouring pixels of one output channel: the epilogue of both, then
-// one store (a pair when both exist and the pair is aligned).
-__device__ __forceinline__ void store2(void* y, long long i, bool two,
-                                       bool pair, int32_t a0, int32_t a1,
-                                       float sw, float s_in, float b, int act,
-                                       float inv_out, int out_mode) {
-    const float v0 = epi(a0, sw, s_in, b, act);
-    const float v1 = epi(a1, sw, s_in, b, act);
-    if (out_mode == OUT_BF16) {
-        __nv_bfloat16* dst = (__nv_bfloat16*)y + i;
-        if (two && pair) {
-            __nv_bfloat162 v = __floats2bfloat162_rn(v0, v1);
-            *reinterpret_cast<__nv_bfloat162*>(dst) = v;
-        } else {
-            dst[0] = __float2bfloat16_rn(v0);
-            if (two) dst[1] = __float2bfloat16_rn(v1);
-        }
-    } else {
-        int8_t* dst = (int8_t*)y + i;
-        const uint32_t q0 = (uint32_t)(quant1(v0, inv_out) & 0xff);
-        const uint32_t q1 = (uint32_t)(quant1(v1, inv_out) & 0xff);
-        if (two && pair) {
-            *reinterpret_cast<uint16_t*>(dst) = (uint16_t)(q0 | (q1 << 8));
-        } else {
-            dst[0] = (int8_t)q0;
-            if (two) dst[1] = (int8_t)q1;
-        }
-    }
-}
-
-// ---------------------------------------------------------------------------
-// K13: 3x3, stride 1, pad 1
-// ---------------------------------------------------------------------------
-
-// x (B, C, H, W); w (Opad, nchunks, 9, 32) int8 read as words, tap = u*3 + v;
-// grid (tiles, Opad / 32, B).
-template <int IN>
-__global__ void __launch_bounds__(NT)
-conv3x3_q8_cm_kernel(const void* __restrict__ x, const uint32_t* __restrict__ w,
-                     const float* __restrict__ s_w, const float* __restrict__ bias,
-                     void* __restrict__ y, int C, int H, int W, int O,
-                     int nchunks, int tiles_x, float s_in, float inv_s_in,
-                     float inv_out, int act, int out_mode) {
-    __shared__ uint32_t s_x[KQ / 4 * PLANE3];
-    __shared__ __align__(16) uint32_t s_wt[BM * WROW3];
-
-    const int ob = blockIdx.y, b = blockIdx.z;
-    const int ty0 = (blockIdx.x / tiles_x) * TH;
-    const int tx0 = (blockIdx.x % tiles_x) * TW;
-    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-    const int g = lane >> 2, t = lane & 3;
-    const long long HW = (long long)H * W;
-    const long long xb = (long long)b * C * HW;
-    const uint32_t* wb = w + (long long)ob * BM * nchunks * WCH3;
-
-    int32_t acc[2][4][4];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
-
-    for (int ch = 0; ch < nchunks; ++ch) {
-        const int c0 = ch * KQ;
-        __syncthreads();
-        for (int e = tid; e < KQ / 4 * SH * SW; e += NT) {
-            const int q = e / (SH * SW), rem = e - q * (SH * SW);
-            const int r = rem / SW, col = rem - r * SW;
-            const int gy = ty0 - 1 + r, gx = tx0 - 1 + col;
-            uint32_t word = 0;
-            if (gy >= 0 && gy < H && gx >= 0 && gx < W) {
-                const long long base = xb + (long long)gy * W + gx;
-#pragma unroll
-                for (int k = 0; k < 4; ++k) {
-                    const int c = c0 + 4 * q + k;
-                    if (c < C)
-                        word |= load_q<IN>(x, base + (long long)c * HW, inv_s_in)
-                                << (8 * k);
-                }
-            }
-            s_x[q * PLANE3 + r * SW + col] = word;
-        }
-        for (int e = tid; e < BM * (WCH3 / 4); e += NT) {
-            const int o = e / (WCH3 / 4), j = e - o * (WCH3 / 4);
-            reinterpret_cast<uint4*>(s_wt + o * WROW3)[j] =
-                reinterpret_cast<const uint4*>(
-                    wb + ((long long)o * nchunks + ch) * WCH3)[j];
-        }
-        __syncthreads();
-#pragma unroll
-        for (int tap = 0; tap < 9; ++tap) {
-            const int u = tap / 3, v = tap - 3 * u;
-            uint32_t a[2][4];
-#pragma unroll
-            for (int i = 0; i < 2; ++i) {
-                const uint32_t* r0 = s_wt + (i * 16 + g) * WROW3 + tap * (KQ / 4) + t;
-                const uint32_t* r8 = r0 + 8 * WROW3;
-                a[i][0] = r0[0];
-                a[i][1] = r8[0];
-                a[i][2] = r0[4];
-                a[i][3] = r8[4];
-            }
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-                const int pr = 2 * warp + (j >> 1), pc = (j & 1) * 8 + g;
-                const uint32_t* sp = s_x + (pr + u) * SW + pc + v;
-                const uint32_t bf[2] = {sp[t * PLANE3], sp[(t + 4) * PLANE3]};
-                mma_s8(acc[0][j], a[0], bf);
-                mma_s8(acc[1][j], a[1], bf);
-            }
-        }
-    }
-
-    const bool pair = (W & 1) == 0;
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-            const int oy = ty0 + 2 * warp + (j >> 1);
-            const int ox = tx0 + (j & 1) * 8 + t * 2;
-            if (oy >= H || ox >= W) continue;
-#pragma unroll
-            for (int h = 0; h < 2; ++h) {
-                const int o = ob * BM + i * 16 + g + h * 8;
-                if (o >= O) continue;
-                store2(y, ((long long)b * O + o) * HW + (long long)oy * W + ox,
-                       ox + 1 < W, pair, acc[i][j][2 * h], acc[i][j][2 * h + 1],
-                       s_w[o], s_in, bias[o], act, inv_out, out_mode);
-            }
-        }
-}
 
 // ---------------------------------------------------------------------------
 // K14: 1x1 over 1-3 sections
@@ -271,20 +100,6 @@ constexpr int RAWP = TP / 4 + 4;      // 36 words: one int8 channel row of
                                       // 128 pixels as cp.async lands it
 constexpr int EPW = (TP + 8) / 2;     // 68 words: a bf16 row of the epilogue
                                       // tile (an int8 row takes 36)
-
-// The 4 x 4 byte transpose: w[c] holds pixels 0..3 of channel c (byte j =
-// pixel j); p[j] gets channels 0..3 of pixel j (byte c = channel c), the B
-// fragment's word.
-__device__ __forceinline__ void transpose4(const uint32_t* w, uint32_t* p) {
-    const uint32_t t0 = __byte_perm(w[0], w[1], 0x5140);   // a0 b0 a1 b1
-    const uint32_t t1 = __byte_perm(w[0], w[1], 0x7362);   // a2 b2 a3 b3
-    const uint32_t t2 = __byte_perm(w[2], w[3], 0x5140);
-    const uint32_t t3 = __byte_perm(w[2], w[3], 0x7362);
-    p[0] = __byte_perm(t0, t2, 0x5410);                    // a0 b0 c0 d0
-    p[1] = __byte_perm(t0, t2, 0x7632);
-    p[2] = __byte_perm(t1, t3, 0x5410);
-    p[3] = __byte_perm(t1, t3, 0x7632);
-}
 
 // The plane of channel c (of the concat) of image b, or nullptr past Ct.
 template <int ES>
@@ -317,34 +132,6 @@ __device__ __forceinline__ uint4 load16_scalar(const char* src, long long pix,
         }
     }
     return make_uint4(w[0], w[1], w[2], w[3]);
-}
-
-// 16 bytes of one channel's consecutive pixels as words of four int8 pixels
-// (byte j = pixel j), quantized at 1 / inv_s unless already int8.
-template <int IN>
-__device__ __forceinline__ void qwords(const uint4 r, float inv_s,
-                                       uint32_t* out) {
-    if (IN == IN_I8) {
-        out[0] = r.x; out[1] = r.y; out[2] = r.z; out[3] = r.w;
-    } else if (IN == IN_F32) {
-        out[0] = (uint32_t)(quant1(__uint_as_float(r.x), inv_s) & 0xff) |
-                 (uint32_t)(quant1(__uint_as_float(r.y), inv_s) & 0xff) << 8 |
-                 (uint32_t)(quant1(__uint_as_float(r.z), inv_s) & 0xff) << 16 |
-                 (uint32_t)(quant1(__uint_as_float(r.w), inv_s) & 0xff) << 24;
-    } else {
-        const uint32_t v[4] = {r.x, r.y, r.z, r.w};
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-            const uint32_t a = v[2 * h], b = v[2 * h + 1];
-            out[h] = (uint32_t)(quant1(__uint_as_float(a << 16), inv_s) & 0xff) |
-                     (uint32_t)(quant1(__uint_as_float(a & 0xffff0000u), inv_s)
-                                & 0xff) << 8 |
-                     (uint32_t)(quant1(__uint_as_float(b << 16), inv_s) & 0xff)
-                         << 16 |
-                     (uint32_t)(quant1(__uint_as_float(b & 0xffff0000u), inv_s)
-                                & 0xff) << 24;
-        }
-    }
 }
 
 // Sections x0..x2 (B, C_s, H, W); w (Opad, Kp) int8, Kp = C0 + C1 + C2
@@ -391,7 +178,7 @@ conv1x1_q8_cm_kernel(const void* __restrict__ x0, const void* __restrict__ x1,
         uint32_t* dst = sm + (ch & 1) * SW_WORDS;
         for (int e = tid; e < BM * per; e += NT1) {
             const int r = e / per, j = e - r * per, o = o0 + r;
-            cp_async16(dst + r * WROW1 + 4 * j,
+            cp_async_zfill<16>(dst + r * WROW1 + 4 * j,
                        w + (long long)(o < O ? o : 0) * Kp + k0 + 16 * j, o < O);
         }
     };
@@ -404,7 +191,7 @@ conv1x1_q8_cm_kernel(const void* __restrict__ x0, const void* __restrict__ x1,
             const char* src = plane<ES>(x0, x1, x2, C0, C1, C2, b,
                                         ch * KC1 + cl, HW);
             const bool ok = src != nullptr && pix < HW;
-            cp_async16(dst + cl * RAWP + 4 * j, ok ? src + pix : (const char*)w,
+            cp_async_zfill<16>(dst + cl * RAWP + 4 * j, ok ? src + pix : (const char*)w,
                        ok);
         }
     };
@@ -579,32 +366,54 @@ conv1x1_q8_cm_kernel(const void* __restrict__ x0, const void* __restrict__ x1,
     }
 }
 
+// K13's tiles: BN = 24, 48, 64 or 128 output channels, 256 positions.
+template <int IN>
+cudaError_t launch_cm_tile(int bn, int mi, const void* x, const void* w,
+                           const float* s_w, const float* bias, void* y,
+                           int B, int H, int W, int C, int O, int tw,
+                           float s_in, float inv_s_in, float inv_out, int act,
+                           int out_mode, int gin, cudaStream_t stream) {
+#define LC(BN, MI) launch_wgmma<BN, MI, 16, 1, 3, IN>(                        \
+        x, w, s_w, bias, y, B, H, W, C, O, tw, s_in, inv_s_in, inv_out, act, \
+        out_mode, gin, stream)
+    if (bn == 24 && mi == 2) return LC(24, 2);
+    if (bn == 48 && mi == 2) return LC(48, 2);
+    if (bn == 64 && mi == 2) return LC(64, 2);
+    if (bn == 128 && mi == 2) return LC(128, 2);
+#undef LC
+    return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
-// K13. x (B, C, H, W) int8 (in_type 0), float32 (1) or bfloat16 (2); w packed
-// (Opad, ceil(C / 32), 9, 32) int8; s_w, bias (O,) float32; y (B, O, H, W)
-// int8 at 1 / inv_out (out_mode 0) or bfloat16 (2); act 0 none, 1 SiLU,
-// 2 ReLU. Returns a cudaError_t.
+// K13. x (B, C, H, W) int8 (in_type 0), float32 (1) or bfloat16 (2); w
+// QConv.packed_wgmma3 ([ceil(C / 32)][9][ceil(O / 8)][2][8][16] int8); s_w,
+// bias (O,) float32; y (B, O, H, W) int8 at 1 / inv_out (out_mode 0) or
+// bfloat16 (2); (bn, mi) the tile (24, 2), (48, 2), (64, 2) or (128, 2), tw
+// its row width (at least two rows of tw + 2 positions in 128 mi); act 0
+// none, 1 SiLU, 2 ReLU. A staging load is 16 bytes, or the largest of 8, 4,
+// 2, 1 that divides W * size and x's address. Returns a cudaError_t.
 extern "C" int conv3x3_cmajor_q8(const void* x, const void* w, const float* s_w,
                                  const float* bias, void* y, int B, int C, int H,
-                                 int W, int O, int in_type, int out_mode,
-                                 float s_in, float inv_s_in, float inv_out,
-                                 int act, void* stream_ptr) {
+                                 int W, int O, int in_type, int out_mode, int bn,
+                                 int mi, int tw, float s_in, float inv_s_in,
+                                 float inv_out, int act, void* stream_ptr) {
     cudaStream_t stream = (cudaStream_t)stream_ptr;
     if (B <= 0 || C <= 0 || H <= 0 || W <= 0 || O <= 0) return 0;
     if (in_type < 0 || in_type > 2 || (out_mode != OUT_I8 && out_mode != OUT_BF16))
         return (int)cudaErrorInvalidValue;
-    const int tiles_x = (W + TW - 1) / TW;
-    const int nchunks = (C + KQ - 1) / KQ;
-    dim3 grid(tiles_x * ((H + TH - 1) / TH), (O + BM - 1) / BM, B);
-#define K3(IN) conv3x3_q8_cm_kernel<IN><<<grid, NT, 0, stream>>>( \
-        x, (const uint32_t*)w, s_w, bias, y, C, H, W, O, nchunks, tiles_x, s_in, \
-        inv_s_in, inv_out, act, out_mode)
-    if (in_type == IN_I8) K3(IN_I8);
-    else if (in_type == IN_F32) K3(IN_F32);
-    else K3(IN_BF16);
-#undef K3
-    return (int)cudaGetLastError();
+    const int es = in_type == IN_F32 ? 4 : in_type == IN_BF16 ? 2 : 1;
+    int gin = 16;
+    while (gin > es && (((long long)W * es) % gin || (uintptr_t)x % gin))
+        gin /= 2;
+    if ((uintptr_t)x % es) return (int)cudaErrorInvalidValue;
+#define LT(IN) launch_cm_tile<IN>(bn, mi, x, w, s_w, bias, y, B, H, W, C, O, tw, \
+                                  s_in, inv_s_in, inv_out, act, out_mode, gin,  \
+                                  stream)
+    if (in_type == IN_I8) return (int)LT(IN_I8);
+    if (in_type == IN_F32) return (int)LT(IN_F32);
+    return (int)LT(IN_BF16);
+#undef LT
 }
 
 // K14. Sections x0..x2 (B, C_s, H, W) (C_s = 0 for an absent one), all of one

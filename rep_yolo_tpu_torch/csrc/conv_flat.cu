@@ -6,9 +6,11 @@
 // K5 conv1x1_q8 replaces conv_flat.py:conv1x1_flat_q8 (_conv1_flat_q8_kernel,
 // _conv1_pool_flat_q8_kernel): a 1x1 conv over 1-3 input sections (a concat
 // that is never materialised), optionally followed by a 2x2/s2 max pool.
-// K4 with 5x5 taps (KS = 5, halo 2, stride 1) replaces the dense case of
-// conv_flat.py:conv5x5_flat_q8 (_conv5_flat_q8_kernel / _whole): the dp4a
-// kernel, templated on its tap count.
+// K4's stride-1 wgmma core with 5x5 taps (KS = 5, halo 2) replaces the dense
+// case of conv_flat.py:conv5x5_flat_q8 (_conv5_flat_q8_kernel / _whole), the
+// route ops/kernels/conv_flat.py:dense5_route picks ("wgmma" on int8 input,
+// "wgmma_f32" on float32 input as K4's); float32 maps of C % 4 or off 16
+// bytes take the dp4a kernel, templated on its tap count.
 // K4 and K5 also carry the pixel-major contract of conv_pm.py:conv3x3_pm_q8
 // and conv1x1_pm_q8 (ops/kernels/conv_pm.py): pixel-major (B, H*W, C) is
 // this NHWC layout, so those rows need only ReLU (q8_common.cuh), a bfloat16
@@ -35,7 +37,7 @@
 // K4 has two designs and four routes; the wrapper
 // (ops/kernels/conv_flat.py:k4_route) picks one by shapes, dtype and address
 // alone, and a failed launch raises (nothing retries on another route):
-// - "wgmma" (conv3x3_q8_wgmma_kernel, S = 1, VEC 16 / 8 / 4): a stride-1 3x3
+// - "wgmma" (conv_q8_wgmma_kernel, S = 1, VEC 16 / 8 / 4): a stride-1 3x3
 //   on int8 input, on the int8 tensor cores: the DER blocks' st1-st6, the
 //   neck's stride-1 3x3s, the xla_q8 blocks' int8 3x3s;
 // - "wgmma_s2" (S = 2): a stride-2 3x3 on int8 input, the PAN's two GSConv
@@ -44,7 +46,7 @@
 //   multiple of 4 at a 16-byte-aligned address, quantized while staging:
 //   the xla_q8 blocks' four st1s;
 // - "dp4a" (conv3x3_q8_kernel): everything else, the float32 stem (C = 3,
-//   stride 2) and the dense 5x5.
+//   stride 2) and float32 maps of C % 4 or off 16 bytes.
 //
 // K4 (dp4a): the weights arrive packed by the wrapper, per block of TO = 32
 // output channels and chunk of KC input channels, as [tap][KC/4][TO] words,
@@ -65,49 +67,18 @@
 // for even H, W is the lattice's SAME conv; Ho = (H - 1) / 2 + 1 as
 // F.conv2d(stride=2, padding=1).
 //
-// K4 (int8 tensor cores, the three wgmma routes): an implicit GEMM on
-// wgmma.mma_async m64nNk32.s32.s8.s8, pixels on M, output channels on N,
-// both operands K-major in shared memory without swizzle, as K5 below.
-// - A block computes th output rows x tw columns over MB = 128 MI
-//   positions m = r sw + c (c >= tw, the sw - tw last positions a row, are
-//   computed and dropped, as K10 in conv_kernel.cu). tw (k4_route) is the
-//   width that wastes the fewest positions over the map, with at least two
-//   rows a tile.
-// - Per chunk of 32 input channels (two 16-channel groups) the block stages
-//   its input once: 16 channels of a pixel are one 16-byte core-matrix row,
-//   each group a plane of pl rows (k4_pitch: the staging stores of a
-//   quarter-warp fall on distinct banks). Pixels outside the image are
-//   staged as zeros in every chunk, so a reused stage holds no stale halo
-//   (the border taps' weights are not 0). Channels past C in the last chunk
-//   are not staged: the packed weights (QConv.packed_wgmma3,
-//   [chunk][tap][O/8][2][8][16]) are zero there, and past O.
-// - Stride 1: the halo'd tile, (th + 2) x sw pixels with sw = tw + 2; tap
-//   (u, v) is a descriptor offset: position m reads staged position
-//   m + u sw + v. Int8 pixels are copied as they are by cp.async (16, 8 or
-//   4 bytes a copy, VEC, the largest that divides C and x's address), the
-//   out-of-image ones by its zero-filling form (src-size 0); float32 pixels
-//   (VEC 0) go through registers as K5's float sections, four 16-byte loads
-//   a position, quant1 at 1 / s_in, one 16-byte store, zeros stored outside
-//   the image; a thread issues all its loads of a chunk before its first
-//   store, so their latencies overlap.
-// - Stride 2: output (i, j) reads input (2 i + u - 1, 2 j + v - 1). The
-//   input is staged split into four planes by row and column parity, each
-//   (th + 1) x sw positions with sw = tw + 1; tap (u, v) reads plane
-//   (u != 1, v != 1) at position m + (u > 0) sw + (v > 0). So each tap is
-//   again one descriptor offset and a chunk does 9 C of K work, as at
-//   stride 1 (the TPU's space-to-depth lattice would run 16 taps over 4 C
-//   channels). A thread walks the input tile in raster order (coalesced
-//   reads), each pixel by the zero-filling cp.async into its plane.
-// - A chunk is nine k32 steps, one a tap, on one staged stage; its weights
-//   (9 x BN x 32 bytes) are staged beside it.
-// - BN = 24, 48, 64 or 128 output channels a block, the smallest that holds
-//   O (128 above it: four stages of 256 channels' nine taps would not fit;
-//   stride 2 stops at 64, its four planes making a stage about 57 KB),
-//   narrower down to 64 where that grid is under two blocks an SM. MI = 2
-//   (256 positions a block) at every BN: with one 64-row tile a warpgroup
-//   (K5's MI = 1 at BN 64 / 128), ptxas serialized the nine taps' wgmmas
-//   (C7515). K5's ring of four stages, its wait shape and its three-pass
-//   epilogue (wg_sums / wg_epilogue / wg_store, shared by both kernels).
+// K4 (int8 tensor cores, the three wgmma routes) and the dense 5x5 run
+// conv_wgmma.cuh's conv_q8_wgmma_kernel, which describes the design: the
+// taps as descriptor offsets into input staged once per 32 input channels
+// (stride 2: four row / column parity planes), weights
+// QConv.packed_wgmma3 / packed_wgmma5. Here: the tiles. BN = 24, 48, 64 or
+// 128 output channels a block, the smallest that holds O (128 above it: four
+// stages of 256 channels' nine taps would not fit; stride 2 stops at 64, its
+// four planes making a stage about 57 KB; the 5x5 at 64, 25 taps of
+// weights a stage), narrower down to 64 where that grid is under two blocks
+// an SM (the 5x5: 24 where it fills under half the SMs). MI = 2 (256
+// positions a block) at every BN: with one 64-row tile a warpgroup (K5's
+// MI = 1 at BN 64 / 128), ptxas serialized the nine taps' wgmmas (C7515).
 //
 // K5 (int8 tensor cores): an implicit GEMM on wgmma.mma_async
 // m64nNk32.s32.s8.s8 (wgmma.cuh), pixels on M and output channels on N, both
@@ -152,6 +123,7 @@
 
 #include <algorithm>
 
+#include "conv_wgmma.cuh"
 #include "q8_common.cuh"
 #include "wgmma.cuh"
 
@@ -164,17 +136,7 @@ constexpr int NTHREADS = 128;  // 4 warps
 constexpr int TILE_H = 8;      // K4 output tile: 8 rows x 16 columns
 constexpr int TILE_W = 16;
 
-// Output types (the wrappers' out_mode).
-constexpr int OUT_I8 = 0;
-constexpr int OUT_F32 = 1;
-constexpr int OUT_BF16 = 2;
-
 __device__ __forceinline__ int odd_pitch(int kp) { return kp | 1; }
-
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-}
 
 // Writes the thread's 8 channels of one output pixel.
 __device__ __forceinline__ void store8(void* y, long long pix, int O, int og0,
@@ -313,129 +275,6 @@ conv3x3_q8_kernel(const void* __restrict__ x, const int32_t* __restrict__ wpk,
 #pragma unroll
         for (int o = 0; o < OPT; ++o) v[o] = epi(acc[j][o], sw[o], s_in, bb[o], act);
         store8(y, ((long long)b * Ho + oy) * Wo + ox, O, og0, v, inv_out, out_mode);
-    }
-}
-
-// ---------------------------------------------------------------------------
-// The wgmma kernels' shared parts (K4 on wgmma, K5)
-// ---------------------------------------------------------------------------
-
-constexpr int WG_NT = 256;     // two warpgroups
-constexpr int NS = 4;          // stages of the ring
-constexpr int SMEM_MAX = 232448;
-
-// Bytes of an output value, by out_mode.
-__host__ __device__ __forceinline__ int out_bytes(int out_mode) {
-    return out_mode == OUT_F32 ? 4 : out_mode == OUT_BF16 ? 2 : 1;
-}
-
-// Pitch (words) of the s32 sums tile, off 0 and 16 words mod 32: a warp's
-// 8-byte stores take two wavefronts.
-__host__ __device__ constexpr int sums_pitch(int bn) {
-    return (bn % 32 == 8 || bn % 32 == 24) ? bn : bn + 8;
-}
-
-// Bytes of the per-channel scale and bias at the front of shared memory.
-__host__ __device__ constexpr int epi_bytes(int bn) {
-    return (8 * bn + 127) / 128 * 128;
-}
-
-// Epilogue pass 1: the warpgroups' s32 fragments into sums[m][pw], m the
-// block's row (MB = 128 MI rows).
-template <int BN, int MI>
-__device__ __forceinline__ void wg_sums(int32_t (&acc)[MI][BN / 2],
-                                        int32_t* sums, int pw, int tid) {
-    const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
-    const int g4 = lane >> 2, t4 = lane & 3;
-#pragma unroll
-    for (int i = 0; i < MI; ++i)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-            const int m = (wg * MI + i) * 64 + warp * 16 + g4 + 8 * h;
-#pragma unroll
-            for (int jn = 0; jn < BN / 8; ++jn)
-                *reinterpret_cast<int2*>(sums + m * pw + 8 * jn + 2 * t4) =
-                    make_int2(acc[i][4 * jn + 2 * h], acc[i][4 * jn + 2 * h + 1]);
-        }
-}
-
-// Epilogue pass 2 (kept out of the unrolled code): rows 0 .. nrow - 1 and
-// columns 0 .. nc - 1 of the sums (pooled: row r the max over sums rows
-// 4 r .. 4 r + 3) through the float epilogue, in the output type, into out
-// (opitch bytes a row). A thread keeps one column, its scale and bias in
-// registers, and steps over rows; consecutive threads take consecutive
-// columns.
-__device__ __forceinline__ void wg_epilogue(const int32_t* sums, int pw,
-                                            int pool, const float* s_sw,
-                                            const float* s_b, uint8_t* out,
-                                            int opitch, int nrow, int nc,
-                                            int act, float inv_out,
-                                            int out_mode, int tid) {
-    const int es = out_bytes(out_mode);
-    const int rstep = WG_NT / nc, c = tid % nc;
-    if (tid >= rstep * nc) return;
-    const float sws = s_sw[c], bc = s_b[c];
-#pragma unroll 4
-    for (int r = tid / nc; r < nrow; r += rstep) {
-        const int32_t* sr = sums + (pool ? 4 * r : r) * pw + c;
-        float v = epi_s(sr[0], sws, bc, act);
-        if (pool) {
-#pragma unroll
-            for (int j = 1; j < 4; ++j)
-                v = fmaxf(v, epi_s(sr[j * pw], sws, bc, act));
-        }
-        uint8_t* d = out + r * opitch + c * es;
-        if (out_mode == OUT_F32)
-            *reinterpret_cast<float*>(d) = v;
-        else if (out_mode == OUT_BF16)
-            *reinterpret_cast<__nv_bfloat16*>(d) = __float2bfloat16_rn(v);
-        else
-            *reinterpret_cast<int8_t*>(d) = (int8_t)quant1(v, inv_out);
-    }
-}
-
-// Epilogue pass 3: runs of out rows to y. Run s (< nrun) is out rows
-// first(s) .. first(s) + len - 1 (opitch bytes apart, rowb bytes used each),
-// written from dst(s) on, ystride bytes apart. al16: every run starts on a
-// 16-byte boundary in out and in y. Where the rows of a run are contiguous on
-// both sides (a block that holds all O channels), a run is one range copied
-// by 16 bytes; else rows by 16 bytes where rows and strides allow, else
-// bytes.
-template <typename First, typename Dst>
-__device__ __forceinline__ void wg_store(const uint8_t* out, int opitch,
-                                         int rowb, int ystride, int nrun,
-                                         int len, bool al16, First first,
-                                         Dst dst, int tid) {
-    if (opitch == rowb && ystride == rowb && al16) {
-        const int total = len * rowb, per = (total + 15) / 16;
-        for (int idx = tid; idx < nrun * per; idx += WG_NT) {
-            const int s = idx / per, f = 16 * (idx - s * per);
-            uint8_t* d = dst(s);
-            const uint8_t* src = out + first(s) * opitch;
-            if (f + 16 <= total)
-                *reinterpret_cast<uint4*>(d + f) =
-                    *reinterpret_cast<const uint4*>(src + f);
-            else
-                for (int q = f; q < total; ++q) d[q] = src[q];
-        }
-    } else if (al16 && rowb % 16 == 0 && opitch % 16 == 0 &&
-               ystride % 16 == 0) {
-        const int per = rowb / 16, n = len * per;
-        for (int idx = tid; idx < nrun * n; idx += WG_NT) {
-            const int s = idx / n, rem = idx - s * n;
-            const int r = rem / per, k = rem - r * per;
-            *reinterpret_cast<uint4*>(dst(s) + (long long)r * ystride + 16 * k) =
-                *reinterpret_cast<const uint4*>(out + (first(s) + r) * opitch
-                                                + 16 * k);
-        }
-    } else {
-        const int n = len * rowb;
-        for (int idx = tid; idx < nrun * n; idx += WG_NT) {
-            const int s = idx / n, rem = idx - s * n;
-            const int r = rem / rowb, k = rem - r * rowb;
-            dst(s)[(long long)r * ystride + k] =
-                out[(first(s) + r) * opitch + k];
-        }
     }
 }
 
@@ -651,261 +490,6 @@ conv1x1_q8_wgmma_kernel(Sections secs, const uint8_t* __restrict__ w,
              [](int) { return 0; }, [&](int) { return yb; }, tid);
 }
 
-// ---------------------------------------------------------------------------
-// K4 on wgmma: 3x3, pad 1; stride 1 on int8 or float32 input, stride 2 on
-// int8 input
-// ---------------------------------------------------------------------------
-
-// The plane pitch (16-byte rows) of a K4 stage. Stride 1: the taps reach
-// MB + 2 sw + 2 staged positions, rounded up to 4 mod 8, so a quarter-warp's
-// staging stores (four pixels x the two groups) fall on distinct banks.
-// Stride 2: MB + sw + 1, rounded up to 2 mod 8: the two groups then sit 2
-// and the two column-parity planes 4 rows (mod 8) apart, so four adjacent
-// input pixels x the two groups fall on distinct banks.
-__host__ __device__ __forceinline__ int k4_pitch(int mb, int sw, int s) {
-    const int p = s == 1 ? mb + 2 * sw + 2 : mb + sw + 1;
-    return p + (((s == 1 ? 4 : 2) - p) & 7);
-}
-
-// x (B, H, W, C): int8 (VEC 16, 8 or 4, the bytes of a cp.async; C a
-// multiple of VEC) or float32 (VEC 0, stride 1; C a multiple of 4); w
-// QConv.packed_wgmma3: [chunk][tap][og][2][8][16] (chunk = 32 input
-// channels, two groups of 16; zeros past C and past O). grid (tiles,
-// ceil(O / BN), B). A block computes output rows [y0, y0 + th) x columns
-// [x0, x0 + tw) of the (Ho, Wo) map for BN output channels over MB = 128 MI
-// positions m = r sw + c (c < tw and r < th kept). A stage holds NP planes
-// of the chunk's two groups, each group a plane of pl 16-byte rows, then the
-// chunk's weights, 9 taps x BN x 32 bytes.
-// - S = 1 (sw = tw + 2, NP = 1): staged position p = rr sw + cc holds pixel
-//   (y0 - 1 + rr, x0 - 1 + cc); tap (u, v) reads position m + u sw + v.
-// - S = 2 (sw = tw + 1, NP = 4): output (i, j) reads input (2 i + u - 1,
-//   2 j + v - 1). Plane (a, b) (index 2 a + b) holds the input pixels of row
-//   parity a and column parity b: its position rr sw + cc holds input
-//   (2 (y0 - 1 + rr) + a, 2 (x0 - 1 + cc) + b). Tap (u, v) reads plane
-//   (u != 1, v != 1) at position m + (u > 0) sw + (v > 0).
-// Pixels outside the image are staged as zeros in every chunk (cp.async's
-// zero fill; for float32 stored zeros), so a reused stage holds no stale
-// halo: the border taps' weights are not 0.
-template <int BN, int MI, int VEC, int S>
-__global__ void __launch_bounds__(WG_NT, (BN * MI <= 128) ? 2 : 1)
-conv3x3_q8_wgmma_kernel(const void* __restrict__ x,
-                        const uint8_t* __restrict__ w,
-                        const float* __restrict__ s_w,
-                        const float* __restrict__ bias, void* __restrict__ y,
-                        int H, int W, int Ho, int Wo, int C, int O, int og,
-                        int nchunks, int tw, int th, int tiles_x, float s_in,
-                        float inv_s_in, float inv_out, int act,
-                        int out_mode) {
-    static_assert(S == 1 || VEC != 0, "float32 input at stride 1 only");
-    constexpr int MB = 128 * MI, CB = VEC ? VEC : 16, P = 16 / CB;
-    constexpr int NP = S == 1 ? 1 : 4;
-    // stride 1: copies a thread, (th + 2) sw <= 2 MB staged positions
-    // (th >= 2) x two groups x P copies, over WG_NT threads
-    constexpr int IPT = S == 1 ? 2 * P * MI : 1;
-    constexpr int PPI = WG_NT / (2 * P);          // positions an iteration
-    extern __shared__ __align__(128) uint8_t smem[];
-    float* s_sw = reinterpret_cast<float*>(smem);
-    float* s_b = s_sw + BN;
-    uint8_t* ring = smem + epi_bytes(BN);
-    const int sw = tw + 3 - S, pl = k4_pitch(MB, sw, S);
-    const int abytes = NP * 2 * pl * 16, stage = abytes + 9 * BN * 32;
-    const int tid = threadIdx.x, wg = tid >> 7;
-    const int y0 = (blockIdx.x / tiles_x) * th;
-    const int x0 = (blockIdx.x % tiles_x) * tw;
-    const int j0 = blockIdx.y * (BN / 8), n0 = 8 * j0, b = blockIdx.z;
-
-    for (int i = tid; i < BN; i += WG_NT) {      // s_w * s_in, the bias
-        s_sw[i] = n0 + i < O ? __fmul_rn(s_w[n0 + i], s_in) : 0.0f;
-        s_b[i] = n0 + i < O ? bias[n0 + i] : 0.0f;
-    }
-    // this thread copies CB bytes at byte cofs of a chunk's 32 (group
-    // cofs / 16) for staged positions tid / (2 P) + it PPI (consecutive
-    // lanes: consecutive bytes of a pixel, then the next pixel)
-    const int cofs = (tid % (2 * P)) * CB;
-    int pix[IPT];          // pixel index, -1 outside the image, -2 no copy
-    if constexpr (S == 1) {
-        const int npos = (th + 2) * sw;
-#pragma unroll
-        for (int it = 0; it < IPT; ++it) {
-            const int p = tid / (2 * P) + it * PPI;
-            const int rr = p / sw, cc = p - rr * sw;
-            const int iy = y0 - 1 + rr, ix = x0 - 1 + cc;
-            pix[it] = p >= npos ? -2
-                      : (iy >= 0 && iy < H && ix >= 0 && ix < W)
-                          ? (b * H + iy) * W + ix : -1;
-        }
-    }
-
-    auto stage_in = [&](int ch, int st) {
-        const int c0 = ch * 32 + cofs;
-        if (c0 >= C) return;     // past C: zero weights, any bytes will do
-        uint8_t* dst = ring + st * stage + (cofs >> 4) * pl * 16 + (cofs & 15);
-        if constexpr (S == 2) {
-            // the input rows 2 (y0 - 1) .. 2 (y0 + th) + 1 and columns
-            // 2 (x0 - 1) .. 2 (x0 - 1 + sw) - 1, in raster order, each
-            // pixel into its plane
-            const int rw = 2 * sw, npix = 2 * (th + 1) * rw;
-            const int8_t* xi = static_cast<const int8_t*>(x);
-#pragma unroll 1
-            for (int p = tid / (2 * P); p < npix; p += PPI) {
-                const int ri = p / rw, ci = p - ri * rw;
-                const int iy = 2 * (y0 - 1) + ri, ix = 2 * (x0 - 1) + ci;
-                const bool in = iy >= 0 && iy < H && ix >= 0 && ix < W;
-                const int q = ((ri & 1) * 2 + (ci & 1)) * 2 * pl
-                              + (ri >> 1) * sw + (ci >> 1);
-                cp_async_zfill<CB>(
-                    dst + q * 16,
-                    in ? xi + ((long long)(b * H + iy) * W + ix) * C + c0
-                       : xi, in);
-            }
-        } else if constexpr (VEC == 0) {
-            // float32: every load of the chunk issued first (16-byte loads,
-            // four a staged position), then quantized at s_in and stored,
-            // 16 bytes a position (zeros outside the image)
-            float4 f[IPT][4];
-#pragma unroll
-            for (int it = 0; it < IPT; ++it)
-#pragma unroll
-                for (int k = 0; k < 4; ++k) {
-                    f[it][k] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-                    if (pix[it] >= 0 && c0 + 4 * k < C)
-                        f[it][k] = reinterpret_cast<const float4*>(
-                            static_cast<const float*>(x)
-                            + (long long)pix[it] * C + c0)[k];
-                }
-#pragma unroll
-            for (int it = 0; it < IPT; ++it) {
-                if (pix[it] == -2) continue;
-                uint32_t q[4];
-#pragma unroll
-                for (int k = 0; k < 4; ++k)
-                    q[k] = (quant1(f[it][k].x, inv_s_in) & 0xff)
-                           | (quant1(f[it][k].y, inv_s_in) & 0xff) << 8
-                           | (quant1(f[it][k].z, inv_s_in) & 0xff) << 16
-                           | (uint32_t)(quant1(f[it][k].w, inv_s_in) & 0xff)
-                                 << 24;
-                *reinterpret_cast<uint4*>(dst + (tid / (2 * P) + it * PPI)
-                                          * 16) =
-                    make_uint4(q[0], q[1], q[2], q[3]);
-            }
-        } else {
-#pragma unroll
-            for (int it = 0; it < IPT; ++it) {
-                if (pix[it] == -2) continue;
-                const bool in = pix[it] >= 0;
-                const int8_t* xi = static_cast<const int8_t*>(x);
-                cp_async_zfill<CB>(dst + (tid / (2 * P) + it * PPI) * 16,
-                                   in ? xi + (long long)pix[it] * C + c0 : xi,
-                                   in);
-            }
-        }
-    };
-    auto weights = [&](int ch, int st) {
-        uint8_t* d = ring + st * stage + abytes;
-        for (int e = tid; e < 9 * BN * 2; e += WG_NT) {
-            const int q = e & 15, jj = (e >> 4) % (BN / 8);
-            const int tap = (e >> 4) / (BN / 8);
-            if (j0 + jj < og)
-                cp_async16(d + (tap * (BN / 8) + jj) * 256 + q * 16,
-                           w + ((long long)(ch * 9 + tap) * og + j0 + jj) * 256
-                               + q * 16);
-        }
-    };
-
-    int32_t acc[MI][BN / 2];
-#pragma unroll
-    for (int i = 0; i < MI; ++i)
-#pragma unroll
-        for (int k = 0; k < BN / 2; ++k) acc[i][k] = 0;
-
-    // chunk 0 staged, chunk 1's copies in flight
-    stage_in(0, 0);
-    weights(0, 0);
-    cp_async_commit();
-    if (nchunks > 1) {
-        stage_in(1, 1);
-        weights(1, 1);
-        cp_async_commit();
-        cp_async_wait<1>();
-    } else {
-        cp_async_wait<0>();
-    }
-    fence_proxy_async();
-    __syncthreads();
-    for (int ch = 0; ch < nchunks; ++ch) {
-        const int st = ch % NS;
-        const uint32_t a0 = smem_addr(ring + st * stage), b0 = a0 + abytes;
-#pragma unroll
-        for (int i = 0; i < MI; ++i)
-#pragma unroll
-            for (int k = 0; k < BN / 2; ++k) reg_fence(acc[i][k]);
-        wgmma_fence();
-        // the nine taps, one k32 step each (both groups of the chunk)
-#pragma unroll
-        for (int tap = 0; tap < 9; ++tap) {
-            const int u = tap / 3, v = tap % 3;
-            const int shift = S == 1 ? u * sw + v
-                              : ((u != 1) * 2 + (v != 1)) * 2 * pl
-                                    + (u > 0) * sw + (v > 0);
-            const uint64_t db = gmma_desc(b0 + tap * BN * 32, 128, 256);
-#pragma unroll
-            for (int i = 0; i < MI; ++i) {
-                const int m = (wg * MI + i) * 64 + shift;
-                wgmma_s8<BN>(acc[i], gmma_desc(a0 + m * 16, pl * 16, 128), db);
-            }
-        }
-        wgmma_commit();
-#pragma unroll
-        for (int i = 0; i < MI; ++i)
-#pragma unroll
-            for (int k = 0; k < BN / 2; ++k) reg_fence(acc[i][k]);
-        // K5's wait shape (see there); the float32 staging's st.shared
-        // reach the tensor cores through the proxy fence below
-        if (ch + 2 < nchunks) {
-            stage_in(ch + 2, (ch + 2) % NS);
-            weights(ch + 2, (ch + 2) % NS);
-            cp_async_commit();
-            cp_async_wait<1>();      // chunk ch + 1 has landed
-        } else {
-            cp_async_wait<0>();
-        }
-        fence_proxy_async();
-        wgmma_wait<1>();             // chunk ch - 1's products are done
-        __syncthreads();
-    }
-    wgmma_wait<0>();
-#pragma unroll
-    for (int i = 0; i < MI; ++i)
-#pragma unroll
-        for (int k = 0; k < BN / 2; ++k) reg_fence(acc[i][k]);
-    __syncthreads();
-
-    // epilogue as K5's: the sums; the float epilogue of the positions of
-    // the rows inside the map (the dropped ones too, in place for
-    // float32); then tile row r's columns inside the map, one run each
-    constexpr int PW = sums_pitch(BN);
-    int32_t* sums = reinterpret_cast<int32_t*>(ring);
-    wg_sums<BN, MI>(acc, sums, PW, tid);
-    __syncthreads();
-    const int nc = min(BN, O - n0);
-    const int es = out_bytes(out_mode);
-    const int nr = min(th, Ho - y0), nx = min(tw, Wo - x0);
-    const bool in_place = es == 4;
-    uint8_t* out = in_place ? ring : ring + MB * PW * 4;
-    const int opitch = in_place ? PW * 4 : nc * es;
-    wg_epilogue(sums, PW, 0, s_sw, s_b, out, opitch, nr * sw, nc, act,
-                inv_out, out_mode, tid);
-    __syncthreads();
-    const long long ystride = (long long)O * es;
-    uint8_t* yb = static_cast<uint8_t*>(y)
-                  + ((((long long)b * Ho + y0) * Wo + x0) * O + n0) * es;
-    const bool al16 = ((long long)x0 * O + n0) * es % 16 == 0
-                      && (Wo * ystride) % 16 == 0 && (sw * opitch) % 16 == 0;
-    wg_store(out, opitch, nc * es, (int)ystride, nr, nx, al16,
-             [&](int s) { return s * sw; },
-             [&](int s) { return yb + s * Wo * ystride; }, tid);
-}
-
 template <int KS, int S>
 cudaError_t launch3(const void* x, const int32_t* wpk, const float* s_w,
                     const float* bias, void* y, int B, int H, int W, int C, int C4,
@@ -974,58 +558,26 @@ cudaError_t launch1_tile(int bn, int mi, const Sections& secs, const void* w,
     return cudaErrorInvalidValue;
 }
 
-template <int BN, int MI, int VEC, int S>
-cudaError_t launch3w(const void* x, const void* w, const float* s_w,
-                     const float* bias, void* y, int B, int H, int W, int C,
-                     int O, int tw, float s_in, float inv_s_in, float inv_out,
-                     int act, int out_mode, cudaStream_t stream) {
-    constexpr int MB = 128 * MI;
-    const int sw = tw + 3 - S, th = MB / sw;
-    if (tw < 1 || th < 2) return cudaErrorInvalidValue;
-    const int Ho = (H - 1) / S + 1, Wo = (W - 1) / S + 1;
-    const int stage = (S == 1 ? 2 : 8) * k4_pitch(MB, sw, S) * 16 + 9 * BN * 32;
-    const int nchunks = (C + 31) / 32;
-    const int es = out_bytes(out_mode);
-    const int tile = MB * sums_pitch(BN) * 4 + (es == 4 ? 0 : MB * BN * es);
-    const int smem = epi_bytes(BN) + std::max(std::min(NS, nchunks) * stage,
-                                              tile);
-    if (smem > SMEM_MAX) return cudaErrorInvalidValue;
-    auto kernel = conv3x3_q8_wgmma_kernel<BN, MI, VEC, S>;
-    static bool allowed = false;      // the attribute once, at its maximum
-    if (!allowed) {
-        const cudaError_t err = cudaFuncSetAttribute(
-            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
-        if (err != cudaSuccess) return err;
-        allowed = true;
-    }
-    const int tiles_x = (Wo + tw - 1) / tw;
-    dim3 grid(tiles_x * ((Ho + th - 1) / th), (O + BN - 1) / BN, B);
-    kernel<<<grid, WG_NT, smem, stream>>>(
-        x, (const uint8_t*)w, s_w, bias, y, H, W, Ho, Wo, C, O, (O + 7) / 8,
-        nchunks, tw, th, tiles_x, s_in, inv_s_in, inv_out, act, out_mode);
-    return cudaGetLastError();
-}
-
-// Stride 2 stops at BN 64: four stages of four planes and 128 channels'
-// nine taps would not fit.
-template <int VEC, int S>
-cudaError_t launch3w_tile(int bn, int mi, const void* x, const void* w,
-                          const float* s_w, const float* bias, void* y, int B,
-                          int H, int W, int C, int O, int tw, float s_in,
-                          float inv_s_in, float inv_out, int act,
-                          int out_mode, cudaStream_t stream) {
-#define L3W(BN, MI) launch3w<BN, MI, VEC, S>(x, w, s_w, bias, y, B, H, W, C, \
-                                             O, tw, s_in, inv_s_in, inv_out, \
-                                             act, out_mode, stream)
-    if (bn == 24 && mi == 2) return L3W(24, 2);
-    if (bn == 48 && mi == 2) return L3W(48, 2);
-    if (bn == 64 && mi == 2) return L3W(64, 2);
-    if constexpr (S == 1)
-        if (bn == 128 && mi == 2) return L3W(128, 2);
-#undef L3W
+// K4's and the dense 5x5's wgmma tiles: 3x3 at stride 1 up to BN 128,
+// stride 2 up to 64 (four stages of four planes and 128 channels' nine taps
+// would not fit), 5x5 up to 64 (a stage holds 25 taps of weights).
+template <int VEC, int S, int KS>
+cudaError_t launch_tile(int bn, int mi, const void* x, const void* w,
+                        const float* s_w, const float* bias, void* y, int B,
+                        int H, int W, int C, int O, int tw, float s_in,
+                        float inv_s_in, float inv_out, int act, int out_mode,
+                        cudaStream_t stream) {
+#define LW(BN, MI) launch_wgmma<BN, MI, VEC, S, KS, NHWC>(                   \
+        x, w, s_w, bias, y, B, H, W, C, O, tw, s_in, inv_s_in, inv_out, act, \
+        out_mode, 0, stream)
+    if (bn == 24 && mi == 2) return LW(24, 2);
+    if (bn == 48 && mi == 2) return LW(48, 2);
+    if (bn == 64 && mi == 2) return LW(64, 2);
+    if constexpr (S == 1 && KS == 3)
+        if (bn == 128 && mi == 2) return LW(128, 2);
+#undef LW
     return cudaErrorInvalidValue;
 }
-
 }  // namespace
 
 // x (B, H, W, C) f32 (f32_in) or (B, H, W, C4) int8; wpk packed words; y
@@ -1099,45 +651,55 @@ extern "C" int conv1x1_q8(const void* x0, const void* x1, const void* x2,
 #undef LT
 }
 
-// K4 on wgmma: x (B, H, W, C), int8 (vec 16, 8 or 4: C a multiple of vec
-// and x vec-byte aligned) or, at stride 1, float32 (vec 0: C a multiple of
-// 4, x 16-byte aligned, quantized at 1 / inv_s_in while staging); stride 1
-// or 2, pad 1; w QConv.packed_wgmma3; y (B, Ho, Wo, O), 16-byte aligned,
+// K4 and the dense 5x5 on wgmma: x (B, H, W, C), int8 (vec 16, 8 or 4: C a
+// multiple of vec and x vec-byte aligned) or, at stride 1, float32 (vec 0:
+// C a multiple of 4, x 16-byte aligned, quantized at 1 / inv_s_in while
+// staging); ks 3 at stride 1 or 2 (pad 1), or 5 at stride 1 (pad 2); w
+// QConv.packed_wgmma3 / packed_wgmma5; y (B, Ho, Wo, O), 16-byte aligned,
 // int8 (out_mode 0), f32 (1) or bf16 (2); (bn, mi) the tile (24, 2),
-// (48, 2), (64, 2) or, at stride 1, (128, 2); tw the row width (at least
-// two rows of tw + 2, stride 2 tw + 1, positions in 128 mi); act 0 none,
-// 1 SiLU, 2 ReLU. Returns a cudaError_t.
-extern "C" int conv3x3_q8_wgmma(const void* x, const void* w, const float* s_w,
-                                const float* bias, void* y, int B, int H,
-                                int W, int C, int O, int stride, int bn,
-                                int mi, int vec, int tw, int out_mode,
-                                float s_in, float inv_s_in, float inv_out,
-                                int act, void* stream_ptr) {
+// (48, 2), (64, 2) or, for a 3x3 at stride 1, (128, 2); tw the row width (at
+// least ks - 1 rows of tw + ks - 1, stride 2 two of tw + 1, positions in
+// 128 mi); act 0 none, 1 SiLU, 2 ReLU. Returns a cudaError_t.
+extern "C" int conv_q8_wgmma(const void* x, const void* w, const float* s_w,
+                             const float* bias, void* y, int B, int H, int W,
+                             int C, int O, int ks, int stride, int bn, int mi,
+                             int vec, int tw, int out_mode, float s_in,
+                             float inv_s_in, float inv_out, int act,
+                             void* stream_ptr) {
     cudaStream_t stream = (cudaStream_t)stream_ptr;
     if (B <= 0 || H <= 0 || W <= 0 || O <= 0) return 0;
     const int align = vec ? vec : 16;
     if (C <= 0 || (long long)B * H * W >= (1LL << 31) ||
         (out_mode != OUT_I8 && out_mode != OUT_F32 && out_mode != OUT_BF16) ||
-        ((uintptr_t)y & 15) || (stride != 1 && stride != 2) ||
+        ((uintptr_t)y & 15) || !((ks == 3 && (stride == 1 || stride == 2)) ||
+                                 (ks == 5 && stride == 1)) ||
         (vec != 0 && vec != 4 && vec != 8 && vec != 16) ||
         (vec == 0 && stride != 1) || C % (vec ? vec : 4) ||
         ((uintptr_t)x % align))
         return (int)cudaErrorInvalidValue;
-#define LW(V, S) launch3w_tile<V, S>(bn, mi, x, w, s_w, bias, y, B, H, W, C, \
-                                     O, tw, s_in, inv_s_in, inv_out, act,   \
-                                     out_mode, stream)
+#define LW(V, S, KS) launch_tile<V, S, KS>(bn, mi, x, w, s_w, bias, y, B, H, W, \
+                                           C, O, tw, s_in, inv_s_in, inv_out,  \
+                                           act, out_mode, stream)
     if (stride == 2) {
         switch (vec) {
-            case 16: return (int)LW(16, 2);
-            case 8: return (int)LW(8, 2);
-            default: return (int)LW(4, 2);
+            case 16: return (int)LW(16, 2, 3);
+            case 8: return (int)LW(8, 2, 3);
+            default: return (int)LW(4, 2, 3);
+        }
+    }
+    if (ks == 5) {
+        switch (vec) {
+            case 16: return (int)LW(16, 1, 5);
+            case 8: return (int)LW(8, 1, 5);
+            case 4: return (int)LW(4, 1, 5);
+            default: return (int)LW(0, 1, 5);
         }
     }
     switch (vec) {
-        case 16: return (int)LW(16, 1);
-        case 8: return (int)LW(8, 1);
-        case 4: return (int)LW(4, 1);
-        default: return (int)LW(0, 1);
+        case 16: return (int)LW(16, 1, 3);
+        case 8: return (int)LW(8, 1, 3);
+        case 4: return (int)LW(4, 1, 3);
+        default: return (int)LW(0, 1, 3);
     }
 #undef LW
 }

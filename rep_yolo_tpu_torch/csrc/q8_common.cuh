@@ -19,6 +19,14 @@ constexpr int ACT_NONE = 0;
 constexpr int ACT_SILU = 1;
 constexpr int ACT_RELU = 2;
 
+// Output types (the wrappers' out_mode) and input types (in_type).
+constexpr int OUT_I8 = 0;
+constexpr int OUT_F32 = 1;
+constexpr int OUT_BF16 = 2;
+constexpr int IN_I8 = 0;
+constexpr int IN_F32 = 1;
+constexpr int IN_BF16 = 2;
+
 // clip(rint(v * inv_s), -127, 127) without conversion instructions: the
 // clamp to +-128 first leaves every in-range result as it was, rint is an
 // add and a subtract of 1.5 * 2^23 (round to nearest even, exact for

@@ -2,8 +2,9 @@
 
 ``launch_counts()`` / ``reset_launch_counts()`` read and zero the per-wrapper
 launch counters, so a run can show which kernels the main path went through.
-``reset_launch_counts()`` also zeroes K4's count by design
-(``conv_flat.LAUNCHES_K4_ROUTE``), which ``launch_counts()`` leaves out.
+``reset_launch_counts()`` also zeroes the counts by route of K4 and of the
+dense 5x5 (``conv_flat.LAUNCHES_K4_ROUTE``, ``LAUNCHES_DENSE5_ROUTE``),
+which ``launch_counts()`` leaves out.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ def launch_counts() -> dict[str, int]:
 
 
 def reset_launch_counts() -> None:
-    for c in _COUNTERS + (conv_flat.LAUNCHES_K4_ROUTE,):
+    for c in _COUNTERS + (conv_flat.LAUNCHES_K4_ROUTE,
+                          conv_flat.LAUNCHES_DENSE5_ROUTE):
         for key in c:
             c[key] = 0

@@ -4,8 +4,9 @@ Replaces ``rep_yolo_tpu/ops/pallas/conv_flat.py``: ``conv3x3_flat_q8`` (K4
 ``conv3x3_q8``, which also computes the stem's stride-2 conv that the TPU
 kernel reached by space-to-depth) and ``conv1x1_flat_q8`` (K5
 ``conv1x1_q8``: 1-3 input sections, optional fused 2x2/s2 max pool) and
-the dense case of ``conv5x5_flat_q8`` (``conv5x5_q8``: K4 with 5x5 taps).
-Source: ``csrc/conv_flat.cu``.
+the dense case of ``conv5x5_flat_q8`` (``conv5x5_q8``: K4's stride-1
+``wgmma`` core with 25 taps). Source: ``csrc/conv_flat.cu``, the ``wgmma``
+core in ``csrc/conv_wgmma.cuh``.
 
 Activations are channels-last, ``(B, H, W, C)``: int8 at a calibrated
 per-tensor scale (C a multiple of 4), or float32 quantized inside the
@@ -17,8 +18,11 @@ input (route ``wgmma``), a stride-2 3x3 on int8 input (``wgmma_s2``, the
 input staged as four parity planes) and a stride-1 3x3 on float32 input
 (``wgmma_f32``, quantized while staging); dp4a for the rest (the float32
 stride-2 stem, float32 maps whose C is not a multiple of 4 or whose address
-is off 16 bytes, the dense 5x5). ``LAUNCHES_K4_ROUTE`` counts
-``conv3x3_q8``'s launches by route. K5 is an implicit GEMM on the int8
+is off 16 bytes). ``LAUNCHES_K4_ROUTE`` counts ``conv3x3_q8``'s launches by
+route. The dense 5x5 runs the same core with 25 taps, its route from
+``dense5_route`` (``wgmma`` on int8 input, ``wgmma_f32`` on float32 input
+with C a multiple of 4 at a 16-byte-aligned address, else dp4a), its
+launches by route in ``LAUNCHES_DENSE5_ROUTE``. K5 is an implicit GEMM on the int8
 tensor cores, its tile and staging granule picked by ``k5_route``. The
 output is int8 at ``out_scale`` or, without one, float32, or bfloat16 with
 ``out_dtype`` (the JAX kernels emit bf16 there; ``ops/kernels/conv_pm.py``
@@ -40,8 +44,10 @@ from rep_yolo_tpu_torch.ops.quant import (epilogue, quantize,
                                           quantize_weights, requant)
 
 LAUNCHES = {"conv3x3_q8": 0, "conv1x1_q8": 0, "conv5x5_q8": 0}
-# conv3x3_q8's launches by K4 route (``k4_route``); zeroed with LAUNCHES
+# conv3x3_q8's launches by K4 route (``k4_route``) and conv5x5_q8's by its
+# route (``dense5_route``); zeroed with LAUNCHES
 LAUNCHES_K4_ROUTE = {"wgmma": 0, "wgmma_s2": 0, "wgmma_f32": 0, "dp4a": 0}
+LAUNCHES_DENSE5_ROUTE = {"wgmma": 0, "wgmma_f32": 0, "dp4a": 0}
 _TO = 32            # output channels per block of K4
 # K5's tiles: output channels a block (BN) -> its 64-row tiles a warpgroup
 # (MI); 256 rows a block for BN <= 48, else 128 (with 256, the epilogue's
@@ -56,6 +62,9 @@ K4_TILES = {24: 2, 48: 2, 64: 2, 128: 2}
 # (a wider one's planes would not fit four stages at 64)
 K4_S2_TILES = {24: 2, 48: 2, 64: 2}
 K4_S2_TW = 48
+# the dense 5x5's: up to 64 (a stage holds 25 taps of weights, 25 BN 32
+# bytes; three stages at BN 64 take 203 KB)
+DENSE5_TILES = {24: 2, 48: 2, 64: 2}
 SMS = 132           # the H100's SMs
 _ACTS = {"silu": 1, None: 0, "relu": 2}
 # the kernels' out_mode: int8 at out_scale, else float32 or bfloat16
@@ -71,9 +80,9 @@ def _lib():
         lib.conv1x1_q8.argtypes = [vp] * 3 + [i32] * 4 + [vp] * 4 \
             + [i32] * 9 + [f] * 3 + [i32, vp]
         lib.conv1x1_q8.restype = i32
-        lib.conv3x3_q8_wgmma.argtypes = [vp] * 5 + [i32] * 11 + [f] * 3 \
+        lib.conv_q8_wgmma.argtypes = [vp] * 5 + [i32] * 12 + [f] * 3 \
             + [i32, vp]
-        lib.conv3x3_q8_wgmma.restype = i32
+        lib.conv_q8_wgmma.restype = i32
         lib._typed = True
     return lib
 
@@ -104,7 +113,8 @@ class QConv:
     per-channel scales (the concat's section scales) and pending channel
     permutation (GSConv's shuffle) into the float weights before they are
     quantized (``fold_weight``). The kernels' packed copies (``packed`` for
-    K4 on dp4a, ``packed_wgmma3`` for K4 on wgmma, ``packed_wgmma`` for K5)
+    K4 on dp4a, ``packed_wgmma3`` for K4 and K13 on wgmma,
+    ``packed_wgmma5`` for the dense 5x5 on wgmma, ``packed_wgmma`` for K5)
     are made at the first launch and kept."""
 
     def __init__(self, weight: torch.Tensor, bias: torch.Tensor | None,
@@ -142,24 +152,37 @@ class QConv:
                     0, 3, 2, 4, 1).contiguous()
         return self._packed[kc]
 
-    def packed_wgmma3(self) -> torch.Tensor:
-        """K4's operand B on ``wgmma``: int8 [chunk][tap][ceil(O/8)][2][8][16].
-        A chunk is 32 input channels, two groups of 16 (the channels padded
-        to whole chunks); tap t = 3 u + v; each (chunk, tap) a k32 step of
-        core matrices of 8 output channels x 16 input channels. Zeros in
-        every pad (and in the output channels past O)."""
-        if "wgmma3" not in self._packed:
-            O, k, _, cp = self.w_q.shape
-            if k != 3:
-                raise ValueError(f"packed_wgmma3: {k}x{k} weights")
+    def _packed_taps(self, k: int) -> torch.Tensor:
+        """Operand B of the k x k ``wgmma`` core: int8 [chunk][tap]
+        [ceil(O/8)][2][8][16]. A chunk is 32 input channels, two groups of
+        16 (the channels padded to whole chunks); tap t = k u + v; each
+        (chunk, tap) a k32 step of core matrices of 8 output channels x 16
+        input channels. Zeros in every pad (and in the output channels past
+        O)."""
+        key = f"wgmma{k}"
+        if key not in self._packed:
+            O, kw, _, cp = self.w_q.shape
+            if kw != k:
+                raise ValueError(f"packed_wgmma{k}: {kw}x{kw} weights")
             og8, kc = -(-O // 8) * 8, -(-cp // 32) * 32
-            w = torch.zeros((og8, 9, kc), dtype=torch.int8,
+            w = torch.zeros((og8, k * k, kc), dtype=torch.int8,
                             device=self.w_q.device)
-            w[:O, :, :cp] = self.w_q.reshape(O, 9, cp)
-            self._packed["wgmma3"] = w.reshape(
-                og8 // 8, 8, 9, kc // 32, 2, 16).permute(
+            w[:O, :, :cp] = self.w_q.reshape(O, k * k, cp)
+            self._packed[key] = w.reshape(
+                og8 // 8, 8, k * k, kc // 32, 2, 16).permute(
                     3, 2, 0, 4, 1, 5).contiguous()
-        return self._packed["wgmma3"]
+        return self._packed[key]
+
+    def packed_wgmma3(self) -> torch.Tensor:
+        """K4's (and K13's) operand B on ``wgmma``: int8 [chunk][tap]
+        [ceil(O/8)][2][8][16], tap t = 3 u + v (``_packed_taps``)."""
+        return self._packed_taps(3)
+
+    def packed_wgmma5(self) -> torch.Tensor:
+        """The dense 5x5's operand B on ``wgmma``: int8 [chunk][tap]
+        [ceil(O/8)][2][8][16], tap t = 5 u + v, 25 k32 steps a chunk
+        (``_packed_taps``)."""
+        return self._packed_taps(5)
 
     def packed_wgmma(self, cs) -> torch.Tensor:
         """K5's operand B for input sections of ``cs`` channels: int8
@@ -279,49 +302,91 @@ def k4_route(C: int, O: int, B: int, H: int, W: int, stride: int,
 
 
 @functools.lru_cache(maxsize=None)
-def _k4_route(C, O, B, H, W, stride, f32, low) -> tuple:
+def _k4_route(C, O, B, H, W, stride, f32, low, ks=3) -> tuple:
     vec = 0 if f32 else next(
         (v for v in (16, 8, 4) if low % v == 0 and C % v == 0), None)
     if vec is None:
-        raise ValueError(f"conv3x3_q8: int8 input of {C} channels at an "
-                         f"address off 4 bytes")
-    table = K4_TILES if stride == 1 else K4_S2_TILES
+        raise ValueError(f"conv{ks}x{ks}_q8: int8 input of {C} channels at "
+                         f"an address off 4 bytes")
+    table = (K4_S2_TILES if stride == 2 else K4_TILES if ks == 3
+             else DENSE5_TILES)
     ho, wo = (H - 1) // stride + 1, (W - 1) // stride + 1
-    first = next((b for b in table if O <= b), max(table))
-    for bn in [b for b in sorted(table, reverse=True)
-               if b == first or 64 <= b < first]:
-        tw, tiles = k4_width(ho, wo, 128 * table[bn], stride)
-        if tiles * -(-O // bn) * B >= 2 * SMS:
-            break
+    width = functools.partial(k4_width, ho, wo, stride=stride, ks=ks)
+    bn, tw = pick_tile(table, O, B, width)
+    if ks == 5 and width(256)[1] * -(-O // bn) * B < SMS // 2:
+        # a 5x5 grid that leaves most SMs idle is latency-bound: the
+        # narrowest tile, more blocks in flight
+        bn = min(table)
     kind = "wgmma_s2" if stride == 2 else "wgmma_f32" if f32 else "wgmma"
     return kind, bn, table[bn], vec, tw
 
 
+def pick_tile(table: dict, O: int, B: int, width) -> tuple[int, int]:
+    """(BN, TW) of a wgmma tile table {BN: MI}: BN the smallest that holds
+    O (the largest above it), unless that grid is under two blocks an SM;
+    then the narrower ones down to 64: the first whose grid reaches two
+    blocks an SM, else 64. ``width(128 MI)`` -> (TW, tiles a map)."""
+    first = next((b for b in table if O <= b), max(table))
+    for bn in [b for b in sorted(table, reverse=True)
+               if b == first or 64 <= b < first]:
+        tw, tiles = width(128 * table[bn])
+        if tiles * -(-O // bn) * B >= 2 * SMS:
+            break
+    return bn, tw
+
+
 @functools.lru_cache(maxsize=None)
-def k4_width(H: int, W: int, mb: int, stride: int = 1) -> tuple[int, int]:
-    """(TW, tiles a map) of K4 on wgmma over an (H, W) output map and
-    ``mb`` positions a block. Stride 1: a tile is th = mb // (TW + 2) rows
-    (at least 2) of TW columns, computed over TW + 2 positions a row from a
-    staged (th + 2) x (TW + 2) halo'd tile. Stride 2: th = mb // (TW + 1)
-    rows over TW + 1 positions a row, from four staged parity planes of
-    (th + 1) x (TW + 1), TW at most ``K4_S2_TW``. TW is even, at most W
-    rounded up to even: as K10's tile, the one that wastes the fewest
-    positions over the map, with a staged position counted as an eighth of
-    a computed one (a computed position costs the epilogue of every output
-    channel, a staged one two 16-byte copies a chunk); the wider on a
-    tie."""
-    halo, planes = (2, 1) if stride == 1 else (1, 4)
-    top = (mb // 2 - halo) & ~1
+def k4_width(H: int, W: int, mb: int, stride: int = 1, ks: int = 3,
+             step: int = 2) -> tuple[int, int]:
+    """(TW, tiles a map) of the ``wgmma`` core over an (H, W) output map
+    and ``mb`` positions a block. Stride 1: a tile is th = mb // (TW + ks -
+    1) rows (at least ks - 1) of TW columns, computed over TW + ks - 1
+    positions a row from a staged (th + ks - 1) x (TW + ks - 1) halo'd
+    tile. Stride 2 (ks 3): th = mb // (TW + 1) rows (at least 2) over TW +
+    1 positions a row, from four staged parity planes of (th + 1) x (TW +
+    1), TW at most ``K4_S2_TW``. TW is a multiple of ``step`` (K4 and the
+    dense 5x5 2, K13 4), at most W rounded up to one: as K10's tile, the
+    one that wastes the fewest positions over the map, with a staged
+    position counted as an eighth of a computed one (a computed position
+    costs the epilogue of every output channel, a staged one two 16-byte
+    copies a chunk); the wider on a tie."""
+    halo, planes = (ks - 1, 1) if stride == 1 else (1, 4)
+    rows = ks - 1 if stride == 1 else 2
+    top = (mb // rows - halo) & ~1
     if stride != 1:
         top = min(top, K4_S2_TW)
+    top -= top % step
     best = None
-    for tw in range(min(W + W % 2, top), 0, -2):
+    for tw in range(min(W + (-W) % step, top), 0, -step):
         th = mb // (tw + halo)
         tiles = -(-W // tw) * -(-H // th)
         cost = tiles * (8 * mb + planes * (th + halo) * (tw + halo))
         if best is None or cost < best[2]:
             best = (tw, tiles, cost)
     return best[:2]
+
+
+def dense5_route(C: int, O: int, B: int, H: int, W: int,
+                 dtype: torch.dtype, addr: int = 0) -> tuple:
+    """The dense 5x5's route for ``C`` -> ``O`` channels on a (B, H, W)
+    input map: ``(kind, BN, MI, VEC, TW)`` on the int8 tensor cores, K4's
+    stride-1 ``wgmma`` core with 25 taps, kind ``"wgmma"`` for int8 input
+    and ``"wgmma_f32"`` for float32 input with C a multiple of 4 at a
+    16-byte-aligned ``addr`` (quantized while staging); else ``("dp4a",)``,
+    the dp4a kernel with 5x5 taps (float32 input whose C is not a multiple
+    of 4 or whose address is off 16 bytes). BN from ``DENSE5_TILES`` as
+    ``pick_tile`` chooses, then 24 where that grid fills under half the
+    SMs (a thin grid is latency-bound); MI 2; VEC as ``k4_route``'s; TW
+    ``k4_width``'s with ks 5 (at least 4 rows a tile)."""
+    low = int(addr) & 15
+    if dtype == torch.int8:
+        f32 = False
+    elif dtype == torch.float32 and C % 4 == 0 and not low:
+        f32 = True
+    else:
+        return ("dp4a",)
+    return _k4_route(int(C), int(O), int(B), int(H), int(W), 1, f32, low,
+                     5)
 
 
 def _conv_kxk(name, x, qw: QConv, s_in, stride, act, out_scale, out_dtype):
@@ -343,14 +408,19 @@ def _conv_kxk(name, x, qw: QConv, s_in, stride, act, out_scale, out_dtype):
     O = qw.c_out
     y = torch.empty((B, ho, wo, O), device=x.device, dtype=dt)
     s, inv_s, inv_out = _scales(s_in, out_scale)
-    route = ("dp4a",) if name != "conv3x3_q8" else \
-        k4_route(C, O, B, H, W, stride, x.dtype, x.data_ptr())
+    if name == "conv3x3_q8":
+        route = k4_route(C, O, B, H, W, stride, x.dtype, x.data_ptr())
+        by_route = LAUNCHES_K4_ROUTE
+    else:
+        route = dense5_route(C, O, B, H, W, x.dtype, x.data_ptr())
+        by_route = LAUNCHES_DENSE5_ROUTE
     if route[0] != "dp4a":
         _, bn, mi, vec, tw = route
-        err = _lib().conv3x3_q8_wgmma(
-            D.ptr(x), D.ptr(qw.packed_wgmma3()), D.ptr(qw.s_w),
-            D.ptr(qw.bias), D.ptr(y), B, H, W, C, O, stride, bn, mi, vec, tw,
-            mode, s, inv_s, inv_out, _ACTS[act], D.stream_handle(x))
+        packed = qw.packed_wgmma3() if qw.k == 3 else qw.packed_wgmma5()
+        err = _lib().conv_q8_wgmma(
+            D.ptr(x), D.ptr(packed), D.ptr(qw.s_w), D.ptr(qw.bias),
+            D.ptr(y), B, H, W, C, O, qw.k, stride, bn, mi, vec, tw, mode, s,
+            inv_s, inv_out, _ACTS[act], D.stream_handle(x))
     else:
         kc = _chunk([cp])
         err = _lib().conv3x3_q8(
@@ -360,8 +430,7 @@ def _conv_kxk(name, x, qw: QConv, s_in, stride, act, out_scale, out_dtype):
             _ACTS[act], D.stream_handle(x))
     D.check_launch(name, err)
     LAUNCHES[name] += 1
-    if name == "conv3x3_q8":
-        LAUNCHES_K4_ROUTE[route[0]] += 1
+    by_route[route[0]] += 1
     return y
 
 
@@ -401,8 +470,10 @@ def conv5x5_q8_plain(x: torch.Tensor, qw: QConv, s_in: float,
 def conv5x5_q8(x: torch.Tensor, qw: QConv, s_in: float,
                act: str | None = "silu", out_scale: float | None = None,
                out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """K4 with 5x5 taps (the dense ``conv5x5_flat_q8``). CPU tensors take
-    ``conv5x5_q8_plain``."""
+    """The dense ``conv5x5_flat_q8`` on the route ``dense5_route`` picks:
+    K4's stride-1 ``wgmma`` core with 25 taps (int8 input, float32 input
+    with C % 4 == 0 at a 16-byte-aligned address), else K4's dp4a kernel
+    with 5x5 taps. CPU tensors take ``conv5x5_q8_plain``."""
     if x.device.type == "cpu":
         return conv5x5_q8_plain(x, qw, s_in, act, out_scale, out_dtype)
     if qw.k != 5:

@@ -18,15 +18,18 @@ only; on a CUDA tensor they launch the kernel or raise.
 And the int8 ones, ``conv3x3_cmajor_q8`` (K13) and ``conv1x1_cmajor_q8``
 (K14, 1-3 sections), which the kernel benches reach
 (``rep_yolo_tpu_torch/tools/kernel_bench*.py``). Source:
-``csrc/conv_cmajor_q8.cu``. The input (B, C, H, W) is int8 at ``s_in`` or
-float32 / bfloat16 quantized in the kernel at ``s_in``; the weights are a
-``CMQConv``, quantized once per output channel; the output is bfloat16
-(the float32 epilogue rounded once) or int8 at ``out_scale``.
+``csrc/conv_cmajor_q8.cu``; K13 runs K4's int8 ``wgmma`` core
+(``csrc/conv_wgmma.cuh``) on NCHW input, its tile from ``k13_route``. The
+input (B, C, H, W) is int8 at ``s_in`` or float32 / bfloat16 quantized in
+the kernel at ``s_in``; the weights are a ``CMQConv``, quantized once per
+output channel (K13 reads ``packed_wgmma3``, K14 ``packed_cm``); the output
+is bfloat16 (the float32 epilogue rounded once) or int8 at ``out_scale``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -235,7 +238,7 @@ def _lib_q8():
     if not getattr(lib, "_typed", False):
         vp, i32, i64, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                            ctypes.c_float)
-        lib.conv3x3_cmajor_q8.argtypes = [vp] * 5 + [i32] * 7 + [f] * 3 \
+        lib.conv3x3_cmajor_q8.argtypes = [vp] * 5 + [i32] * 10 + [f] * 3 \
             + [i32, vp]
         lib.conv3x3_cmajor_q8.restype = i32
         lib.conv1x1_cmajor_q8.argtypes = [vp] * 3 + [i32] * 3 + [vp] * 4 \
@@ -247,8 +250,9 @@ def _lib_q8():
 
 class CMQConv(QConv):
     """One conv's int8 weights for K13 / K14: ``QConv``'s per-output-channel
-    quantization (``w_q``, ``s_w``, ``bias``), packed once for the
-    channel-major kernels by ``packed_cm``:
+    quantization (``w_q``, ``s_w``, ``bias``). K13 reads ``QConv``'s
+    ``packed_wgmma3`` (K4's operand: the same implicit GEMM). ``packed_cm``
+    is K14's copy (and the TPU kernels' row-major form of the 3x3):
 
     - 3x3: (Opad, Cpad / 32, 9, 32) int8, tap = u * 3 + v;
     - 1x1: (Opad, Cpad) int8;
@@ -310,23 +314,51 @@ def conv3x3_cmajor_q8_plain(x: torch.Tensor, qw: QConv, s_in: float,
     return _plain_q8(x, qw, s_in, act, out_scale)
 
 
+def k13_route(C: int, O: int, B: int, H: int, W: int,
+              dtype: torch.dtype) -> tuple:
+    """K13's route for a 3x3 of ``C`` -> ``O`` channels on a (B, C, H, W)
+    map of ``dtype``: ``("wgmma", BN, MI, TW)``, K4's stride-1 int8 wgmma
+    core on NCHW input. BN: the smallest of ``K4_TILES`` that holds O, else
+    128, never narrower: a block's time goes to staging its input (loads,
+    quantizing, the byte transpose), which a narrower tile repeats for
+    every BN output channels (on one H100 it lost at every multi-chunk
+    kernel_bench shape, thin grids included). MI 2; TW ``k4_width``'s with
+    widths a multiple of 4 (the epilogue stores 4 pixels a thread). Refuses
+    a dtype other than int8, float32 and bfloat16, and an empty shape."""
+    if dtype not in _IN_TYPES:
+        raise ValueError(f"conv3x3_cmajor_q8: {dtype} input")
+    if min(C, O, B, H, W) <= 0:
+        raise ValueError(f"conv3x3_cmajor_q8: shape {(B, C, H, W)} -> {O}")
+    return _k13_route(int(O), int(B), int(H), int(W))
+
+
+@functools.lru_cache(maxsize=None)
+def _k13_route(O, B, H, W) -> tuple:
+    table = K_conv.K4_TILES
+    bn = next((b for b in table if O <= b), max(table))
+    return "wgmma", bn, table[bn], K_conv.k4_width(H, W, 128 * table[bn], 1,
+                                                    3, 4)[0]
+
+
 def conv3x3_cmajor_q8(x: torch.Tensor, qw: QConv, s_in: float,
                       act: str | None = "silu",
                       out_scale: float | None = None) -> torch.Tensor:
-    """K13. CPU tensors take ``conv3x3_cmajor_q8_plain``."""
+    """K13, on the tile ``k13_route`` picks. CPU tensors take
+    ``conv3x3_cmajor_q8_plain``."""
     if x.device.type == "cpu":
         return conv3x3_cmajor_q8_plain(x, qw, s_in, act, out_scale)
     _check_q8("conv3x3_cmajor_q8", [x], qw, act)
     if qw.k != 3:
         raise ValueError(f"conv3x3_cmajor_q8: the weights are {qw.k}x{qw.k}")
     B, C, H, W = x.shape
+    _, bn, mi, tw = k13_route(C, qw.c_out, B, H, W, x.dtype)
     y = torch.empty((B, qw.c_out, H, W), device=x.device,
                     dtype=torch.bfloat16 if out_scale is None else torch.int8)
     s, inv_s, inv_out = K_conv._scales(s_in, out_scale)
     err = _lib_q8().conv3x3_cmajor_q8(
-        D.ptr(x), D.ptr(qw.packed_cm()), D.ptr(qw.s_w), D.ptr(qw.bias),
+        D.ptr(x), D.ptr(qw.packed_wgmma3()), D.ptr(qw.s_w), D.ptr(qw.bias),
         D.ptr(y), B, C, H, W, qw.c_out, _IN_TYPES[x.dtype],
-        0 if out_scale is not None else 2, s, inv_s, inv_out,
+        0 if out_scale is not None else 2, bn, mi, tw, s, inv_s, inv_out,
         K_conv._ACTS[act], D.stream_handle(x))
     D.check_launch("conv3x3_cmajor_q8", err)
     LAUNCHES["conv3x3_cmajor_q8"] += 1

@@ -29,8 +29,11 @@ one bfloat16 ulp (the same exact s32 sums and float32 epilogue, rounded
 once; only the SiLU's last bit differs); conv5x5_q8 with block-diagonal
 weights equal to K7 bit for bit; K4 on its three int8 wgmma routes
 (stride 1 and 2 on int8 input, stride 1 on float32 input; each tile
-forced) and its dp4a calls (the float32 stem, a float32 map off 16 bytes,
-the dense 5x5): every output bit for bit its plain version.
+forced), K13 on the same core (int8, float32 and bfloat16 input, each
+tile forced) and the dense 5x5 on it (int8 and float32 input, each tile
+forced), and K4's dp4a calls (the float32 stem, a float32 map off 16
+bytes, a float32 5x5 of C % 4): every output bit for bit its plain
+version.
 """
 
 import numpy as np
@@ -646,16 +649,19 @@ def test_conv3x3_q8_wgmma_s2_f32_repeat(cuda, stride, dtype):
 @pytest.mark.parametrize("case", ["stem", "float32_unaligned", "dense5x5"])
 def test_k4_other_calls_stay_on_dp4a(cuda, case):
     """The float32 stem (C = 3, stride 2), a float32 map 8 bytes into its
-    storage (the float32 route needs 16-byte staging loads) and the dense
-    5x5 run the dp4a kernel, bit for bit their plain versions."""
+    storage (the float32 route needs 16-byte staging loads) and a float32
+    dense 5x5 whose C is not a multiple of 4 run the dp4a kernel, bit for
+    bit their plain versions."""
     rng = np.random.default_rng(23)
     reset_launch_counts()
     if case == "dense5x5":
-        qw = _qconv(rng, 32, 32, 5, cuda)
-        x = _sections(rng, (32,), 2, 20, 20, torch.int8, cuda)[0]
+        qw = _qconv(rng, 30, 32, 5, cuda)
+        x = _sections(rng, (30,), 2, 20, 20, torch.float32, cuda)[0]
         got = KC.conv5x5_q8(x, qw, 0.01, "silu", 0.05)
         ref = KC.conv5x5_q8_plain(x, qw, 0.01, "silu", 0.05)
         assert launch_counts()["conv5x5_q8"] == 1
+        assert KC.LAUNCHES_DENSE5_ROUTE == {"wgmma": 0, "wgmma_f32": 0,
+                                            "dp4a": 1}
     else:
         if case == "stem":
             qw = _qconv(rng, 3, 48, 3, cuda)
@@ -1255,6 +1261,153 @@ def test_conv5x5_block_diagonal_equals_k7(cuda, c, h, w, act, out_scale):
     x = _map(rng, (2, h, w, c), torch.int8, cuda)
     got = KC.conv5x5_q8(x, KC.block_diagonal(qd), 1.0, act, out_scale)
     assert torch.equal(got, KNF.dwconv5x5_q8(x, qd, 1.0, act, out_scale))
+
+
+# K13's tiles (BN, TW), forced in place of k13_route's choice: every BN at
+# a narrow, a middle and a wide row
+K13_TILES = [(24, 4), (48, 20), (64, 40), (128, 12), (128, 60)]
+# (B, C, H, W, O): C off 32 (a partial chunk, a partial quad), O off 8,
+# W off the tile and H * W * size off 16 bytes (4-byte or narrower staging
+# loads), W off 4 (stores a value at a time), a single column
+K13_AWKWARD = [(2, 40, 13, 21, 20), (1, 24, 16, 64, 48), (1, 16, 16, 64, 32),
+               (1, 36, 11, 26, 50), (3, 70, 5, 7, 130), (1, 8, 3, 1, 8)]
+K13_OUTS = [(None, "silu"), (0.05, "silu"), (None, None), (0.05, "relu")]
+
+
+def _force_k13_tile(monkeypatch, tile):
+    route = KCM.k13_route
+
+    def forced(C, O, B, H, W, dtype):
+        route(C, O, B, H, W, dtype)
+        return "wgmma", tile[0], 2, tile[1]
+    monkeypatch.setattr(KCM, "k13_route", forced)
+
+
+@pytest.mark.parametrize("tile", K13_TILES)
+@pytest.mark.parametrize("shape", K13_AWKWARD)
+@pytest.mark.parametrize("dtype", [torch.int8, torch.float32,
+                                   torch.bfloat16])
+def test_conv3x3_cmajor_q8_wgmma_tiles(cuda, monkeypatch, shape, tile, dtype):
+    """K13 on the int8 wgmma core at each tile (forced) on awkward maps and
+    channel counts, int8 / float32 / bfloat16 input to bfloat16 and int8
+    output: bit for bit the plain version."""
+    _force_k13_tile(monkeypatch, tile)
+    B, C, H, W, O = shape
+    rng = np.random.default_rng(C + O + H + W)
+    qw = _cmq(rng, C, O, 3, cuda)
+    x = _map(rng, (B, C, H, W), dtype, cuda)
+    for out_scale, act in K13_OUTS:
+        args = (qw, 0.01, act, out_scale)
+        got = KCM.conv3x3_cmajor_q8(x, *args)
+        ref = KCM.conv3x3_cmajor_q8_plain(x, *args)
+        assert got.dtype == ref.dtype and torch.equal(got, ref), \
+            (out_scale, act)
+
+
+@pytest.mark.parametrize("dtype,offset", [(torch.int8, 1), (torch.int8, 4),
+                                          (torch.bfloat16, 1),
+                                          (torch.float32, 1),
+                                          (torch.float32, 2)])
+def test_conv3x3_cmajor_q8_unaligned_input(cuda, dtype, offset):
+    """A map ``offset`` elements into its storage stages by narrower loads;
+    bit for bit the plain version, and two calls identical."""
+    rng = np.random.default_rng(31 + offset)
+    qw = _cmq(rng, 24, 40, 3, cuda)
+    a = _map(rng, (2, 24, 9, 32), dtype, cuda)
+    buf = torch.zeros(a.numel() + offset, dtype=dtype, device=cuda)
+    buf[offset:] = a.reshape(-1)
+    x = buf[offset:].view(a.shape)
+    assert x.data_ptr() % 16
+    got = KCM.conv3x3_cmajor_q8(x, qw, 0.01, "silu", 0.05)
+    assert torch.equal(got, KCM.conv3x3_cmajor_q8_plain(x, qw, 0.01, "silu",
+                                                        0.05))
+    assert torch.equal(got, KCM.conv3x3_cmajor_q8(x, qw, 0.01, "silu", 0.05))
+
+
+def test_conv3x3_cmajor_q8_kernel_bench_shapes(cuda):
+    """K13 on k13_route's tiles at kernel_bench's 3x3 shapes, batch 2,
+    bfloat16 in and out and int8 in and out: bit for bit the plain
+    version."""
+    from rep_yolo_tpu_torch.tools.kernel_bench import SHAPES
+    for k, C, O, H in SHAPES:
+        if k != 3:
+            continue
+        rng = np.random.default_rng(C + O + H)
+        qw = _cmq(rng, C, O, 3, cuda)
+        x = _map(rng, (2, C, H, H), torch.bfloat16, cuda)
+        for xi, o in ((x, None), (x.float().mul(100).round().clamp(
+                -127, 127).to(torch.int8), 0.05)):
+            got = KCM.conv3x3_cmajor_q8(xi, qw, 0.01, "silu", o)
+            ref = KCM.conv3x3_cmajor_q8_plain(xi, qw, 0.01, "silu", o)
+            assert torch.equal(got, ref), (C, O, H, xi.dtype)
+
+
+DENSE5_TILES = [(24, 4), (48, 20), (64, 12), (64, 60)]
+# (B, H, W, C, O): C off 32 and off 16, O off 8, ragged maps, a map
+# smaller than a tile, a single column
+DENSE5_AWKWARD = [(2, 9, 13, 40, 20), (1, 20, 20, 32, 32), (1, 7, 30, 20, 64),
+                  (1, 12, 9, 64, 70), (2, 5, 5, 4, 8), (1, 6, 1, 16, 24)]
+DENSE5_OUTS = [(None, torch.float32, "silu"), (0.05, torch.float32, "silu"),
+               (None, torch.bfloat16, None), (None, torch.float32, "relu")]
+
+
+def _force_dense5_tile(monkeypatch, tile):
+    route = KC.dense5_route
+
+    def forced(C, O, B, H, W, dtype, addr=0):
+        r = route(C, O, B, H, W, dtype, addr)
+        return r if r[0] == "dp4a" else (r[0], tile[0], 2, r[3], tile[1])
+    monkeypatch.setattr(KC, "dense5_route", forced)
+
+
+@pytest.mark.parametrize("tile", DENSE5_TILES)
+@pytest.mark.parametrize("shape", DENSE5_AWKWARD)
+@pytest.mark.parametrize("dtype", [torch.int8, torch.float32])
+def test_conv5x5_q8_wgmma_tiles(cuda, monkeypatch, shape, tile, dtype):
+    """The dense 5x5 on the wgmma core with 25 taps at each tile (forced),
+    int8 input (route wgmma) and float32 input (wgmma_f32), every output
+    type: bit for bit the plain version."""
+    _force_dense5_tile(monkeypatch, tile)
+    B, H, W, C, O = shape
+    rng = np.random.default_rng(C + O + H + W + 5)
+    qw = _qconv(rng, C, O, 5, cuda)
+    x = _sections(rng, (C,), B, H, W, dtype, cuda)[0]
+    route = "wgmma" if dtype == torch.int8 else "wgmma_f32"
+    for out_scale, out_dtype, act in DENSE5_OUTS:
+        before = dict(KC.LAUNCHES_DENSE5_ROUTE)
+        args = (qw, 0.01, act, out_scale, out_dtype)
+        got = KC.conv5x5_q8(x, *args)
+        assert KC.LAUNCHES_DENSE5_ROUTE == {**before,
+                                            route: before[route] + 1}
+        ref = KC.conv5x5_q8_plain(x, *args)
+        assert got.dtype == ref.dtype and torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("shape,act,f32_out", [
+    (s, a, f) for s, a, f in [((4, 20, 20, 64), "silu", False),
+                              ((4, 40, 40, 128), "silu", False),
+                              ((4, 80, 80, 64), "silu", False),
+                              ((4, 80, 80, 32), None, True),
+                              ((4, 20, 20, 128), None, True)]])
+def test_conv5x5_block_diagonal_flagship_signatures(cuda, shape, act,
+                                                    f32_out):
+    """The block-diagonal dense 5x5 at the served depthwise signatures, on
+    the wgmma route: identical to K7 and to its plain version."""
+    B, H, W, C = shape
+    rng = np.random.default_rng(C + H)
+    qd = KNF.QDepthwise(
+        torch.from_numpy(rng.normal(0, 0.1, (C, 1, 5, 5)).astype(
+            np.float32)).to(cuda),
+        torch.from_numpy(rng.normal(0, 0.1, (C,)).astype(np.float32)).to(
+            cuda))
+    x = _map(rng, shape, torch.int8, cuda)
+    out_scale = None if f32_out else 0.05
+    bd = KC.block_diagonal(qd)
+    reset_launch_counts()
+    got = KC.conv5x5_q8(x, bd, 0.7, act, out_scale)
+    assert KC.LAUNCHES_DENSE5_ROUTE["wgmma"] == 1
+    assert torch.equal(got, KNF.dwconv5x5_q8(x, qd, 0.7, act, out_scale))
+    assert torch.equal(got, KC.conv5x5_q8_plain(x, bd, 0.7, act, out_scale))
 
 
 @pytest.mark.parametrize("b,c,o,h,w,dtype,act,out_scale", [
