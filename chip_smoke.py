@@ -179,15 +179,26 @@ as cli.train runs:
   13. train_cli: python -m rep_yolo_tpu_torch.cli.train --data synthetic:16
      --epochs 1 (batch 8, 640 px, no augment, no autoanchor, no eval) exits
      0 with finite step lines
-  13a. train_augment: augmentation (data/augment.py, scratch.p5 with
-     mosaic-9 and paste-in off) on one batch from one CPU generator's
-     draws, on the card against the CPU (masks identical, labels 1e-5,
-     images AUG_IMG_TOL); 5 augmented train steps: each step's batch in
-     [0, 1], finite losses; host ms of a step and of the augmentation,
-     device ms of the step and of its train/augment range, with the card's
-     name and power limit
-  13b. train_cli_augment: the train CLI of 13 with augmentation on (--hyp
-     with mosaic-9 and paste-in off) exits 0 with finite step lines
+  13a. train_augment, twice (AUG_SETTINGS: scratch.p5 as shipped, mosaic-9
+     0.2, paste-in 0.15; then mosaic-9 0.5, paste-in 0.5, cutout 0.3):
+     augmentation (data/augment.py) on one batch from one CPU generator's
+     draws at the first seed that takes every branch the hyp turns on
+     (mosaic-9 and mosaic-4, paste-in from a slot that holds a label,
+     cutout, each on some image), on the card against the CPU (masks
+     identical, labels 1e-5, images AUG_IMG_TOL), paste-in adding labels
+     there; 5 augmented train steps: each step's batch in [0, 1],
+     finite losses; host ms of a step and of the augmentation alone, device
+     ms of the step and of its train/augment range, the augmentation's
+     launches, with the card's name and power limit
+  13b. train_cli_augment: the train CLI of 13 with --hyp scratch.p5 as
+     shipped, augmentation and autoanchor on, exits 0 with finite step
+     lines, prints the autoanchor line and writes anchors.json
+  13c. autoanchor_demo: check_anchors on the JAX demo run's set
+     (synthetic:768 at 640 px, seed 0, thr 4.0) reproduces
+     runs/train/demo/anchors.json, as tests/golden/demo_anchors.json
+     copies it (BPR to 1e-12, anchors unchanged and equal to the file's);
+     with 2000-px anchors it evolves a set of higher BPR (the seconds it
+     took)
   14. profiler_after_training: the device events the profiler records in
      windows of K9 calls after the training phases (a report)
 
@@ -241,6 +252,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import math
 import pathlib
@@ -3197,14 +3209,16 @@ def phase_train_overfit(torch, dev, size=SIZE, cfg=CFG, batch=TRAIN_BATCH,
 
 def phase_train_cli(torch, timeout=900, hyp=None):
     """``python -m rep_yolo_tpu_torch.cli.train`` as a user runs it:
-    ``--no-augment``, or with augmentation on and the ``hyp`` YAML."""
+    ``--no-augment --no-autoanchor``, or with augmentation and autoanchor on
+    and ``--hyp hyp`` (a preset name or a YAML), which must print the
+    autoanchor line and write ``anchors.json`` into its run directory."""
     import numpy as np
 
     cmd = [sys.executable, "-m", "rep_yolo_tpu_torch.cli.train",
            "--data", "synthetic:16", "--epochs", "1", "--batch-size",
-           str(TRAIN_BATCH), "--img-size", str(SIZE), "--no-autoanchor",
-           "--eval-every", "0"] + (["--no-augment"] if hyp is None
-                                   else ["--hyp", str(hyp)])
+           str(TRAIN_BATCH), "--img-size", str(SIZE), "--eval-every", "0"] \
+        + (["--no-augment", "--no-autoanchor"] if hyp is None
+           else ["--hyp", str(hyp)])
     t = time.perf_counter()
     p = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
                        timeout=timeout)
@@ -3215,16 +3229,34 @@ def phase_train_cli(torch, timeout=900, hyp=None):
     ok = (p.returncode == 0 and len(steps) == 2 and all(
         np.isfinite([r[k] for k in ("box", "obj", "cls", "total")]).all()
         for r in steps))
+    anchor_line, anchors = None, None
+    if ok and hyp is not None:
+        anchor_line = next((s for s in p.stdout.splitlines()
+                            if s.startswith("autoanchor: BPR ")), None)
+        run = next((r["run_dir"] for r in lines if "run_dir" in r), None)
+        path = ROOT / run / "anchors.json" if run else None
+        anchors = json.loads(path.read_text()) \
+            if path and path.is_file() else None
+        ok = anchor_line is not None and anchors is not None and \
+            np.asarray(anchors["anchors_px"]).shape == (3, 3, 2)
     if not ok:
-        raise AssertionError(f"cli.train failed (exit {p.returncode}):\n"
-                             f"{p.stdout[-3000:]}\n{p.stderr[-3000:]}")
+        raise AssertionError(f"cli.train failed (exit {p.returncode}), or "
+                             f"printed no autoanchor line / wrote no "
+                             f"anchors.json:\n{p.stdout[-3000:]}\n"
+                             f"{p.stderr[-3000:]}")
     emit({"phase": "train_cli" if hyp is None else "train_cli_augment",
           "ok": True, "cmd": " ".join(cmd[1:]), "exit": p.returncode,
-          "seconds": secs, "steps": steps})
+          "seconds": secs, "steps": steps,
+          **({} if hyp is None else {"autoanchor_line": anchor_line,
+                                     "anchors_json": anchors})})
 
 
-AUG_HYP = {"mosaic9": 0.0, "paste_in": 0.0}     # over scratch.p5
-# card against CPU, images on [0, 1]: a 640-px mosaic's canvas coordinate
+# train_augment's two settings: scratch.p5 as shipped (mosaic9 at its
+# default 0.2, paste_in 0.15, cutout 0), and the JAX slow test's forcing
+# values (tests/test_augment_extra.py), which take every branch at batch 8
+AUG_SETTINGS = {"scratch.p5": {},
+                "forced": {"mosaic9": 0.5, "paste_in": 0.5, "cutout": 0.3}}
+# card against CPU, images on [0, 1]: a 640-px mosaic-9 canvas coordinate
 # Minv00 x + Minv02 has terms below 16,384 (scale draws down to 0.1), where
 # a float32 ulp is 2**-10 px; 4 ulps times the 255-a-pixel gradient, / 255,
 # times HSV's value gain up to 1.4
@@ -3232,22 +3264,53 @@ AUG_IMG_TOL = 4 * 2.0 ** -10 * 1.4
 AUG_LABEL_TOL = 1e-5
 
 
-def augment_hyp():
-    """A hyp YAML (over scratch.p5) with mosaic-9 and paste-in off, under
-    the gitignored run directory."""
+def augment_hyp(setting: str):
+    """The ``--hyp`` of an ``AUG_SETTINGS`` entry: the preset's name, or a
+    YAML over scratch.p5 under the gitignored run directory."""
+    over = AUG_SETTINGS[setting]
+    if not over:
+        return setting
     EVAL_RUNS.mkdir(parents=True, exist_ok=True)
-    path = EVAL_RUNS / "hyp_mosaic4.yaml"
-    path.write_text("".join(f"{k}: {v}\n" for k, v in AUG_HYP.items()))
+    path = EVAL_RUNS / f"hyp_{setting}.yaml"
+    path.write_text("".join(f"{k}: {v}\n" for k, v in over.items()))
     return path
 
 
-def phase_train_augment(torch, dev, card, size=SIZE, cfg=CFG,
-                        batch=TRAIN_BATCH, steps=5, reps=3):
-    """Augmentation on the flagship's training at 640 px, batch 8: one
-    batch's draws from a CPU generator, ``augment_batch`` on the card
-    against the same on the CPU (masks identical, labels within
-    ``AUG_LABEL_TOL``, images within ``AUG_IMG_TOL``); then ``steps``
-    augmented train steps (each step's batch, recomputed from the augment
+def branch_draws(torch, A, acfg, mask, tries=256):
+    """Draws from a CPU generator for a batch whose label flags are
+    ``mask`` (B, M), at the first seed that takes every branch ``acfg``
+    turns on: mosaic-9 and mosaic-4 (where 0 < mosaic9 < 1), cutout on at
+    least one image, and paste-in on at least one image with an attempt
+    whose source slot holds a label (an attempt draws its slot from all M,
+    as in the JAX package, so at M = 120 most draw an empty one). ->
+    (seed, draws, the images taking each branch)."""
+    batch, slots = mask.shape
+    for seed in range(tries):
+        d = A.draw_batch(torch.Generator().manual_seed(seed), batch, acfg,
+                         slots)
+        src = (mask[d.partners[:, 0]] & d.paste_on[:, None]).gather(
+            1, d.paste_src)
+        taken = {"mosaic9": d.use9, "mosaic4": ~d.use9,
+                 "paste_in": src.any(1), "cutout": d.cut_on}
+        need = [k for k, p in (("mosaic9", acfg.mosaic9),
+                               ("mosaic4", 1 - acfg.mosaic9),
+                               ("paste_in", acfg.paste_in),
+                               ("cutout", acfg.cutout)) if p > 0]
+        if all(bool(taken[k].any()) for k in need):
+            return seed, d, {k: taken[k].nonzero().flatten().tolist()
+                             for k in need}
+    raise AssertionError(f"no seed below {tries} takes every branch")
+
+
+def phase_train_augment(torch, dev, card, setting="scratch.p5", size=SIZE,
+                        cfg=CFG, batch=TRAIN_BATCH, steps=5, reps=3):
+    """Augmentation on the flagship's training at 640 px, batch 8, with the
+    hyp of ``AUG_SETTINGS[setting]``: one batch's draws from a CPU generator
+    (``branch_draws``: every branch the hyp turns on taken), ``augment_batch``
+    on the card against the same on the CPU (masks identical, labels within
+    ``AUG_LABEL_TOL``, images within ``AUG_IMG_TOL``), and paste-in adding
+    labels there where the hyp turns it on; then ``steps`` augmented train
+    steps (each step's batch, recomputed from the augment
     generator's state before it, in range: images and valid labels in [0,
     1]; every loss finite); host ms of a step and of the augmentation
     alone; under the profiler the device ms of the step and of its
@@ -3260,11 +3323,12 @@ def phase_train_augment(torch, dev, card, size=SIZE, cfg=CFG,
     from rep_yolo_tpu_torch.data import augment as A
     from rep_yolo_tpu_torch.train.hyp import load_hyp
 
-    hyp = augment_hyp()
+    hyp = augment_hyp(setting)
     t, batches = train_setup(torch, dev, cfg, size, batch, hyp=hyp)
     acfg = cli.augment_config(argparse.Namespace(
-        img_size=size, max_labels=batches[0][2].shape[1]), load_hyp(str(hyp)))
-    draws = A.draw_batch(torch.Generator().manual_seed(0), batch, acfg)
+        img_size=size, max_labels=batches[0][2].shape[1]),
+        load_hyp(str(hyp)))
+    seed, draws, taken = branch_draws(torch, A, acfg, batches[0][3].cpu())
     card_out = A.augment_batch(*batches[0], A.Draws(
         *(d.to(dev) for d in draws)), acfg)
     cpu_out = A.augment_batch(*(b.cpu() for b in batches[0]), draws, acfg)
@@ -3281,6 +3345,12 @@ def phase_train_augment(torch, dev, card, size=SIZE, cfg=CFG,
         raise AssertionError(f"augment_batch on the card differs from the "
                              f"CPU: masks equal {same_mask}, labels "
                              f"{lab_err}, images {img_err}")
+    # labels that paste-in added: the same draws without it, on the CPU
+    pasted = int(cpu_out.mask.sum()) - int(A.augment_batch(
+        *(b.cpu() for b in batches[0]), draws,
+        dataclasses.replace(acfg, paste_in=0.0)).mask.sum())
+    if acfg.paste_in > 0 and pasted <= 0:
+        raise AssertionError("paste-in pasted nothing on the checked batch")
 
     gen, state, step = t.state.aug_generator, t.state, t.step
     comps, host, ranges_ok = [], [], []
@@ -3305,12 +3375,16 @@ def phase_train_augment(torch, dev, card, size=SIZE, cfg=CFG,
     if not all(np.isfinite(c[k]) for c in comps for k in c):
         raise AssertionError(f"a loss component is not finite: {comps}")
     aug_host = []
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     for i in range(steps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         t.augment(*batches[i % len(batches)], gen)
         torch.cuda.synchronize()
         aug_host.append((time.perf_counter() - t0) * 1e3)
+    aug_peak = torch.cuda.max_memory_allocated() - held
     wall, names, ranges, _ = profiled_train(
         torch, lambda: step(state, *batches[0]), reps)
     dev_ms = sum(names.values())
@@ -3319,7 +3393,11 @@ def phase_train_augment(torch, dev, card, size=SIZE, cfg=CFG,
     aug_wall, aug_names, _, aug_seen = profiled_train(
         torch, lambda: t.augment(*batches[0], gen), reps)
     emit({"phase": "train_augment", "ok": True, "card": card,
-          "batch": batch, "size": size, "hyp": f"scratch.p5 with {AUG_HYP}",
+          "batch": batch, "size": size, "setting": setting,
+          "hyp": f"scratch.p5 with {AUG_SETTINGS[setting]}",
+          "augment_config": dataclasses.asdict(acfg),
+          "draws_seed": seed, "images_taking_branch": taken,
+          "pasted_labels": pasted,
           "card_vs_cpu": {
               "masks_identical": same_mask, "labels_max_abs_err": lab_err,
               "images_max_abs_err": img_err,
@@ -3332,6 +3410,7 @@ def phase_train_augment(torch, dev, card, size=SIZE, cfg=CFG,
           "step_host_ms_median": statistics.median(host),
           "augment_host_ms": aug_host,
           "augment_host_ms_median": statistics.median(aug_host),
+          "augment_peak_bytes": aug_peak,
           "profiled_wall_ms_per_step": wall,
           "device_ms_per_step": dev_ms if dev_ms > 0 else "not measured",
           "augment_device_ms_per_step": aug_dev if aug_dev > 0
@@ -3351,7 +3430,67 @@ def phase_train_augment(torch, dev, card, size=SIZE, cfg=CFG,
                   "device ms: torch.profiler over the profiled steps, the "
                   "kernels inside train/augment in augment_device_ms; "
                   "augment_alone: the augmentation alone under the "
-                  "profiler, per call"})
+                  "profiler, per call; augment_peak_bytes: the device "
+                  "memory the augmentation alone takes at its peak"})
+
+
+# runs/train/demo/anchors.json, the JAX demo run's figures, copied verbatim
+# into tests/golden (a copy that leaves out runs/ keeps it)
+DEMO_ANCHORS = GOLDEN / "demo_anchors.json"
+DEMO_DATA = 768          # the JAX demo run's --data synthetic:768
+
+
+def phase_autoanchor_demo(torch, dev):
+    """Autoanchor as the JAX demo run met it (``runs/train/demo/opt.json``:
+    synthetic:768 at 640 px, seed 0, scratch.p5's anchor_t 4.0): the port's
+    ``check_anchors`` on that set with the flagship's anchors gives the
+    BPR of ``runs/train/demo/anchors.json`` (to 1e-12; read from its copy
+    ``DEMO_ANCHORS``) and keeps the anchors, which equal the file's; then with absurd anchors (2000 px) it
+    evolves a set that recalls more (``cli.train``'s ``autoanchor``, the
+    model view carrying it), and the seconds that took."""
+    import numpy as np
+
+    from rep_yolo_tpu_torch.cli import train as cli
+    from rep_yolo_tpu_torch.data.datasets import make_synthetic_dataset
+    from rep_yolo_tpu_torch.models.model import RepYOLO
+    from rep_yolo_tpu_torch.train.hyp import load_hyp
+    from rep_yolo_tpu_torch.utils.autoanchor import check_anchors
+
+    ref = json.loads(DEMO_ANCHORS.read_text())
+    hyp = load_hyp("scratch.p5")
+    t0 = time.perf_counter()
+    ds = make_synthetic_dataset(DEMO_DATA, SIZE, seed=0)
+    data_s = time.perf_counter() - t0
+    model = RepYOLO.from_config(CFG, nc=1, device=dev)
+    if model.device.type != "cuda":
+        raise AssertionError("the model left the card")
+    t0 = time.perf_counter()
+    bpr, new = check_anchors(ds, model.anchors_px, img_size=SIZE,
+                             thr=hyp["anchor_t"], seed=0)
+    check_s = time.perf_counter() - t0
+    ref_px = np.asarray(ref["anchors_px"], np.float32)
+    same = bool(np.array_equal(model.anchors_px, ref_px))
+    if not (abs(bpr - ref["bpr"]) <= 1e-12 and new is None and same):
+        raise AssertionError(f"autoanchor on the demo set: BPR {bpr!r} "
+                             f"(file {ref['bpr']!r}), new anchors "
+                             f"{new is not None}, anchors equal {same}")
+    args = argparse.Namespace(img_size=SIZE, seed=0)
+    absurd = model.with_anchors(np.full((9, 2), 2000.0, np.float32))
+    t0 = time.perf_counter()
+    evolved, bad_bpr, did = cli.autoanchor(args, ds, absurd, hyp)
+    evolve_s = time.perf_counter() - t0
+    new_bpr, _ = check_anchors(ds, evolved.anchors_px, img_size=SIZE,
+                               thr=hyp["anchor_t"], seed=0)
+    if not (did and new_bpr > bad_bpr and evolved.net is model.net):
+        raise AssertionError(f"autoanchor did not evolve a better set: BPR "
+                             f"{bad_bpr} -> {new_bpr}, evolved {did}")
+    emit({"phase": "autoanchor_demo", "ok": True,
+          "labels": int(sum(len(x) for x in ds.labels)), "bpr": bpr,
+          "bpr_file": ref["bpr"], "anchors_equal_file": same,
+          "absurd_bpr": bad_bpr, "evolved_bpr": new_bpr,
+          "evolved_anchors_px": evolved.anchors_px.tolist(),
+          "autoanchor_line": cli.autoanchor_line(bad_bpr, evolved, did),
+          "data_s": data_s, "check_s": check_s, "evolve_s": evolve_s})
 
 
 def cold_event_ms(torch, fn, reps: int = 10, warmup: int = 3) -> float:
@@ -4027,8 +4166,10 @@ def main(argv=None) -> int:
     counts_train = phase_train_step(torch, dev)
     phase_train_overfit(torch, dev)
     phase_train_cli(torch)
-    phase_train_augment(torch, dev, card)
-    phase_train_cli(torch, hyp=augment_hyp())
+    for setting in AUG_SETTINGS:
+        phase_train_augment(torch, dev, card, setting)
+    phase_train_cli(torch, hyp="scratch.p5")
+    phase_autoanchor_demo(torch, dev)
     run = phase_eval_train_cli(torch)
     with torch.inference_mode():
         counts_eval = phase_eval_modes(torch, dev, run)

@@ -1,25 +1,28 @@
 """Training CLI (port of ``rep_yolo_tpu/cli/train.py``, the core of its
 ``_run_training`` loop) on the card, in float32 with TF32 off.
 
-Example:
-    python -m rep_yolo_tpu_torch.cli.train --data synthetic:64 \
-        --val-data synthetic:32 --epochs 3 --batch-size 8 --img-size 640 \
-        --hyp hyp.yaml --no-autoanchor --eval-every 1
+Example, the JAX demo run's configuration (scratch.p5, autoanchor on):
+    python -m rep_yolo_tpu_torch.cli.train --data synthetic:768 \
+        --val-data synthetic:128 --epochs 24 --batch-size 8 --img-size 640 \
+        --hyp scratch.p5 --eval-every 3
 
-where ``hyp.yaml`` holds ``mosaic9: 0.0`` and ``paste_in: 0.0`` (over
-scratch.p5), or pass ``--no-augment``.
-
-Seeded init of the train-form model, the hyp preset's augmentation (on the
-card, in the train step: mosaic-4 with the random affine, mixup, HSV and
-flips; ``data/augment.py``), loss gains and optimizer (simOTA by default,
-3-group nesterov SGD with warmup and one-cycle, gradient accumulation to
-the nominal batch 64 ramped over the warmup), the EMA; one JSON line per
-step (per call of the train step, which advances the iteration counter)
-with the loss components and the step's host ms. Every ``--eval-every`` epochs and at the last one the EMA weights
-are scored on the validation set (``train/evaluate.py``; the train-form
-model, whose attention runs on K2 on the card), one JSON line each with
-the kernel launches of that evaluation. The run
-directory (``--project``/``--name``, numbered on, with ``opt.json`` and
+Seeded init of the train-form model; autoanchor unless ``--no-autoanchor``
+(``utils/autoanchor.py``: the anchors' best possible recall on the
+training set, and below 0.98 an evolved set in their place, before the
+step is built; the JAX CLI's line is printed and ``anchors.json``,
+``{"bpr", "anchors_px"}``, written into the run directory); the hyp
+preset's augmentation (on the card, in the train step: mosaic-4 or
+mosaic-9 with the random affine, paste-in, cutout, mixup, HSV and flips;
+``data/augment.py``), loss gains and optimizer (simOTA by default, 3-group
+nesterov SGD with warmup and one-cycle, gradient accumulation to the
+nominal batch 64 ramped over the warmup), the EMA; one JSON line per step
+(per call of the train step, which advances the iteration counter) with
+the loss components and the step's host ms. Every ``--eval-every`` epochs
+and at the last one the EMA weights are scored on the validation set
+(``train/evaluate.py``; the train-form model with the step's anchors,
+whose attention runs on K2 on the card), one JSON line each with the
+kernel launches of that evaluation. The run directory
+(``--project``/``--name``, numbered on, with ``opt.json`` and
 ``results.txt``) receives ``last`` every epoch, ``best`` on a fitness gain
 and ``epoch_NNN`` snapshots (epoch 0, every 25th, the last 5), as the JAX
 CLI saves them (``train/checkpoint.py``, the JAX ``.npz`` form); the JAX
@@ -32,11 +35,8 @@ is scored, as in the JAX CLI. ``--eval-every 0`` turns evaluation off.
 
 The flags are the JAX CLI's. Paths not ported yet raise instead of being
 ignored: a YOLO-directory training set (``--data`` takes ``synthetic[:N]``),
-autoanchor (``--no-autoanchor`` is required), a hyp whose ``mosaic9``,
-``paste_in`` or ``cutout`` is above 0 with augmentation on (mosaic-9,
-paste-in and cutout: scratch.p5 and scratch.tiny set paste-in, and mosaic9
-defaults to 0.2), and ``--bf16``, ``--multi-scale``, ``--aux``, ``--resume``,
-``--evolve``, ``--multihost`` and the other flags listed in ``NOT_PORTED``.
+``--bf16``, ``--multi-scale``, ``--aux``, ``--resume``, ``--evolve``,
+``--multihost`` and the other flags listed in ``NOT_PORTED``.
 ``--device`` (the port's entry points' flag) picks the device: the card
 unless ``cpu`` is asked for.
 """
@@ -102,7 +102,6 @@ def parse_args(argv=None):
 # flag -> (the value that leaves its path unused, what the path is)
 NOT_PORTED = {
     "aux": (False, "the aux-head loss"),
-    "no_autoanchor": (True, "autoanchor (pass --no-autoanchor)"),
     "multi_scale": (False, "multi-scale training"),
     "image_weights": (False, "image weights"),
     "resume": (None, "checkpoints and resume"),
@@ -134,9 +133,6 @@ def augment_config(args, hyp: dict):
 
 
 def check_ported(args) -> None:
-    from rep_yolo_tpu_torch.data.augment import refuse_unported
-    from rep_yolo_tpu_torch.train.hyp import load_hyp
-
     for flag, (ok, what) in NOT_PORTED.items():
         if getattr(args, flag) != ok:
             raise NotImplementedError(
@@ -148,8 +144,6 @@ def check_ported(args) -> None:
     if not args.data.startswith("synthetic"):
         raise NotImplementedError("--data: only 'synthetic[:N]' is ported "
                                   "(a YOLO directory needs a decoder)")
-    if not args.no_augment:
-        refuse_unported(augment_config(args, load_hyp(args.hyp)))
 
 
 def _synthetic_n(spec: str) -> int:
@@ -164,6 +158,31 @@ class Training(NamedTuple):
     opt_cfg: object             # train.optim.OptimConfig
     accum: int                  # final accumulation count (1: off)
     augment: Callable | None    # the step's augment_fn (None: --no-augment)
+    anchor_bpr: float | None    # autoanchor's BPR of the cfg's anchors
+    #                             (None: --no-autoanchor)
+    anchors_evolved: bool       # the model carries autoanchor's new set
+
+
+def autoanchor(args, ds, model, hyp: dict):
+    """The JAX CLI's anchor check at train start (reference train.py:285 ->
+    utils/autoanchor.py:23-59): the best possible recall of the model's
+    anchors on ``ds``; below 0.98, an evolved set that recalls more replaces
+    them. -> (model, bpr, evolved)."""
+    from rep_yolo_tpu_torch.utils.autoanchor import check_anchors
+
+    bpr, new = check_anchors(ds, model.anchors_px, img_size=args.img_size,
+                             thr=hyp["anchor_t"], seed=args.seed)
+    if new is None:
+        return model, bpr, False
+    return model.with_anchors(new), bpr, True
+
+
+def autoanchor_line(bpr: float, model, evolved: bool) -> str:
+    """The line the JAX CLI prints after the check."""
+    if not evolved:
+        return f"autoanchor: BPR {bpr:.4f} — anchors are a good fit"
+    return (f"autoanchor: BPR {bpr:.4f} < 0.98 — evolved new anchors: "
+            f"{model.anchors_px.reshape(-1, 2).tolist()}")
 
 
 def build_training(args, warmup: bool = True) -> Training:
@@ -194,6 +213,10 @@ def build_training(args, warmup: bool = True) -> Training:
     model = RepYOLO.from_config(args.cfg, nc=args.nc, device=dev)
     model.init(torch.Generator().manual_seed(args.seed))
     hyp = load_hyp(args.hyp)
+    bpr, evolved = None, False
+    if not args.no_autoanchor and not args.resume:
+        # before the step is built: it captures the model's anchor grid
+        model, bpr, evolved = autoanchor(args, ds, model, hyp)
     ghyp = scale_gains(hyp, model.cfg.nl, model.cfg.nc, args.img_size)
     loss_cfg = LossConfig(
         nc=model.cfg.nc, box_gain=ghyp["box"], obj_gain=ghyp["obj"],
@@ -213,14 +236,15 @@ def build_training(args, warmup: bool = True) -> Training:
     aug_cfg = augment_config(args, hyp)
     augment_fn = None if args.no_augment else (
         lambda im, hw, lb, mk, gen: augment_batch(
-            im, hw, lb, mk, draw_batch(gen, im.shape[0], aug_cfg), aug_cfg))
+            im, hw, lb, mk, draw_batch(gen, im.shape[0], aug_cfg,
+                                       lb.shape[1]), aug_cfg))
     accum = (1 if args.no_accumulate
              else optim_lib.accumulate_steps(args.batch_size))
     step = make_train_step(model, loss_cfg, opt_cfg, args.img_size,
                            loss_mode="classic" if args.no_ota else "ota",
                            accumulate=accum > 1, augment_fn=augment_fn)
     return Training(model, create_train_state(model, seed=args.seed + 1),
-                    step, loader, opt_cfg, accum, augment_fn)
+                    step, loader, opt_cfg, accum, augment_fn, bpr, evolved)
 
 
 def build_val_set(args):
@@ -241,8 +265,9 @@ def build_val_set(args):
 
 
 def run_training(args, emit=print) -> list[dict]:
-    """Train as the arguments say; ``emit`` gets each step's JSON line and
-    each evaluation's. Returns the step records."""
+    """Train as the arguments say; ``emit`` gets autoanchor's line (where
+    it ran), each step's JSON line and each evaluation's. Returns the step
+    records."""
     from rep_yolo_tpu_torch.models.model import RepYOLO
     from rep_yolo_tpu_torch.ops.kernels import launch_counts
     from rep_yolo_tpu_torch.train.checkpoint import save_checkpoint
@@ -255,9 +280,15 @@ def run_training(args, emit=print) -> list[dict]:
     out_dir = increment_path(Path(args.project) / args.name)
     out_dir.mkdir(parents=True, exist_ok=True)
     (out_dir / "opt.json").write_text(json.dumps(vars(args), indent=2))
+    if t.anchor_bpr is not None:
+        emit(autoanchor_line(t.anchor_bpr, t.model, t.anchors_evolved))
+        (out_dir / "anchors.json").write_text(json.dumps(
+            {"bpr": t.anchor_bpr, "anchors_px": t.model.anchors_px.tolist()}))
     val_ds = build_val_set(args) or t.loader.ds
-    # the EMA weights are scored in a model of their own
+    # the EMA weights are scored in a model of their own, with the anchors
+    # the step trains with
     ema_model = (RepYOLO.from_config(args.cfg, nc=args.nc, device=dev)
+                 .with_anchors(t.model.anchors_px)
                  if args.eval_every else None)
     emit(json.dumps({"train": len(t.loader.ds), "batches_per_epoch": nb,
                      "val": len(val_ds) if ema_model else 0,

@@ -55,6 +55,17 @@ class RepYOLO:
         anchors_px, strides = _check_anchor_order(anchors_px, strides)
         return cls(cfg, net, strides, anchors_px)
 
+    def with_anchors(self, anchors_px: np.ndarray) -> "RepYOLO":
+        """A view of this model with other pixel anchors (the autoanchor
+        result; reference utils/autoanchor.py:54-57): the (nl * na, 2) set
+        reshaped into levels, its order checked against the strides, the
+        stride-normalized grid recomputed. The network and its parameters
+        are shared: anchors are decode and loss constants, not weights."""
+        a = np.asarray(anchors_px, np.float32).reshape(self.cfg.nl,
+                                                       self.cfg.na, 2)
+        a, strides = _check_anchor_order(a, list(self.strides))
+        return RepYOLO(self.cfg, self.net, strides, a)
+
     # -- weights -----------------------------------------------------------
 
     def init(self, generator: torch.Generator) -> "RepYOLO":

@@ -27,6 +27,8 @@ port to 5e-6): such a pixel keeps its largest and smallest channel, which
 are checked, and at most 0.2 % of the elements may be such.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -90,29 +92,80 @@ def _affine_u(key, cfg):
             u(kty, (), minval=0.5 - t, maxval=0.5 + t)]
 
 
-def _jax_draws(key, batch, cfg):
-    """The port's ``Draws`` of JAX ``augment_batch(..., key, cfg)``: its
-    nested key splits, evaluated."""
+def _jax_draws(key, batch, cfg, slots=M):
+    """The port's ``Draws`` of JAX ``augment_batch(..., key, cfg)`` for
+    labels of ``slots`` slots: its nested key splits, evaluated. Paste-in's
+    and cutout's chains are evaluated only where ``cfg`` turns them on (JAX
+    reads them only then); else zeros of their shapes stand in."""
     keys = jax.random.split(key, 8)
     partners = jax.random.randint(keys[0], (batch, 8), 0, batch)
-    centers, affine = [], []
+    centers, affine, use9 = [], [], []
     for k in jax.random.split(keys[1], batch):
         k_center, k_aff = jax.random.split(k)
         centers.append(jnp.floor(jax.random.uniform(
             k_center, (2,), minval=S / 2, maxval=1.5 * S)))
         affine.append(jnp.stack(_affine_u(k_aff, cfg)))
+        use9.append(jax.random.uniform(jax.random.fold_in(k, 99))
+                    < cfg.mosaic9)
     mix = jax.random.uniform(keys[2], (batch,)) < cfg.mixup
     ratio = jax.random.beta(keys[3], 8.0, 8.0, (batch, 1, 1, 1))
     hsv = [jax.random.uniform(k, (3,), minval=-1.0, maxval=1.0)
            for k in jax.random.split(keys[4], batch)]
     kud, klr = jax.random.split(keys[5])
     t = lambda a: torch.from_numpy(np.array(a))
+    n = len(TA.CUTOUT_SCALES)
+    paste = (torch.zeros(batch, 8, dtype=torch.long),
+             torch.zeros(batch, 8, 2), torch.zeros(batch, dtype=torch.bool))
+    if cfg.paste_in > 0:
+        src, dst = jax.vmap(lambda k: _paste_draws(k, slots))(
+            jax.random.split(keys[6], batch))
+        paste = (t(src).long(), t(dst),
+                 t(jax.random.uniform(keys[7], (batch,)) < cfg.paste_in))
+    cut = (torch.zeros(batch, n, 2, dtype=torch.long),
+           torch.zeros(batch, n, 2, dtype=torch.long),
+           torch.zeros(batch, n, 3, dtype=torch.long),
+           torch.zeros(batch, dtype=torch.bool))
+    if cfg.cutout > 0:
+        size, center, color = jax.vmap(_cutout_draws)(jax.random.split(
+            jax.random.fold_in(keys[5], 3), batch))
+        cut = (t(size).long(), t(center).long(), t(color).long(),
+               t(jax.random.uniform(jax.random.fold_in(keys[5], 4),
+                                    (batch,)) < cfg.cutout))
     return TA.Draws(
         partners=t(partners).long(), center=t(jnp.stack(centers)),
         affine=t(jnp.stack(affine)), mix=t(mix),
         ratio=t(ratio.reshape(batch)), hsv=t(jnp.stack(hsv)),
         flipud=t(jax.random.uniform(kud, (batch,)) < cfg.flipud),
-        fliplr=t(jax.random.uniform(klr, (batch,)) < cfg.fliplr))
+        fliplr=t(jax.random.uniform(klr, (batch,)) < cfg.fliplr),
+        use9=t(jnp.stack(use9)), paste_src=paste[0], paste_dst=paste[1],
+        paste_on=paste[2], cut_size=cut[0], cut_center=cut[1],
+        cut_color=cut[2], cut_on=cut[3])
+
+
+def _paste_draws(key, slots):
+    """JAX ``paste_in``'s draws from one image's key: (src (8,), dst (8,
+    2))."""
+    src, dst = [], []
+    for j in range(TA.PASTE_ATTEMPTS):
+        k1, k2 = jax.random.split(jax.random.fold_in(key, j))
+        src.append(jax.random.randint(k1, (), 0, slots))
+        dst.append(jax.random.uniform(k2, (2,), minval=0.0, maxval=1.0))
+    return jnp.stack(src), jnp.stack(dst)
+
+
+def _cutout_draws(key):
+    """JAX ``cutout``'s draws from one image's key: (size (31, 2) as (h, w),
+    centre (31, 2) as (y, x), colour (31, 3)); the key re-bound each box
+    and the colour's drawn from the new one."""
+    size, center, color = [], [], []
+    for i, (lo, hi) in enumerate(TA.cutout_ranges(S)):
+        k1, k2, k3, key = jax.random.split(jax.random.fold_in(key, i), 4)
+        size.append(jnp.stack([jax.random.randint(k1, (), lo, hi + 1),
+                               jax.random.randint(k2, (), lo, hi + 1)]))
+        center.append(jax.random.randint(k3, (2,), 0, S))
+        color.append(jax.random.randint(jax.random.fold_in(key, 7 * i),
+                                        (3,), 64, 191))
+    return jnp.stack(size), jnp.stack(center), jnp.stack(color)
 
 
 def _sel(draws):
@@ -191,7 +244,8 @@ def test_warps_match_jax(case, zoom_out):
         got = TA.warp_separable(TA.mosaic_canvas(ti, th, sel, draws.center),
                                 M, S)
     else:
-        got = TA.warp(ti, th, sel, draws.center, M, S, persp)
+        got = TA.warp(functools.partial(TA.mosaic_sample, ti, th, sel,
+                                        draws.center), M, S, persp)
     for i in range(B):
         s = sel[i].numpy()
         im4 = jnp.asarray(images[s], jnp.float32)
@@ -319,15 +373,6 @@ def test_augment_batch_matches_jax(case):
     assert float(img.min()) >= 0.0 and float(img.max()) <= 1.0
 
 
-@pytest.mark.parametrize("field", ["mosaic9", "paste_in", "cutout"])
-def test_a2b_paths_are_refused(field):
-    images, hw, labels, mask = map(torch.from_numpy, _inputs())
-    _, tcfg = _cfg(**{field: 0.1})
-    draws = TA.draw_batch(torch.Generator().manual_seed(0), B, tcfg)
-    with pytest.raises(NotImplementedError, match="A2b"):
-        TA.augment_batch(images, hw, labels, mask, draws, tcfg)
-
-
 def test_draw_batch_shapes_ranges_and_beta():
     """``draw_batch``: the shapes and ranges of the JAX draws, and the
     Beta(8, 8) sampler's mean 0.5 and variance 1/68 over 4,096 draws."""
@@ -336,7 +381,7 @@ def test_draw_batch_shapes_ranges_and_beta():
     jcfg, _ = _cfg(degrees=10.0, shear=5.0, perspective=0.001, mixup=0.5,
                    flipud=0.5)
     ref = _jax_draws(KEY, B, jcfg)
-    got = TA.draw_batch(torch.Generator().manual_seed(1), B, tcfg)
+    got = TA.draw_batch(torch.Generator().manual_seed(1), B, tcfg, M)
     for g, r in zip(got, ref):
         assert g.shape == r.shape and g.dtype == r.dtype
     assert int(got.partners.min()) >= 0 and int(got.partners.max()) < B
@@ -347,7 +392,7 @@ def test_draw_batch_shapes_ranges_and_beta():
     hi = torch.tensor([0.001, 0.001, 10, 2.0, 5, 5, 0.7, 0.7])
     assert ((got.affine >= lo) & (got.affine <= hi)).all()
     assert float(got.hsv.abs().max()) <= 1.0
-    big = TA.draw_batch(torch.Generator().manual_seed(2), 4096, tcfg)
+    big = TA.draw_batch(torch.Generator().manual_seed(2), 4096, tcfg, M)
     r = big.ratio.double()
     assert float(r.min()) > 0 and float(r.max()) < 1
     assert abs(float(r.mean()) - 0.5) < 0.01

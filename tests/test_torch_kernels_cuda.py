@@ -33,7 +33,9 @@ forced), K13 on the same core (int8, float32 and bfloat16 input, each
 tile forced) and the dense 5x5 on it (int8 and float32 input, each tile
 forced), and K4's dp4a calls (the float32 stem, a float32 map off 16
 bytes, a float32 5x5 of C % 4): every output bit for bit its plain
-version.
+version. Train-time augmentation (no kernel of its own) with mosaic-9,
+paste-in and cutout forced on, on the card against the CPU: masks
+identical, labels 1e-5, images 4 * 2**-10 * 1.4 on [0, 1].
 """
 
 import numpy as np
@@ -1475,3 +1477,40 @@ def test_q8_rest_wrappers_count_launches_and_refuse_bad_input(cuda):
     with pytest.raises(ValueError):                  # f32 sections C % 4
         KC.conv1x1_q8([torch.zeros((1, 6, 6, 6), device=cuda)],
                       _qconv(rng, 6, 8, 1, cuda), 0.01)
+
+
+def test_augment_batch_a2b_cuda_matches_cpu(cuda):
+    """Train-time augmentation with mosaic-9, paste-in and cutout forced on
+    (0.5, 0.5, 0.3, the JAX slow test's values) on the flagship's input,
+    640 px at batch 8, on the card against the CPU from one CPU
+    generator's draws, at the seed ``chip_smoke.branch_draws`` picks (every
+    branch taken, paste-in from a slot that holds a label): masks
+    identical, labels within 1e-5, images within 4 float32 ulps of a 640-px
+    mosaic-9 canvas coordinate times HSV's largest value gain."""
+    import importlib.util
+    import pathlib
+
+    from rep_yolo_tpu_torch.data import augment as A
+    from rep_yolo_tpu_torch.data.datasets import Loader, make_synthetic_dataset
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    size, batch = 640, 8
+    ds = make_synthetic_dataset(batch, size, seed=0)
+    b = next(iter(Loader(ds, batch, seed=0).epoch(0)))
+    inputs = [torch.from_numpy(b[k]) for k in ("images", "hw", "labels",
+                                                "mask")]
+    cfg = A.AugmentConfig(img_size=size, mosaic9=0.5, paste_in=0.5,
+                          cutout=0.3, max_labels=inputs[2].shape[1])
+    _, d, taken = smoke.branch_draws(torch, A, cfg, inputs[3])
+    assert set(taken) == {"mosaic9", "mosaic4", "paste_in", "cutout"}
+    got = A.augment_batch(*(x.to(cuda) for x in inputs),
+                          A.Draws(*(f.to(cuda) for f in d)), cfg)
+    ref = A.augment_batch(*inputs, d, cfg)
+    assert got.images.device.type == "cuda"
+    assert torch.equal(got.mask.cpu(), ref.mask) and bool(ref.mask.any())
+    assert float((got.labels.cpu() - ref.labels).abs().max()) <= 1e-5
+    tol = 4 * 2.0 ** -10 * 1.4
+    assert float((got.images.cpu() - ref.images).abs().max()) <= tol

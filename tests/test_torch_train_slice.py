@@ -580,20 +580,16 @@ def test_identity_batch_matches_jax():
     np.testing.assert_allclose(lab_t.numpy(), np.asarray(lab_j), rtol=1e-7)
 
 
-# augmentation on with a hyp that needs mosaic-9 or paste-in (not ported)
-AUGMENT_ON = ["--no-autoanchor", "--eval-every", "0", "--hyp", "scratch.p5"]
-
-
-@pytest.mark.parametrize("flags", [[], ["--bf16"], ["--multi-scale"],
-                                   ["--aux"], ["--resume", "x"],
-                                   ["--evolve", "2"], ["--multihost"],
-                                   ["--data", "runs/yolo_dir"], AUGMENT_ON])
+@pytest.mark.parametrize("flags", [["--cache-images", "ram"], ["--bf16"],
+                                   ["--multi-scale"], ["--aux"],
+                                   ["--resume", "x"], ["--evolve", "2"],
+                                   ["--multihost"],
+                                   ["--data", "runs/yolo_dir"],
+                                   ["--devices", "2"]])
 def test_cli_refuses_unported_paths(flags):
-    base = ["--data", "synthetic:4"] + ([] if flags in ([], AUGMENT_ON) else [
-        "--no-augment", "--no-autoanchor", "--eval-every", "0"])
-    args = cli.parse_args(base + flags)
-    with pytest.raises(NotImplementedError,
-                       match="A2b" if flags == AUGMENT_ON else None):
+    args = cli.parse_args(["--data", "synthetic:4", "--no-augment",
+                           "--no-autoanchor", "--eval-every", "0"] + flags)
+    with pytest.raises(NotImplementedError):
         cli.check_ported(args)
 
 
@@ -602,20 +598,17 @@ def test_cli_refuses_unported_paths(flags):
                                  dict(mosaic9=0.0, paste_in=0.0, cutout=0.5),
                                  dict(mosaic9=0.0, paste_in=0.0)])
 def test_cli_augment_hyp(tmp_path, hyp):
-    """With augmentation on, a hyp YAML (over scratch.p5) that asks for
-    mosaic-9, paste-in or cutout is refused, naming A2b; one with all three
-    at 0 is accepted, and builds an augmenting step."""
+    """With augmentation and autoanchor on, a hyp YAML (over scratch.p5)
+    with any of mosaic-9, paste-in and cutout on or off is accepted, and
+    its values reach the ``AugmentConfig``."""
     path = tmp_path / "hyp.yaml"
     path.write_text("".join(f"{k}: {v}\n" for k, v in hyp.items()))
-    args = cli.parse_args(["--data", "synthetic:4", "--no-autoanchor",
-                           "--eval-every", "0", "--hyp", str(path)])
-    if any(hyp.get(k, 0) > 0 for k in ("mosaic9", "paste_in", "cutout")):
-        with pytest.raises(NotImplementedError, match="A2b"):
-            cli.check_ported(args)
-    else:
-        cli.check_ported(args)
-        cfg = cli.augment_config(args, load_hyp(str(path)))
-        assert (cfg.mosaic9, cfg.paste_in, cfg.mixup) == (0.0, 0.0, 0.15)
+    args = cli.parse_args(["--data", "synthetic:4", "--eval-every", "0",
+                           "--hyp", str(path)])
+    cli.check_ported(args)
+    cfg = cli.augment_config(args, load_hyp(str(path)))
+    assert (cfg.mosaic9, cfg.paste_in, cfg.cutout, cfg.mixup) == (
+        hyp["mosaic9"], hyp["paste_in"], hyp.get("cutout", 0.0), 0.15)
 
 
 def test_cli_needs_cuda_unless_cpu_asked():
@@ -648,8 +641,8 @@ def test_cli_trains_tiny_graph_on_cpu():
 
 def test_cli_trains_tiny_graph_with_augmentation_on_cpu(tmp_path):
     """``run_training`` with augmentation on (a hyp with mosaic-9 and
-    paste-in off), as ``chip_smoke.py``'s ``train_cli_augment`` runs it on
-    the card: finite losses, and the step's augmented batch in range."""
+    paste-in off: mosaic-4, mixup, HSV and flips alone): finite losses, and
+    the step's augmented batch in range."""
     hyp = tmp_path / "hyp.yaml"
     hyp.write_text("mosaic9: 0.0\npaste_in: 0.0\n")
     args = cli.parse_args(["--cfg", TINY, "--data", "synthetic:4",
