@@ -225,10 +225,12 @@ after it):
      (640 px, batch 8, no augment, no autoanchor): exit 0, an eval line every
      epoch with 6 + 6 K2 launches per forward on the row-3 route and no K1,
      one K3 per batch; best and last written
-  19. eval_modes: best's EMA weights on the same val set: fused float32,
-     unfused (row 3), bfloat16 der_fast, --fast int8 with K7 and with K12
-     (calibrated on the first 8 images): P, R, mAP@.5, mAP@.5:.95, host ms per
-     image, launches per forward, the gaps to float32 and K12 - K7
+  19. eval_modes: best's EMA weights on the same val set, scored by
+     rep_yolo_tpu_torch.tools.eval_modes in its seven modes: fused float32,
+     unfused (row 3), bfloat16, bfloat16 der_fast, --fast int8 with K7 and
+     with K12, and xla_q8 (the int8 modes calibrated on the first 8
+     images): P, R, mAP@.5, mAP@.5:.95, host ms per image, launches per
+     forward, the gaps to float32 and K12 - K7
   20. test_cli: python -m rep_yolo_tpu_torch.cli.test --weights best on the
      val images written as PNG files, --rect --fast int8, then with
      --dw5-exact (K12): exit 0, and mAP within 1e-6 of a direct evaluate on
@@ -239,6 +241,15 @@ after it):
      loaded through read_checkpoint (float32 1e-4 max|ref|; bfloat16 2e-2
      and corr > 0.999 against the cast model on cuDNN), 24 K10 / 28 K11
      launches per der_fast forward, one served call each
+  22. train_resume: python -m rep_yolo_tpu_torch.cli.train --resume of
+     phase 18's last, --epochs 4: it continues at epoch 3 in the same run
+     directory, its first step is 3 * 8 + 1, results.txt has 4 epoch lines
+     and metrics.csv its 2 new rows, init.npz is there from the first run,
+     and the generator states it restored are the ones last.json saved
+  23. overfit_box: python -m rep_yolo_tpu_torch.tools.overfit_check: the
+     tiny graph overfit on one box for 2000 steps, then predict and NMS:
+     the top box's IoU with the drawn one >= 0.8 and its confidence >= 0.5
+     (its seconds)
 
 Then the kernels line {"kernels": [...]} (K1-K14, conv5x5_q8 and the two
 pixel-major rows; K3 again at K = 8192, K2 again for the row-3 route) and,
@@ -3603,8 +3614,6 @@ EVAL_BATCH = 8
 EVAL_TRAIN_N, EVAL_VAL_N, EVAL_EPOCHS = 64, 32, 3
 EVAL_RUNS = ROOT / "runs" / "chip_smoke"        # gitignored
 DW5_PER_FORWARD = 18     # the flagship's depthwise 5x5 calls per forward
-EVAL_MODES = ("fused_f32", "unfused_row3", "bf16_der_fast", "int8_k7",
-              "int8_k12")
 
 
 def _q8_gate(torch, got, ref, out_s):
@@ -3836,77 +3845,141 @@ def phase_eval_train_cli(torch, timeout=600):
     return run
 
 
-def _eval_model(torch, dev, ema, mode, val):
-    """The model of one evaluation mode on the checkpoint's EMA weights."""
-    from rep_yolo_tpu_torch.cli.test import calibrate_int8
-    from rep_yolo_tpu_torch.models.model import RepYOLO
-
-    model = RepYOLO.from_config(CFG, device=dev).load_state(ema)
-    if mode == "unfused_row3":
-        return model                  # its attention: K2 on the card
-    model = model.fuse()
-    if mode == "bf16_der_fast":
-        model.cast(torch.bfloat16)
-        model.net.set_der_fast("bf16")
-    elif mode.startswith("int8"):
-        calibrate_int8(model, val, SIZE, dw5_dense=mode == "int8_k7")
-    return model
-
-
 def phase_eval_modes(torch, dev, run):
-    """The trained ``best`` scored on the synthetic val set in five modes,
-    the counts zeroed before each evaluation and read after it: P, R,
-    mAP@.5, mAP@.5:.95, host ms per image and kernel launches per forward.
-    Returns {mode: launch counts}."""
+    """The trained ``best`` scored on the synthetic val set in the seven
+    modes of ``tools/eval_modes.py``, the counts zeroed before each
+    evaluation and read after it: P, R, mAP@.5, mAP@.5:.95, host ms per
+    image and kernel launches per forward. Returns {mode: launch counts}."""
     from rep_yolo_tpu_torch.data.datasets import make_synthetic_dataset
-    from rep_yolo_tpu_torch.ops.kernels import launch_counts, \
-        reset_launch_counts
-    from rep_yolo_tpu_torch.train.checkpoint import read_checkpoint
-    from rep_yolo_tpu_torch.train.evaluate import evaluate
+    from rep_yolo_tpu_torch.tools import eval_modes as EM
+    from rep_yolo_tpu_torch.train.checkpoint import read_weights
 
-    ema = read_checkpoint(run / "best")["ema"]
+    ema = read_weights(run / "best")
     val = make_synthetic_dataset(EVAL_VAL_N, SIZE, 1, 120, seed=1)
     fwd = -(-EVAL_VAL_N // EVAL_BATCH)
     ccva = len(ATTN_SHAPES)           # one criss-cross + one vertical each
-    want = {"fused_f32": {"axial_project": 2 * ccva,
-                          "axial_attend_criss_cross": ccva},
+    fused = {"axial_project": 2 * ccva, "axial_attend_criss_cross": ccva}
+    want = {"fused_f32": fused,
             "unfused_row3": {"axial_project": 0,
                              "axial_attend_criss_cross": ccva,
                              "axial_attend_vertical": ccva},
+            "bf16": {**fused, **{k: 0 for k in CM_PER_FORWARD}},
             "bf16_der_fast": CM_PER_FORWARD,
             "int8_k7": {"dwconv5x5_q8": DW5_PER_FORWARD,
                         "dwconv5x5_f32w_q8": 0},
             "int8_k12": {"dwconv5x5_f32w_q8": DW5_PER_FORWARD,
-                         "dwconv5x5_q8": 0}}
+                         "dwconv5x5_q8": 0},
+            "xla_q8": XLQ_PER_FORWARD}
+    scored = EM.score_modes(ema, val, CFG, SIZE, EVAL_BATCH, dev)
     rows, counts = {}, {}
-    for mode in EVAL_MODES:
-        model = _eval_model(torch, dev, ema, mode, val)
-        torch.cuda.synchronize()
-        reset_launch_counts()
-        res = evaluate(model, val, batch_size=EVAL_BATCH, img_size=SIZE)
-        torch.cuda.synchronize()
-        counts[mode] = launch_counts()
-        per_fwd = {k: n / fwd for k, n in counts[mode].items() if n}
+    for mode, row in scored.items():
+        counts[mode] = row.pop("launches")
+        per_fwd = row["launches_per_forward"]
         need = {**want[mode], "nms_keep": 1}
         if any(per_fwd.get(k, 0) != n for k, n in need.items()):
             raise AssertionError(f"{mode}: launches per forward {per_fwd}, "
                                  f"want {need}")
-        if not all(map(math.isfinite, (res.mp, res.mr, res.map50, res.map))):
-            raise AssertionError(f"{mode}: {res}")
-        rows[mode] = {"P": res.mp, "R": res.mr, "map50": res.map50,
-                      "map": res.map, "ms_per_img": list(res.speed_ms),
-                      "launches_per_forward": per_fwd}
-        del model
-    f32 = rows["fused_f32"]
-    gaps = {f"{m}_minus_fused_f32": {k: rows[m][k] - f32[k]
-                                     for k in ("map50", "map")}
-            for m in EVAL_MODES[1:]}
-    gaps["int8_k12_minus_int8_k7"] = {
-        k: rows["int8_k12"][k] - rows["int8_k7"][k] for k in ("map50", "map")}
+        if not all(map(math.isfinite, (row["P"], row["R"], row["map50"],
+                                       row["map"]))):
+            raise AssertionError(f"{mode}: {row}")
+        rows[mode] = row
+    gaps = EM.gaps(rows)
+    gaps["int8_k12_minus_int8_k7"] = EM.gaps(rows, "int8_k7")["int8_k12"]
     emit({"phase": "eval_modes", "ok": True, "weights": str(run / "best"),
           "val": f"synthetic:{EVAL_VAL_N} (seed 1)", "batch": EVAL_BATCH,
           "forwards": fwd, "modes": rows, "gaps": gaps})
     return counts
+
+
+def phase_train_resume(torch, run, timeout=600):
+    """``cli.train --resume <run>/last --epochs EVAL_EPOCHS + 1`` on phase
+    18's run, as a user resumes it: it continues at epoch EVAL_EPOCHS in
+    the same directory from step EVAL_EPOCHS * nb + 1, with the generator
+    states ``last.json`` saved; ``results.txt`` and ``metrics.csv`` gain
+    the new epoch's lines; ``init.npz`` is the first run's. The run's
+    ``best`` may be replaced (a resumed run starts best over at fitness 0,
+    as the JAX CLI does): the phases that score it run before."""
+    import hashlib
+
+    import numpy as np
+
+    from rep_yolo_tpu_torch.train.checkpoint import GENERATOR_KEYS
+
+    saved = json.loads((run / "last.json").read_text())
+    sha = {k: hashlib.sha256(saved[k].encode()).hexdigest()
+           for k in GENERATOR_KEYS}
+    csv_before = (run / "metrics.csv").read_text().splitlines()
+    nb = EVAL_TRAIN_N // EVAL_BATCH
+    cmd = [sys.executable, "-m", "rep_yolo_tpu_torch.cli.train",
+           "--resume", str(run / "last"), "--cfg", CFG, "--data",
+           f"synthetic:{EVAL_TRAIN_N}", "--val-data", f"synthetic:{EVAL_VAL_N}",
+           "--epochs", str(EVAL_EPOCHS + 1), "--eval-every", "1",
+           "--batch-size", str(EVAL_BATCH), "--img-size", str(SIZE),
+           "--no-augment", "--no-autoanchor"]
+    t = time.perf_counter()
+    p = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                       timeout=timeout)
+    secs = time.perf_counter() - t
+    lines = [json.loads(s) for s in p.stdout.splitlines()
+             if s.startswith("{")]
+    head = next((r for r in lines if "run_dir" in r), {})
+    resumed = next((r for r in lines if "resumed" in r), {})
+    steps = [r for r in lines if "total" in r]
+    results = (run / "results.txt").read_text().splitlines()
+    csv_after = (run / "metrics.csv").read_text().splitlines()
+    checks = {
+        "exit_0": p.returncode == 0,
+        "same_run_dir": head.get("run_dir") == str(run),
+        "start_epoch": resumed.get("start_epoch") == EVAL_EPOCHS,
+        "resumed_line": f"resumed {run / 'last'} at epoch {EVAL_EPOCHS}"
+        in p.stdout.splitlines(),
+        "first_step": bool(steps) and steps[0]["step"] == EVAL_EPOCHS * nb + 1
+        and steps[0]["epoch"] == EVAL_EPOCHS,
+        "steps": len(steps) == nb and all(np.isfinite(r["total"])
+                                          for r in steps),
+        "results_txt_epochs": [r.split()[1] for r in results] == [
+            f"{e}/{EVAL_EPOCHS}" if e == EVAL_EPOCHS else
+            f"{e}/{EVAL_EPOCHS - 1}" for e in range(EVAL_EPOCHS + 1)],
+        "metrics_csv_rows": csv_after[:len(csv_before)] == csv_before
+        and len(csv_after) == len(csv_before) + 2,
+        "init_npz": (run / "init.npz").is_file(),
+        "generators_restored": resumed.get("generators_sha256") == sha}
+    out = {"phase": "train_resume", "ok": all(checks.values()),
+           "cmd": " ".join(cmd[1:]), "exit": p.returncode, "seconds": secs,
+           "checks": checks, "resumed": resumed,
+           "results_txt": results[-2:], "metrics_csv_new": csv_after[
+               len(csv_before):]}
+    emit(out)
+    if not out["ok"]:
+        raise AssertionError(f"cli.train --resume failed: {checks}\n"
+                             f"{p.stdout[-3000:]}\n{p.stderr[-3000:]}")
+
+
+def phase_overfit_box(timeout=900):
+    """``python -m rep_yolo_tpu_torch.tools.overfit_check`` on the card:
+    the tiny graph overfit on one box for 2000 steps (host-bound), then
+    predict and NMS; the top box must overlap the drawn one at IoU >= 0.8
+    with confidence >= 0.5 (the tool's gate, its exit code)."""
+    from rep_yolo_tpu_torch.tools import overfit_check as OC
+
+    cmd = [sys.executable, "-m", "rep_yolo_tpu_torch.tools.overfit_check"]
+    t = time.perf_counter()
+    p = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                       timeout=timeout)
+    secs = time.perf_counter() - t
+    lines = [json.loads(s) for s in p.stdout.splitlines()
+             if s.startswith("{")]
+    res = lines[-1] if lines else {}
+    row = {"phase": "overfit_box", "cmd": " ".join(cmd[1:]),
+           "exit": p.returncode, "wall_s": secs, **res,
+           "gate": {"min_iou": OC.MIN_IOU, "min_conf": OC.MIN_CONF}}
+    row["ok"] = p.returncode == 0 and bool(res.get("ok")) and \
+        res.get("device") == "cuda" and res.get("steps") == OC.STEPS
+    emit(row)
+    if not row["ok"]:
+        raise AssertionError(f"overfit_box: the detector did not find the "
+                             f"box, or the tool failed:\n{p.stdout[-3000:]}"
+                             f"\n{p.stderr[-3000:]}")
 
 
 def phase_test_cli(torch, dev, run, timeout=600):
@@ -4175,6 +4248,9 @@ def main(argv=None) -> int:
         counts_eval = phase_eval_modes(torch, dev, run)
         phase_test_cli(torch, dev, run)
         phase_serving_ckpt(torch, dev, run)
+    phase_train_resume(torch, run)
+    phase_overfit_box()
+    with torch.inference_mode():
         phase_profiler_after_training(torch, dev)
         # last: after its batch-128 profiler windows the profiler loses a
         # device event in every later window, of every kernel alike

@@ -21,12 +21,24 @@ the loss components and the step's host ms. Every ``--eval-every`` epochs
 and at the last one the EMA weights are scored on the validation set
 (``train/evaluate.py``; the train-form model with the step's anchors,
 whose attention runs on K2 on the card), one JSON line each with the
-kernel launches of that evaluation. The run directory
-(``--project``/``--name``, numbered on, with ``opt.json`` and
-``results.txt``) receives ``last`` every epoch, ``best`` on a fitness gain
-and ``epoch_NNN`` snapshots (epoch 0, every 25th, the last 5), as the JAX
-CLI saves them (``train/checkpoint.py``, the JAX ``.npz`` form); the JAX
-CLI's ``init`` snapshot is not written.
+kernel launches of that evaluation. The JAX CLI's text lines are printed:
+``epoch i/N box .. obj .. cls .. total .. (s)`` an epoch (its mean losses
+and wall seconds) and ``  eval: P .. R .. mAP50 .. mAP ..`` an evaluation.
+The run directory (``--project``/``--name``, numbered on) receives, as the
+JAX CLI writes them: ``opt.json``; ``hyp.json`` and ``metrics.csv``
+(``utils/logger.RunLogger``: the ``train/*`` scalars an epoch, the
+``val/*`` ones an evaluation, which its CSV drops as JAX's does);
+``results.txt`` (the epoch lines); the checkpoints (``train/checkpoint.py``,
+the JAX ``.npz`` form, the generator states in the ``.json``): ``init``
+before the first step, ``last`` every epoch, ``best`` on a fitness gain
+and ``epoch_NNN`` snapshots (epoch 0, every 25th, the last 5).
+
+``--resume <run>/last`` (any checkpoint path) continues in that run's
+directory: the whole train state, the generators where the ``.json`` has
+them (a JAX checkpoint has none: they are seeded as at a fresh start, and a
+line says so), from the ``.json``'s epoch + 1. As in the JAX CLI, a resumed
+run skips autoanchor (it trains with the cfg's anchors, whatever the first
+run evolved), writes no ``init`` and starts ``best`` over at fitness 0.
 
 ``--val-data``: ``synthetic[:N]`` (the generator at seed + 1, held in
 memory like the training data), a YOLO directory, a ``.txt`` list or a
@@ -35,7 +47,7 @@ is scored, as in the JAX CLI. ``--eval-every 0`` turns evaluation off.
 
 The flags are the JAX CLI's. Paths not ported yet raise instead of being
 ignored: a YOLO-directory training set (``--data`` takes ``synthetic[:N]``),
-``--bf16``, ``--multi-scale``, ``--aux``, ``--resume``, ``--evolve``,
+``--bf16``, ``--multi-scale``, ``--aux``, ``--evolve``,
 ``--multihost`` and the other flags listed in ``NOT_PORTED``.
 ``--device`` (the port's entry points' flag) picks the device: the card
 unless ``cpu`` is asked for.
@@ -44,6 +56,7 @@ unless ``cpu`` is asked for.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import time
 from pathlib import Path
@@ -104,7 +117,6 @@ NOT_PORTED = {
     "aux": (False, "the aux-head loss"),
     "multi_scale": (False, "multi-scale training"),
     "image_weights": (False, "image weights"),
-    "resume": (None, "checkpoints and resume"),
     "rbg": (False, "JAX's rbg generator"),
     "multihost": (False, "multi-host training"),
     "native_loader": (False, "the native loader"),
@@ -161,6 +173,7 @@ class Training(NamedTuple):
     anchor_bpr: float | None    # autoanchor's BPR of the cfg's anchors
     #                             (None: --no-autoanchor)
     anchors_evolved: bool       # the model carries autoanchor's new set
+    hyp: dict                   # the hyp preset's values
 
 
 def autoanchor(args, ds, model, hyp: dict):
@@ -244,7 +257,8 @@ def build_training(args, warmup: bool = True) -> Training:
                            loss_mode="classic" if args.no_ota else "ota",
                            accumulate=accum > 1, augment_fn=augment_fn)
     return Training(model, create_train_state(model, seed=args.seed + 1),
-                    step, loader, opt_cfg, accum, augment_fn, bpr, evolved)
+                    step, loader, opt_cfg, accum, augment_fn, bpr, evolved,
+                    hyp)
 
 
 def build_val_set(args):
@@ -266,18 +280,28 @@ def build_val_set(args):
 
 def run_training(args, emit=print) -> list[dict]:
     """Train as the arguments say; ``emit`` gets autoanchor's line (where
-    it ran), each step's JSON line and each evaluation's. Returns the step
-    records."""
+    it ran), each step's JSON line, each evaluation's and, on ``--resume``,
+    the resumed state's. The JAX CLI's text lines (an epoch's mean losses
+    and seconds, an evaluation's scores) are printed, and the epoch's also
+    appended to ``results.txt``. Returns the step records."""
     from rep_yolo_tpu_torch.models.model import RepYOLO
     from rep_yolo_tpu_torch.ops.kernels import launch_counts
-    from rep_yolo_tpu_torch.train.checkpoint import save_checkpoint
+    from rep_yolo_tpu_torch.train.checkpoint import (generator_states,
+                                                     load_checkpoint,
+                                                     save_checkpoint)
     from rep_yolo_tpu_torch.train.evaluate import evaluate
     from rep_yolo_tpu_torch.train.trainer import accum_target_for
     from rep_yolo_tpu_torch.utils.general import increment_path
+    from rep_yolo_tpu_torch.utils.logger import RunLogger
 
     t = build_training(args)
     dev, nb = t.model.device, len(t.loader)
-    out_dir = increment_path(Path(args.project) / args.name)
+    if args.resume:
+        # continue in the resumed run's directory (a fresh increment would
+        # orphan the old run's last.json and loop a resume daemon forever)
+        out_dir = Path(args.resume).parent
+    else:
+        out_dir = increment_path(Path(args.project) / args.name)
     out_dir.mkdir(parents=True, exist_ok=True)
     (out_dir / "opt.json").write_text(json.dumps(vars(args), indent=2))
     if t.anchor_bpr is not None:
@@ -293,9 +317,31 @@ def run_training(args, emit=print) -> list[dict]:
     emit(json.dumps({"train": len(t.loader.ds), "batches_per_epoch": nb,
                      "val": len(val_ds) if ema_model else 0,
                      "device": str(dev), "run_dir": str(out_dir)}))
+    start_epoch = 0
+    if args.resume:
+        # the whole TrainState, its generators and the epoch pointer
+        load_checkpoint(args.resume, t.state, seed=args.seed + 1)
+        meta_path = Path(args.resume).with_suffix(".json")
+        if meta_path.exists():
+            start_epoch = json.loads(meta_path.read_text()).get("epoch",
+                                                                -1) + 1
+        print(f"resumed {args.resume} at epoch {start_epoch}")
+        emit(json.dumps({"resumed": str(args.resume),
+                         "start_epoch": start_epoch, "step": t.state.step,
+                         "generators_sha256": {
+                             k: hashlib.sha256(v.encode()).hexdigest()
+                             for k, v in generator_states(t.state).items()}}))
+    logger = RunLogger(out_dir, wandb_project=args.wandb)
+    logger.log_config("hyp", t.hyp)
     records = []
     best_fitness, res = 0.0, None
-    for epoch in range(args.epochs):
+    results_file = out_dir / "results.txt"
+    if not args.resume:
+        # the pre-training snapshot
+        save_checkpoint(out_dir / "init", t.state, meta=dict(epoch=-1))
+    for epoch in range(start_epoch, args.epochs):
+        t0 = time.time()
+        mloss, count = np.zeros(4), 0
         for i, batch in enumerate(t.loader.epoch(epoch)):
             inputs = [torch.from_numpy(batch[k]).to(dev)
                       for k in ("images", "hw", "labels", "mask")]
@@ -304,18 +350,27 @@ def run_training(args, emit=print) -> list[dict]:
                                                t.accum))
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
-            t0 = time.perf_counter()
+            t1 = time.perf_counter()
             comps = t.step(t.state, *inputs)
             vals = {k: float(v) for k, v in comps.items()}
-            ms = (time.perf_counter() - t0) * 1e3
+            ms = (time.perf_counter() - t1) * 1e3
             rec = {"epoch": epoch, "step": t.state.step, **vals, "ms": ms}
             records.append(rec)
             emit(json.dumps(rec))
-        ep = [r for r in records if r["epoch"] == epoch]
-        with open(out_dir / "results.txt", "a") as f:
-            f.write(json.dumps({"epoch": epoch, **{
-                k: float(np.mean([r[k] for r in ep]))
-                for k in ("box", "obj", "cls", "total")}}) + "\n")
+            mloss += np.asarray([vals[k] for k in ("box", "obj", "cls",
+                                                   "total")])
+            count += 1
+        mloss /= max(count, 1)
+        line = (f"epoch {epoch}/{args.epochs - 1} "
+                f"box {mloss[0]:.4f} obj {mloss[1]:.4f} cls {mloss[2]:.4f} "
+                f"total {mloss[3]:.4f} ({time.time() - t0:.1f}s)")
+        print(line)
+        with open(results_file, "a") as f:
+            f.write(line + "\n")
+        logger.log_scalars(epoch, {"train/box": mloss[0],
+                                   "train/obj": mloss[1],
+                                   "train/cls": mloss[2],
+                                   "train/total": mloss[3]})
         if ema_model is not None and ((epoch + 1) % args.eval_every == 0
                                       or epoch == args.epochs - 1):
             ema_model.load_state(t.state.ema)
@@ -324,10 +379,16 @@ def run_training(args, emit=print) -> list[dict]:
                            img_size=args.img_size)
             launched = {k: n - before[k] for k, n in launch_counts().items()
                         if n > before[k]}
+            print(f"  eval: P {res.mp:.3f} R {res.mr:.3f} "
+                  f"mAP50 {res.map50:.3f} mAP {res.map:.3f}")
             emit(json.dumps({"epoch": epoch, "eval": {
                 "P": res.mp, "R": res.mr, "map50": res.map50,
                 "map": res.map, "fitness": res.fitness,
                 "ms_per_img": list(res.speed_ms)}, "launches": launched}))
+            logger.log_scalars(epoch, {"val/P": res.mp, "val/R": res.mr,
+                                       "val/mAP50": res.map50,
+                                       "val/mAP": res.map,
+                                       "val/fitness": res.fitness})
             if res.fitness > best_fitness:
                 best_fitness = res.fitness
                 meta = dict(epoch=epoch, fitness=res.fitness)
@@ -342,6 +403,8 @@ def run_training(args, emit=print) -> list[dict]:
         if epoch == 0 or (epoch + 1) % 25 == 0 or epoch >= args.epochs - 5:
             save_checkpoint(out_dir / f"epoch_{epoch:03d}", t.state,
                             meta=meta)
+    logger.close()
+    print(f"done. results in {out_dir}")
     if not all(np.isfinite(r["total"]) for r in records):
         raise FloatingPointError("a step's loss is not finite")
     return records

@@ -5,18 +5,21 @@ JAX ``TrainState`` (params, batch_stats, opt (step, momentum, second), ema
 (updates, variables), rng, acc, acc_n), keyed by its tree path as the JAX
 ``_flatten`` makes it (``0/l0/rbr_conv_0_conv/w/kernel``,
 ``3/1/batch_stats/l2/cv1/bn/norm/var``, ...), and the metadata beside it as
-``.json``. A checkpoint of either package so loads in the other: the JAX
-``load_checkpoint`` reads the port's file into its template, and
-``load_checkpoint`` here reads a JAX ``.npz`` through
+``.json``, with the port's two generator states (dropout and augmentation)
+as port-only keys there (``GENERATOR_KEYS``), so a resumed run continues
+the same random streams. A checkpoint of either package so loads in the
+other: the JAX ``load_checkpoint`` reads the port's file into its
+template, and ``load_checkpoint`` here reads a JAX ``.npz`` through
 ``utils.weights.train_state_from_jax`` (the port's files go out through its
 inverse, ``train_state_to_jax``). The JAX package's orbax directories are
 not read (they need orbax): save with its ``.npz`` fallback.
 
-Cadence (``cli.train``): ``last`` every epoch, ``best`` on a fitness gain,
-``epoch_NNN`` snapshots. ``strip_to_deploy`` takes the EMA weights;
-``save_checkpoint`` of its state dict (with ``net=``) writes the JAX
-variables tree {params, batch_stats}, as the JAX ``save_checkpoint`` of
-its ``strip_to_deploy`` does. ``read_weights`` gives the weights to serve
+Cadence (``cli.train``): ``init`` before the first step, ``last`` every
+epoch, ``best`` on a fitness gain, ``epoch_NNN`` snapshots.
+``strip_to_deploy`` takes the EMA weights; ``save_checkpoint`` of its
+state dict (with ``net=``) writes the JAX variables tree {params,
+batch_stats}, as the JAX ``save_checkpoint`` of its ``strip_to_deploy``
+does. ``read_weights`` gives the weights to serve
 from either form, of either package (``serve --ckpt``).
 """
 
@@ -64,12 +67,26 @@ def _unflatten(flat) -> dict:
     return out
 
 
+# the .json keys of a TrainState's generator states (hex of get_state()):
+# the dropout generator, then the augment generator
+GENERATOR_KEYS = ("torch_generator", "torch_aug_generator")
+
+
+def generator_states(state) -> dict[str, str]:
+    """A ``TrainState``'s two generator states, as ``save_checkpoint``
+    writes them into the ``.json``."""
+    gens = (state.generator, state.aug_generator)
+    return {k: g.get_state().numpy().tobytes().hex()
+            for k, g in zip(GENERATOR_KEYS, gens)}
+
+
 def save_checkpoint(path: str | Path, state, meta: dict | None = None,
                     net: torch.nn.Module | None = None):
     """Write a port ``TrainState`` as ``<path>.npz`` (the JAX form) and
-    ``meta`` as ``<path>.json``. A bare state dict (``strip_to_deploy``'s)
-    is written as the JAX variables tree {params, batch_stats}; it needs
-    ``net``, the train-form network it belongs to, for the JAX paths."""
+    ``meta`` with its generator states as ``<path>.json``. A bare state
+    dict (``strip_to_deploy``'s) is written as the JAX variables tree
+    {params, batch_stats}, and ``meta`` alone; it needs ``net``, the
+    train-form network it belongs to, for the JAX paths."""
     path = Path(path).resolve()
     if isinstance(state, Mapping):
         if net is None:
@@ -78,6 +95,7 @@ def save_checkpoint(path: str | Path, state, meta: dict | None = None,
         tree = state_dict_to_jax(net, state)
     else:
         tree = train_state_to_jax(state)
+        meta = {**(meta or {}), **generator_states(state)}
     path.parent.mkdir(parents=True, exist_ok=True)
     np.savez(str(path.with_suffix(".npz")), **_flatten(tree))
     if meta is not None:
@@ -147,11 +165,29 @@ def read_weights(path: str | Path) -> dict[str, np.ndarray]:
         f"{sorted(flat)[:4]})")
 
 
-def load_checkpoint(path: str | Path, state):
+def load_checkpoint(path: str | Path, state, seed: int | None = None):
     """Load a checkpoint of either package into the port ``TrainState``
-    ``state`` (its template, as in the JAX package), in place; returns
-    it."""
+    ``state`` (its template, as in the JAX package), in place; returns it.
+
+    The generator states come from the ``.json`` where it has them (a port
+    checkpoint). A JAX checkpoint has none: with ``seed`` both generators
+    are seeded as ``create_train_state(model, seed)`` seeds them, and a
+    line says so; without, they stay as the template has them."""
+    from rep_yolo_tpu_torch.train.trainer import seed_generators
+
     ck = read_checkpoint(path)
+    meta_path = Path(path).resolve().with_suffix(".json")
+    meta = json.loads(meta_path.read_text()) if meta_path.exists() else {}
+    if all(k in meta for k in GENERATOR_KEYS):
+        for k, g in zip(GENERATOR_KEYS,
+                        (state.generator, state.aug_generator)):
+            g.set_state(torch.frombuffer(bytearray.fromhex(meta[k]),
+                                         dtype=torch.uint8))
+    elif seed is not None:
+        seed_generators(state, seed)
+        print(f"{path}: no generator states (a JAX checkpoint); the dropout "
+              f"and augment generators are seeded from {seed} as at a "
+              f"fresh start")
     model = state.model
     model.load_state(ck["state"])
     dev = model.device

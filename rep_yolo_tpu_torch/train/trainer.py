@@ -59,15 +59,23 @@ def create_train_state(model, seed: int = 0) -> TrainState:
     if getattr(model, "deploy", False):
         raise ValueError("training needs the train-form model")
     params = dict(net.named_parameters())
-    gen = torch.Generator(device=model.device).manual_seed(seed)
+    gen = torch.Generator(device=model.device)
     net.set_generator(gen)
     zeros = lambda: {k: torch.zeros_like(p) for k, p in params.items()}
-    return TrainState(model=model, groups=optim_lib.param_groups(net),
-                      momentum=zeros(), second=zeros(), step=0,
-                      ema=init_ema(net), ema_updates=0, generator=gen,
-                      acc=zeros(), acc_n=0,
-                      aug_generator=torch.Generator(
-                          device=model.device).manual_seed(seed + 2 ** 32))
+    state = TrainState(model=model, groups=optim_lib.param_groups(net),
+                       momentum=zeros(), second=zeros(), step=0,
+                       ema=init_ema(net), ema_updates=0, generator=gen,
+                       acc=zeros(), acc_n=0,
+                       aug_generator=torch.Generator(device=model.device))
+    seed_generators(state, seed)
+    return state
+
+
+def seed_generators(state: TrainState, seed: int) -> None:
+    """Seed the dropout generator with ``seed`` and the augment generator
+    with ``seed + 2**32``, as ``create_train_state`` does."""
+    state.generator.manual_seed(seed)
+    state.aug_generator.manual_seed(seed + 2 ** 32)
 
 
 def make_train_step(model, loss_cfg: LossConfig,

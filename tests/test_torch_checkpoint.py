@@ -19,6 +19,7 @@
 
 import json
 import os
+import re
 
 import jax
 import jax.numpy as jnp
@@ -80,7 +81,9 @@ def test_checkpoint_keys_are_the_jax_flatten_keys(jax_state, tmp_path):
     assert sorted(got) == sorted(ref)
     for k in ref:
         assert got[k].shape == ref[k].shape and got[k].dtype == ref[k].dtype, k
-    assert json.loads((tmp_path / "last.json").read_text()) == {"epoch": 2}
+    # the meta, and the port's generator states beside it
+    meta = json.loads((tmp_path / "last.json").read_text())
+    assert meta == {"epoch": 2, **C.generator_states(st)}
     # the JAX package reads it into its own template
     back = JC.load_checkpoint(tmp_path / "last", jax_state)
     assert int(back.opt.step) == 5 and int(back.ema.updates) == 4
@@ -155,7 +158,11 @@ def test_cli_train_evaluates_and_saves(trained):
     assert ((run / "best.npz").exists()) == (evals[0]["fitness"] > 0)
     assert json.loads((run / "opt.json").read_text())["val_data"] == \
         "synthetic:4"
-    assert len((run / "results.txt").read_text().splitlines()) == 1
+    # the JAX CLI's epoch line (rep_yolo_tpu/cli/train.py:490-492)
+    results = (run / "results.txt").read_text().splitlines()
+    assert len(results) == 1 and re.fullmatch(
+        r"epoch 0/0 box \d+\.\d{4} obj \d+\.\d{4} cls \d+\.\d{4} "
+        r"total \d+\.\d{4} \(\d+\.\ds\)", results[0])
     assert lines[0]["val"] == 4 and lines[0]["run_dir"] == str(run)
 
 

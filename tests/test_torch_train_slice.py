@@ -582,7 +582,7 @@ def test_identity_batch_matches_jax():
 
 @pytest.mark.parametrize("flags", [["--cache-images", "ram"], ["--bf16"],
                                    ["--multi-scale"], ["--aux"],
-                                   ["--resume", "x"], ["--evolve", "2"],
+                                   ["--wandb", "p"], ["--evolve", "2"],
                                    ["--multihost"],
                                    ["--data", "runs/yolo_dir"],
                                    ["--devices", "2"]])
