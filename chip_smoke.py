@@ -199,6 +199,25 @@ as cli.train runs:
      copies it (BPR to 1e-12, anchors unchanged and equal to the file's);
      with 2000-px anchors it evolves a set of higher BPR (the seconds it
      took)
+  13d. loader_native: 64 synthetic images written at 640 px (the JAX
+     layout, JPEG); the native loader's g++ build (its seconds); its batch
+     order equal to Loader(drop_last=False)'s at 8 threads over 3 epochs
+     each of the plain shuffle, 2 shards and image weights; the tail
+     batch's padding; its canvases against cv2's (mean absolute difference,
+     < 10 as the JAX package's test); decode img/s at 1, 4 and 8 threads
+     beside the Python loader's; the JPEG files' and canvases' sha256
+     against tests/golden/native_canvases_640.json (made with libjpeg),
+     where cv2 wrote the golden's JPEG bytes. Without libjpeg / libpng (the
+     card's machine) the library is built without them and cv2 decodes in
+     Python threads, the line says so; where no library builds at all, the
+     line says so with the build error, and 13e runs on the Python loader
+     and must print why
+  13e. train_cli_files: the train CLI on that directory, --native-loader
+     --cache-images disk --image-weights --epochs 2 --eval-every 1: exit 0,
+     finite losses, the native loader's line, labels.cache.npz written;
+     then in this process an epoch's seconds with the native loader
+     against the Python one, the steps' host ms and feed waits, and the
+     device's busy share over 3 native steps (torch.profiler)
   14. profiler_after_training: the device events the profiler records in
      windows of K9 calls after the training phases (a report)
 
@@ -264,6 +283,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import itertools
 import json
 import math
 import pathlib
@@ -1391,17 +1411,18 @@ SPIN = "spin_kernel"
 
 
 def profiled(torch, fn, reps: int, counts: bool = False,
-             prologue: int = PROLOGUE):
+             prologue: int = PROLOGUE, cpu: bool = True):
     """Run ``fn`` ``reps`` times under torch.profiler, after ``prologue``
     spin launches: (host wall ms per run, {kernel name: device ms per run},
     device events recorded; with ``counts``, {kernel name: events
     recorded}; spin events recorded). The spin kernel is in none of the
-    first three."""
+    first three. ``cpu=False`` records the device's activity alone (its
+    summary of a train step is several times quicker)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA] + (
+            [ProfilerActivity.CPU] if cpu else [])) as prof:
         for _ in range(prologue):
             torch.cuda._sleep(SPIN_CYCLES)
         torch.cuda.synchronize()
@@ -3504,6 +3525,283 @@ def phase_autoanchor_demo(torch, dev):
           "data_s": data_s, "check_s": check_s, "evolve_s": evolve_s})
 
 
+FILES_N = 64             # images of the file phases' YOLO directory
+FILES_ROOT = ROOT / "runs" / "chip_smoke" / "yolo"      # gitignored
+FILES_THREADS = (1, 4, 8)
+BUSY_STEPS = 3           # train_cli_files' profiled window (train_step's)
+NATIVE_CV2_MEAN_TOL = 10.0   # tests/test_native_loader.py:28-29
+
+
+NATIVE_GOLDEN = GOLDEN / "native_canvases_640.json"
+
+
+def canvas_hashes(ds, load_one) -> dict:
+    """sha256 of each image file of ``ds`` and of its canvas and hw from
+    ``load_one`` (``data.native_loader.load_one``)."""
+    import hashlib
+
+    files, canvases = [], []
+    for f in ds.img_files:
+        files.append(hashlib.sha256(pathlib.Path(f).read_bytes())
+                     .hexdigest())
+        canvas, hw, _ = load_one(f, ds.img_size)
+        canvases.append(hashlib.sha256(canvas.tobytes() + hw.tobytes())
+                        .hexdigest())
+    return {"jpeg_sha256": files, "canvas_sha256": canvases}
+
+
+class IndexOnly:
+    """A dataset of ``n`` items whose batches carry nothing but their
+    indices: ``Loader``'s order without a decode."""
+
+    def __init__(self, n: int):
+        self.n = n
+
+    def __len__(self) -> int:
+        return self.n
+
+    def load_item(self, i: int):
+        import numpy as np
+
+        z = np.zeros((1,), np.float32)
+        return z, z, z, z, z
+
+
+def phase_loader_native(torch):
+    """The native loader (``data/native_loader.py``) on ``FILES_N``
+    synthetic images written at 640 px (the JAX layout, seed 0): its g++
+    build and seconds; its batch order against ``Loader(drop_last=False)``
+    at 8 threads over 3 epochs each of the plain shuffle, 2 shards and
+    image weights; the tail batch's padding (batch 6); its canvases against
+    cv2's (mean absolute difference over each content region, gated at the
+    JAX package's bound); the decode rate at 1, 4 and 8 threads beside the
+    Python loader's (a warm page cache); the canvases' hashes against
+    ``NATIVE_GOLDEN``. Where no library builds, the line
+    says so, with the build error, beside the write seconds and the Python
+    loader's rate. Returns the dataset, or None where no library built."""
+    import shutil
+
+    import numpy as np
+
+    from rep_yolo_tpu_torch.data import native_loader as NL
+    from rep_yolo_tpu_torch.data.datasets import (Loader,
+                                                  make_synthetic_dataset)
+
+    shutil.rmtree(FILES_ROOT, ignore_errors=True)
+    t0 = time.perf_counter()
+    ds = make_synthetic_dataset(FILES_N, SIZE, 1, 120, seed=0,
+                                root=FILES_ROOT)
+    write_s = time.perf_counter() - t0
+    nbytes = sum(pathlib.Path(f).stat().st_size for f in ds.img_files)
+    rates = {}
+    for epoch in range(2):                  # the first warms the cache
+        t0 = time.perf_counter()
+        n = sum(len(b["indices"])
+                for b in Loader(ds, TRAIN_BATCH).epoch(epoch))
+        rates["python"] = n / (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    built = NL.available()
+    build_s = time.perf_counter() - t0
+    head = {"phase": "loader_native", "images": FILES_N, "size": SIZE,
+            "write_s": write_s, "jpeg_mb": nbytes / 1e6,
+            "python_loader_img_s": rates["python"],
+            "cache": "warm page cache", "build_s": build_s,
+            "gxx_s": NL.build_seconds(),
+            "build_command": " ".join(NL.build_command(
+                NL.library_path()))}
+    if not built:
+        emit({**head, "ok": True, "ran": False,
+              "reason": "the native loader does not build on this machine",
+              "build_error": NL.build_error()})
+        return None
+    golden = "not checked: the golden holds 64 images at 640 px"
+    if (FILES_N, SIZE) == (64, 640):
+        ref = json.loads(NATIVE_GOLDEN.read_text())
+        got = canvas_hashes(ds, NL.load_one)
+        differ = sum(a != b for a, b in zip(got["jpeg_sha256"],
+                                            ref["jpeg_sha256"]))
+        if differ:
+            golden = (f"not checked: cv2 wrote other bytes for {differ} of "
+                      f"{FILES_N} JPEG files than the golden's")
+        elif got["canvas_sha256"] != ref["canvas_sha256"]:
+            raise AssertionError("native canvases differ from the golden's "
+                                 "on the golden's JPEG files")
+        else:
+            golden = "equal: the JPEG files and every canvas"
+    head.update(golden_canvases=golden)
+    orders = {}
+    for case, kw in (("shuffle", {}),
+                     ("shard0of2", dict(shard_index=0, num_shards=2)),
+                     ("shard1of2", dict(shard_index=1, num_shards=2)),
+                     ("image_weights", dict(weights=True))):
+        kw = dict(kw)
+        iw = np.arange(FILES_N, dtype=np.float64) % 5 \
+            if kw.pop("weights", False) else None
+        native = NL.NativeLoader(ds, TRAIN_BATCH, seed=0, n_threads=8, **kw)
+        ref = Loader(IndexOnly(FILES_N), TRAIN_BATCH, seed=0,
+                     drop_last=False, **kw)
+        try:
+            for epoch in range(3):
+                got = [b["indices"].tolist()
+                       for b in native.epoch(epoch, image_weights=iw)]
+                want = [b["indices"].tolist()
+                        for b in ref.epoch(epoch, image_weights=iw)]
+                if got != want:
+                    raise AssertionError(f"native order {case} epoch "
+                                         f"{epoch}: {got} != {want}")
+        finally:
+            native.close()
+        orders[case] = {"epochs": 3, "batches": len(want)}
+    tail_bs = 6
+    native = NL.NativeLoader(ds, tail_bs, seed=0, n_threads=8)
+    try:
+        tail = list(native.epoch(0))[-1]
+    finally:
+        native.close()
+    k = FILES_N % tail_bs
+    tail_ok = (tail["indices"][k:] == -1).all() and \
+        (tail["images"][k:] == 114).all() and (tail["hw"][k:] == 0).all() \
+        and not tail["mask"][k:].any() and (tail["indices"][:k] >= 0).all()
+    if not tail_ok:
+        raise AssertionError(f"the tail batch's padding: {tail['indices']}")
+    diffs = []
+    for i, f in enumerate(ds.img_files):
+        canvas, hw, _ = NL.load_one(f, SIZE)
+        ref, ref_hw, _ = ds.decode_canvas(i)
+        if not np.array_equal(hw, ref_hw):
+            raise AssertionError(f"{f}: native hw {hw}, cv2 {ref_hw}")
+        h, w = int(hw[0]), int(hw[1])
+        diffs.append(float(np.abs(canvas[:h, :w].astype(np.int16)
+                                  - ref[:h, :w].astype(np.int16)).mean()))
+    if max(diffs) >= NATIVE_CV2_MEAN_TOL:
+        raise AssertionError(f"native vs cv2 canvases: mean abs diff up "
+                             f"to {max(diffs)}")
+    rates = {}
+    for n_threads in FILES_THREADS:     # the page cache is warm by now
+        native = NL.NativeLoader(ds, TRAIN_BATCH, seed=0,
+                                 n_threads=n_threads)
+        try:
+            t0 = time.perf_counter()
+            n = sum(int((b["indices"] >= 0).sum())
+                    for b in native.epoch(0))
+            secs = time.perf_counter() - t0
+        finally:
+            native.close()
+        rates[str(n_threads)] = n / secs
+    emit({**head, "ok": True, "ran": True, "order_vs_loader": orders,
+          "tail": {"batch": tail_bs, "filled": k, "ok": True},
+          "native_vs_cv2_mean_abs": {"max": max(diffs),
+                                     "mean": statistics.mean(diffs),
+                                     "tolerance": NATIVE_CV2_MEAN_TOL},
+          "decode_img_s": rates})
+    return ds
+
+
+def phase_train_cli_files(torch, dev, ds, timeout=600):
+    """``python -m rep_yolo_tpu_torch.cli.train`` on phase
+    ``loader_native``'s YOLO directory, the flagship at 640 px, batch 8,
+    ``--native-loader --cache-images disk --image-weights --epochs 2
+    --eval-every 1``: exit 0, finite losses, the native loader's line,
+    ``labels.cache.npz`` written. Then in this process, on the same files
+    without the cache (``build_training`` as the CLI builds it, augmented):
+    an epoch's seconds with the native loader against the Python one (after
+    two steps to warm up), each step's host ms and its wait for the feed
+    thread, and the device's busy share over ``BUSY_STEPS`` native steps
+    under torch.profiler (device activity alone). Where the native loader did not
+    build (``ds`` None) the CLI runs on the Python loader and must say
+    why, and the timing is the Python loader's alone."""
+    import shutil
+
+    import numpy as np
+
+    from rep_yolo_tpu_torch.cli import train as cli
+    from rep_yolo_tpu_torch.data.datasets import Loader
+
+    native = ds is not None
+    shutil.rmtree(EVAL_RUNS / "files", ignore_errors=True)
+    cmd = [sys.executable, "-m", "rep_yolo_tpu_torch.cli.train",
+           "--cfg", CFG, "--data", str(FILES_ROOT), "--epochs", "2",
+           "--eval-every", "1", "--batch-size", str(TRAIN_BATCH),
+           "--img-size", str(SIZE), "--cache-images", "disk",
+           "--image-weights", "--project", str(EVAL_RUNS), "--name",
+           "files"] + (["--native-loader"] if native else [])
+    t = time.perf_counter()
+    p = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                       timeout=timeout)
+    secs = time.perf_counter() - t
+    out = p.stdout.splitlines()
+    lines = [json.loads(s) for s in out if s.startswith("{")]
+    steps = [r for r in lines if "total" in r]
+    want_line = ("loader: native (" if native
+                 else "loader: python (native loader unavailable: ")
+    cache = FILES_ROOT / "labels.cache.npz"
+    checks = {"loader_line": any(s.startswith(want_line) and (
+                  s.endswith(", cached)") or not native) for s in out),
+              "steps": len(steps) == 2 * FILES_N // TRAIN_BATCH,
+              "finite": bool(steps) and all(np.isfinite(
+                  [r[k] for k in ("box", "obj", "cls", "total")]).all()
+                  for r in steps),
+              "evals": sum("eval" in r for r in lines) == 2,
+              "labels_cache": cache.is_file(),
+              "disk_cache": (FILES_ROOT / "images" / f"00000.r{SIZE}.npy")
+              .is_file()}
+    if p.returncode != 0 or not all(checks.values()):
+        raise AssertionError(f"cli.train on files failed (exit "
+                             f"{p.returncode}): {checks}\n"
+                             f"{p.stdout[-3000:]}\n{p.stderr[-3000:]}")
+    epoch_lines = [s for s in out if s.startswith("epoch ")]
+    args = cli.parse_args(["--cfg", CFG, "--data", str(FILES_ROOT),
+                           "--batch-size", str(TRAIN_BATCH), "--img-size",
+                           str(SIZE), "--no-autoanchor", "--eval-every", "0",
+                           "--device", str(dev)]
+                          + ([] if native else ["--no-native-loader"]))
+    t = cli.build_training(args)
+    loaders = {"python": Loader(t.loader.ds, TRAIN_BATCH, seed=0)}
+    if native:
+        loaders = {"native": t.loader, **loaders}
+    # two steps warm the step up (cuDNN's choices, the allocator)
+    cli.train_epoch(t, itertools.islice(t.loader.epoch(0), 2), 0)
+    timed, epoch = {}, 1
+    for name, loader in loaders.items():
+        tl = t._replace(loader=loader)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        recs = cli.train_epoch(tl, loader.epoch(epoch), epoch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        epoch += 1
+        if not all(np.isfinite(r["total"]) for r in recs):
+            raise AssertionError(f"{name}: a loss is not finite")
+        timed[name] = {"epoch_s": wall, "steps": len(recs),
+                       "step_host_ms": [r["ms"] for r in recs],
+                       "step_host_ms_median": statistics.median(
+                           r["ms"] for r in recs),
+                       "wait_ms": [r["wait_ms"] for r in recs]}
+    first = next(iter(loaders))
+    # a window of BUSY_STEPS steps, device activity alone: the profiler's
+    # summary of a whole epoch with the host's took about a minute
+    wall, names, _, _ = profiled(torch, lambda: cli.train_epoch(
+        t, itertools.islice(t.loader.epoch(epoch), BUSY_STEPS), epoch), 1,
+        cpu=False)
+    dev_ms = sum(v for k, v in names.items() if k not in TRAIN_RANGES)
+    if hasattr(t.loader, "close"):
+        t.loader.close()
+    emit({"phase": "train_cli_files", "ok": True, "cmd": " ".join(cmd[1:]),
+          "exit": p.returncode, "seconds": secs, "checks": checks,
+          "epoch_lines": epoch_lines, "evals": [r for r in lines
+                                                if "eval" in r],
+          "steps": steps, "loader_line": t.loader_line,
+          "in_process": timed,
+          "epoch_s_python_over_native": timed["python"]["epoch_s"]
+          / timed["native"]["epoch_s"] if native else "no native loader",
+          "busy_share": {"loader": first, "steps": BUSY_STEPS,
+                         "profiled_wall_ms": wall,
+                         "device_ms": dev_ms if dev_ms > 0
+                         else "not measured",
+                         "device_busy_share": dev_ms / wall if dev_ms > 0
+                         else "not measured"}})
+
+
 def cold_event_ms(torch, fn, reps: int = 10, warmup: int = 3) -> float:
     """Device ms of one call of ``fn`` from a cold L2, by CUDA events around
     the call, each call after an ``l2_flush``; median of ``reps``. The host
@@ -3611,7 +3909,7 @@ def phase_profiler_after_training(torch, dev, reps: int = 10,
 
 EVAL_K = 8192            # evaluation's max_nms (train/evaluate.py)
 EVAL_BATCH = 8
-EVAL_TRAIN_N, EVAL_VAL_N, EVAL_EPOCHS = 64, 32, 3
+EVAL_TRAIN_N, EVAL_VAL_N, EVAL_EPOCHS = 64, 32, 2
 EVAL_RUNS = ROOT / "runs" / "chip_smoke"        # gitignored
 DW5_PER_FORWARD = 18     # the flagship's depthwise 5x5 calls per forward
 
@@ -3846,8 +4144,9 @@ def phase_eval_train_cli(torch, timeout=600):
 
 
 def phase_eval_modes(torch, dev, run):
-    """The trained ``best`` scored on the synthetic val set in the seven
-    modes of ``tools/eval_modes.py``, the counts zeroed before each
+    """The trained ``best`` scored on the synthetic val set (the JPEG files
+    phase 18's run wrote and scored) in the seven modes of
+    ``tools/eval_modes.py``, the counts zeroed before each
     evaluation and read after it: P, R, mAP@.5, mAP@.5:.95, host ms per
     image and kernel launches per forward. Returns {mode: launch counts}."""
     from rep_yolo_tpu_torch.data.datasets import make_synthetic_dataset
@@ -3855,7 +4154,9 @@ def phase_eval_modes(torch, dev, run):
     from rep_yolo_tpu_torch.train.checkpoint import read_weights
 
     ema = read_weights(run / "best")
-    val = make_synthetic_dataset(EVAL_VAL_N, SIZE, 1, 120, seed=1)
+    # the files cli.train wrote and scored (rewritten, byte for byte)
+    val = make_synthetic_dataset(EVAL_VAL_N, SIZE, 1, 120, seed=1,
+                                 root=run / "synthetic_val")
     fwd = -(-EVAL_VAL_N // EVAL_BATCH)
     ccva = len(ATTN_SHAPES)           # one criss-cross + one vertical each
     fused = {"axial_project": 2 * ccva, "axial_attend_criss_cross": ccva}
@@ -4243,6 +4544,7 @@ def main(argv=None) -> int:
         phase_train_augment(torch, dev, card, setting)
     phase_train_cli(torch, hyp="scratch.p5")
     phase_autoanchor_demo(torch, dev)
+    phase_train_cli_files(torch, dev, phase_loader_native(torch))
     run = phase_eval_train_cli(torch)
     with torch.inference_mode():
         counts_eval = phase_eval_modes(torch, dev, run)

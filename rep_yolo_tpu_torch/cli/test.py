@@ -68,12 +68,12 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def calibration_images(ds, img_size: int, dev) -> torch.Tensor:
-    """The first 8 images of ``ds``, letterboxed at ``img_size`` on
+def calibration_images(ds, img_size: int, dev, n: int = 8) -> torch.Tensor:
+    """The first ``n`` images of ``ds``, letterboxed at ``img_size`` on
     ``dev``: the batch the int8 modes calibrate on."""
     from rep_yolo_tpu_torch.data.letterbox import letterbox_batch
 
-    items = [ds.load_item(i) for i in range(min(8, len(ds)))]
+    items = [ds.load_item(i) for i in range(min(n, len(ds)))]
     cal, _, _ = letterbox_batch(
         torch.from_numpy(np.stack([it[0] for it in items])).to(dev),
         torch.from_numpy(np.stack([it[1] for it in items])).to(dev),
@@ -81,14 +81,15 @@ def calibration_images(ds, img_size: int, dev) -> torch.Tensor:
     return cal
 
 
-def calibrate_int8(model, ds, img_size: int, dw5_dense: bool = True):
-    """Calibrate on ``calibration_images`` and switch the fused model to
-    the int8 region (``ops.quant.enable_int8_fast_path``), as the JAX CLI
-    does for ``--fast int8``. Returns the scales."""
+def calibrate_int8(model, ds, img_size: int, dw5_dense: bool = True,
+                   n: int = 8):
+    """Calibrate on ``calibration_images`` (the first ``n``) and switch the
+    fused model to the int8 region (``ops.quant.enable_int8_fast_path``),
+    as the JAX CLI does for ``--fast int8``. Returns the scales."""
     from rep_yolo_tpu_torch.ops.quant import enable_int8_fast_path
 
     return enable_int8_fast_path(
-        model, calibration_images(ds, img_size, model.device),
+        model, calibration_images(ds, img_size, model.device, n),
         dw5_dense=dw5_dense)
 
 

@@ -1,28 +1,37 @@
 """Datasets and the epoch loader (port of ``rep_yolo_tpu/data/datasets.py``).
 
-- ``make_synthetic_dataset`` draws the JAX generator's numpy stream and holds
-  the images in memory (``InMemoryDataset``; the JAX package writes them as
-  JPEG files and decodes them again), so its labels for a seed equal the JAX
-  package's and its pixels do not. Its canvas resizes with ``F.interpolate``.
+- ``make_synthetic_dataset`` draws the JAX generator's numpy stream. With a
+  ``root`` it writes the JAX package's YOLO layout there (``images/NNNNN.jpg``
+  through ``cv2.imwrite``, ``labels/NNNNN.txt`` at ``%.6f``), byte for byte
+  as the JAX package writes it, and returns a ``DetectionDataset`` of those
+  files; without one it holds the images in memory (``InMemoryDataset``,
+  resized with ``F.interpolate``), so its labels equal the JAX package's and
+  its pixels skip the JPEG round trip.
 - ``DetectionDataset`` reads a YOLO-layout directory, a ``.txt`` list of
   images or a dataset YAML from disk (``from_path``), with the JAX package's
-  image discovery and label checks. Images decode with cv2, else PIL
-  (``read_image``). Its canvas resizes with ``cv2.resize`` and the JAX
-  package's flags (INTER_AREA below scale 1, INTER_LINEAR above) when cv2 is
-  importable, so its canvases equal the JAX ``_decode_canvas``'s; without
-  cv2 it takes the in-memory canvas's ``F.interpolate``, which differs from
-  cv2 by a few LSB where an image is resized. The on-disk label cache
-  (``load_labels_cached``, ``.cache`` files) is not ported yet: labels are
-  parsed at every ``from_path``.
+  image discovery, label checks and label cache (``load_labels_cached``: one
+  ``labels.cache.npz`` beside the directory, or ``<list>.cache.npz``, in the
+  JAX package's format and key, so each package reads the other's). Images
+  decode with cv2, else PIL (``read_image``). Its canvas resizes with
+  ``cv2.resize`` and the JAX package's flags (INTER_AREA below scale 1,
+  INTER_LINEAR above) when cv2 is importable, so its canvases equal the JAX
+  ``_decode_canvas``'s; without cv2 it takes the in-memory canvas's
+  ``F.interpolate``, which differs from cv2 by a few LSB where an image is
+  resized. ``cache_images("ram" | "disk")`` pre-decodes the canvases: in
+  memory, or as ``.r{S}.npy`` / ``.r{S}.hw.npy`` siblings of the images.
 
 Both make the aspect-kept canvas of ``_decode_canvas`` (longest side =
 ``img_size``, content top left, pad 114). ``Loader`` gives fixed-shape
-batches, shuffled or in order, with or without the last partial batch.
+batches in the JAX ``Loader``'s order: shuffled or in order, resampled by
+image weights, sliced to a shard, with or without the last partial batch;
+``epoch_quad`` is the JAX quad collate. ``data/native_loader.py`` gives the
+same epochs from C++ decode threads.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import os
 from pathlib import Path
 from typing import Callable, Iterator
@@ -116,12 +125,14 @@ class InMemoryDataset:
 
 
 def make_synthetic_dataset(n: int, img_size: int = 640, nc: int = 1,
-                           max_labels: int = 120,
-                           seed: int = 0) -> InMemoryDataset:
+                           max_labels: int = 120, seed: int = 0,
+                           root: str | Path | None = None):
     """Random boxes on noise, drawn as the JAX package's generator draws
-    them (same numpy stream, same labels)."""
+    them (same numpy stream, same labels). With ``root``, written there in
+    the JAX package's layout and returned as a ``DetectionDataset`` of the
+    files (labels as drawn, not re-read); else an ``InMemoryDataset``."""
     rng = np.random.default_rng(seed)
-    images, labels = [], []
+    images, drawn = [], []
     for _ in range(n):
         h = int(rng.integers(img_size // 2, img_size * 3 // 2))
         w = int(rng.integers(img_size // 2, img_size * 3 // 2))
@@ -139,8 +150,37 @@ def make_synthetic_dataset(n: int, img_size: int = 640, nc: int = 1,
                                       rng.integers(150, 255, 3))
             rows.append((c, xc, yc, bw, bh))
         images.append(img)
-        labels.append(np.asarray(rows, np.float32))
-    return InMemoryDataset(images, labels, img_size, max_labels, nc)
+        drawn.append(rows)
+    labels = [np.asarray(rows, np.float32) for rows in drawn]
+    if root is None:
+        return InMemoryDataset(images, labels, img_size, max_labels, nc)
+    files = write_yolo_dir(Path(root), images, drawn)
+    return DetectionDataset(img_files=files, labels=labels,
+                            img_size=img_size, max_labels=max_labels, nc=nc)
+
+
+def write_yolo_dir(root: Path, images: list[np.ndarray],
+                   rows: list[list[tuple]]) -> list[str]:
+    """``images/NNNNN.jpg`` (RGB uint8 through ``cv2.imwrite``, its default
+    quality 95) and ``labels/NNNNN.txt`` (each row ``(cls, x, y, w, h)`` of
+    Python numbers at ``%.6f``) under ``root``, as the JAX
+    ``make_synthetic_dataset`` writes them. Returns the image paths."""
+    try:
+        import cv2
+    except ImportError as e:
+        raise ImportError("writing the synthetic set as JPEG files needs "
+                          "cv2 (opencv-python), as in the JAX package") from e
+    (root / "images").mkdir(parents=True, exist_ok=True)
+    (root / "labels").mkdir(parents=True, exist_ok=True)
+    files = []
+    for i, (img, lab) in enumerate(zip(images, rows)):
+        fp = root / "images" / f"{i:05d}.jpg"
+        cv2.imwrite(str(fp), cv2.cvtColor(img, cv2.COLOR_RGB2BGR))
+        (root / "labels" / f"{i:05d}.txt").write_text(
+            "\n".join(f"{c} {x:.6f} {y:.6f} {bw:.6f} {bh:.6f}"
+                      for c, x, y, bw, bh in lab))
+        files.append(str(fp))
+    return files
 
 
 # ---------------------------------------------------------------------------
@@ -268,6 +308,61 @@ def load_label_file(path: str, nc: int) -> np.ndarray:
     return l
 
 
+def _cache_key(files: list[str], nc: int) -> str:
+    """md5 of ``nc``, the image paths and the sizes and mtimes of every
+    image and label file: any added, removed or edited file invalidates the
+    cache. ``nc`` is in the key because a hit skips ``load_label_file``'s
+    ``cls < nc`` check (the JAX package's key, byte for byte)."""
+    h = hashlib.md5()
+    h.update(f"nc={nc}".encode())
+    for f in files:
+        h.update(f.encode())
+        for p in (f, _img2label(f)):
+            try:
+                st = os.stat(p)
+                h.update(f"{st.st_size},{st.st_mtime_ns}".encode())
+            except OSError:
+                h.update(b"missing")
+    return h.hexdigest()
+
+
+def _cache_path_for(path: Path) -> Path:
+    return (path / "labels.cache.npz") if path.is_dir() \
+        else path.with_suffix(".cache.npz")
+
+
+def load_labels_cached(files: list[str], nc: int,
+                       cache_path: Path | None) -> list[np.ndarray]:
+    """Every label file parsed and checked, memoized in one ``.npz`` keyed
+    on ``_cache_key`` (``key``, ``counts`` (n,) int64 and ``data`` (sum,
+    5): the ragged labels end to end). A missing, stale or unreadable
+    cache is parsed anew and rewritten; a directory that cannot be written
+    leaves the labels uncached."""
+    key = _cache_key(files, nc)
+    if cache_path is not None and cache_path.exists():
+        try:
+            with np.load(cache_path, allow_pickle=False) as z:
+                if str(z["key"]) == key:
+                    counts = z["counts"]
+                    data = z["data"]
+                    offs = np.concatenate([[0], np.cumsum(counts)])
+                    return [data[offs[i]:offs[i + 1]]
+                            for i in range(len(counts))]
+        except Exception:
+            pass            # corrupt or stale: parse anew
+    labels = [load_label_file(_img2label(f), nc) for f in files]
+    if cache_path is not None:
+        try:
+            data = (np.concatenate(labels, axis=0) if labels
+                    else np.zeros((0, 5), np.float32))
+            np.savez(cache_path, key=key,
+                     counts=np.asarray([len(l) for l in labels], np.int64),
+                     data=data)
+        except OSError:
+            pass            # a read-only dataset: the cache is best effort
+    return labels
+
+
 def canvas_resize() -> Callable:
     """The file canvas's resize: ``cv2_resize`` when cv2 is importable,
     else ``torch_resize``."""
@@ -278,25 +373,31 @@ def canvas_resize() -> Callable:
         return torch_resize
 
 
+CACHE_MODES = ("ram", "disk")
+
+
 @dataclasses.dataclass
 class DetectionDataset:
     """Image files and their labels (n, 5) [cls, xc, yc, w, h], decoded
-    into fixed-shape canvases at ``load_item``."""
+    into fixed-shape canvases at ``load_item`` (or served from
+    ``cache_images``' canvases)."""
 
     img_files: list[str]
     labels: list[np.ndarray]
     img_size: int = 640
     max_labels: int = 120
     nc: int = 1
+    cache_mode: str | None = dataclasses.field(default=None, init=False)
 
     @classmethod
     def from_path(cls, path, img_size: int = 640, nc: int = 1,
-                  max_labels: int = 120,
-                  split: str = "val") -> "DetectionDataset":
+                  max_labels: int = 120, split: str = "val",
+                  cache: bool = True) -> "DetectionDataset":
         """A YOLO-layout directory (``images/`` beside ``labels/``), a
         ``.txt`` list of images, a list of either, or a dataset YAML (its
-        ``split`` paths and its ``nc``). Labels are parsed and checked on
-        every call (the JAX package's ``.cache`` file is not ported)."""
+        ``split`` paths and its ``nc``). With ``cache`` the labels go
+        through ``load_labels_cached`` at ``labels.cache.npz`` in the
+        (first) directory, or ``<list>.cache.npz`` beside a list."""
         if str(path).endswith((".yaml", ".yml")):
             spec = load_dataset_spec(path)
             nc = spec["nc"]
@@ -304,7 +405,9 @@ class DetectionDataset:
             if path is None:
                 raise ValueError(f"the dataset YAML has no {split!r} split")
         files = discover_images(path)
-        labels = [load_label_file(_img2label(f), nc) for f in files]
+        first = path[0] if isinstance(path, (list, tuple)) else path
+        labels = load_labels_cached(
+            files, nc, _cache_path_for(Path(first)) if cache else None)
         return cls(img_files=files, labels=labels, img_size=img_size,
                    max_labels=max_labels, nc=nc)
 
@@ -330,10 +433,52 @@ class DetectionDataset:
             self._shapes = np.asarray(shapes, np.float32)
         return self._shapes
 
-    def canvas(self, i: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
-        """-> (canvas (S, S, 3) uint8, hw (2,), orig (2,))."""
+    def cache_images(self, mode: str = "ram", workers: int = 8) -> None:
+        """Pre-decode every canvas (the reference's --cache-images): "ram"
+        holds them in memory (S * S * 3 bytes each), "disk" writes each
+        once as ``<image>.r{S}.npy`` with its (h, w, h0, w0) in
+        ``<image>.r{S}.hw.npy`` (files already there are kept), read back
+        at ``load_item``."""
+        if mode not in CACHE_MODES:
+            raise ValueError(f"cache mode {mode!r}: one of {CACHE_MODES}")
+        from concurrent.futures import ThreadPoolExecutor
+
+        if mode == "ram":
+            with ThreadPoolExecutor(workers) as ex:
+                self._ram = list(ex.map(self.decode_canvas,
+                                        range(len(self))))
+        else:
+            def write(i):
+                p = self._npy_path(i)
+                if not p.exists():
+                    canvas, hw, orig = self.decode_canvas(i)
+                    np.save(p, canvas)
+                    np.save(str(p)[:-4] + ".hw.npy",
+                            np.concatenate([hw, orig]))
+            with ThreadPoolExecutor(workers) as ex:
+                list(ex.map(write, range(len(self))))
+        self.cache_mode = mode
+
+    def _npy_path(self, i: int) -> Path:
+        return Path(self.img_files[i]).with_suffix(f".r{self.img_size}.npy")
+
+    def decode_canvas(self, i: int) -> tuple[np.ndarray, np.ndarray,
+                                             np.ndarray]:
+        """Image ``i`` decoded and resized: (canvas (S, S, 3) uint8, hw
+        (2,), orig (2,))."""
         return make_canvas(read_rgb(self.img_files[i]), self.img_size,
                            canvas_resize())
+
+    def canvas(self, i: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """-> (canvas (S, S, 3) uint8, hw (2,), orig (2,)), from the cache
+        where ``cache_images`` filled one."""
+        if self.cache_mode == "ram":
+            return self._ram[i]
+        if self.cache_mode == "disk":
+            p = self._npy_path(i)
+            hw_orig = np.load(str(p)[:-4] + ".hw.npy")
+            return np.load(p), hw_orig[:2], hw_orig[2:]
+        return self.decode_canvas(i)
 
     def load_item(self, i: int):
         """-> (canvas, hw (2,), labels (M, 5), mask (M,), orig (2,))."""
@@ -344,30 +489,110 @@ class DetectionDataset:
 # batches
 # ---------------------------------------------------------------------------
 
+def epoch_order(n: int, seed: int, epoch: int, shuffle: bool = True,
+                image_weights: "np.ndarray | None" = None,
+                shard_index: int = 0, num_shards: int = 1) -> np.ndarray:
+    """An epoch's image indices, with the JAX ``Loader``'s numpy calls: with
+    ``image_weights``, ``n`` draws with replacement from
+    ``default_rng(seed + epoch)`` by the normalized weights (weights that
+    sum to 0 become uniform); else ``arange(n)``, shuffled by
+    ``default_rng(seed + epoch)`` with ``shuffle``; then every
+    ``num_shards``-th from ``shard_index``."""
+    if image_weights is not None:
+        w = np.asarray(image_weights, np.float64)
+        if w.sum() <= 0:
+            w = np.ones_like(w)
+        w = w / w.sum()
+        idx = np.random.default_rng(seed + epoch).choice(
+            n, size=n, replace=True, p=w)
+    else:
+        idx = np.arange(n)
+        if shuffle:
+            np.random.default_rng(seed + epoch).shuffle(idx)
+    return idx[shard_index::num_shards]
+
+
 class Loader:
-    """Epochs of fixed-shape numpy batches, in the JAX ``Loader``'s order:
-    with ``shuffle`` the indices are ``default_rng(seed + epoch).shuffle``d,
-    and with ``drop_last`` the last partial batch is dropped."""
+    """Epochs of fixed-shape numpy batches in the JAX ``Loader``'s order
+    (``epoch_order``); with ``drop_last`` the last partial batch is
+    dropped. ``shard_index`` / ``num_shards`` give one process its slice of
+    every epoch."""
 
     def __init__(self, ds, batch_size: int, shuffle: bool = True,
-                 seed: int = 0, drop_last: bool = True):
+                 seed: int = 0, drop_last: bool = True,
+                 shard_index: int = 0, num_shards: int = 1):
         self.ds = ds
         self.bs = batch_size
         self.shuffle = shuffle
         self.seed = seed
         self.drop_last = drop_last
+        self.shard_index = shard_index
+        self.num_shards = num_shards
 
     def __len__(self) -> int:
-        n = len(self.ds)
+        n = len(self.ds) // self.num_shards
         return n // self.bs if self.drop_last else -(-n // self.bs)
 
-    def epoch(self, epoch: int = 0) -> Iterator[dict]:
-        idx = np.arange(len(self.ds))
-        if self.shuffle:
-            np.random.default_rng(self.seed + epoch).shuffle(idx)
-        for b in range(len(self)):
+    def epoch(self, epoch: int = 0,
+              image_weights: "np.ndarray | None" = None) -> Iterator[dict]:
+        idx = epoch_order(len(self.ds), self.seed, epoch, self.shuffle,
+                          image_weights, self.shard_index, self.num_shards)
+        nb = len(idx) // self.bs if self.drop_last \
+            else -(-len(idx) // self.bs)
+        for b in range(nb):
             sel = idx[b * self.bs:(b + 1) * self.bs]
             yield collate([self.ds.load_item(i) for i in sel], sel)
+
+    def epoch_quad(self, epoch: int = 0) -> Iterator[dict]:
+        """The quad collate (reference collate_fn4): every 4 items become
+        one 2S x 2S image, the first item upscaled 2x (nearest) with
+        probability 0.5 (and always for a partial group of the tail) or the
+        four stitched in a 2 x 2 grid, their labels renormalized to the
+        quad canvas; ``batch_size // 4`` images a batch, the draws from
+        ``default_rng(seed + 1000 + epoch)``, as in the JAX package."""
+        if self.bs % 4:
+            raise ValueError("the quad collate needs batch_size % 4 == 0")
+        rng = np.random.default_rng(self.seed + 1000 + epoch)
+        S = self.ds.img_size
+        for batch in self.epoch(epoch):
+            imgs, hw = batch["images"], batch["hw"]
+            labels, mask = batch["labels"], batch["mask"]
+            B, M = mask.shape
+            out_i, out_hw, out_l, out_m = [], [], [], []
+            for g in range(0, B, 4):
+                canvas = np.full((2 * S, 2 * S, 3), PAD_VALUE, imgs.dtype)
+                lab = np.zeros((4 * M, 5), np.float32)
+                msk = np.zeros((4 * M,), bool)
+                if rng.random() < 0.5 or g + 4 > B:
+                    h, w = int(hw[g][0]), int(hw[g][1])
+                    canvas[: 2 * h, : 2 * w] = np.repeat(np.repeat(
+                        imgs[g][:h, :w], 2, 0), 2, 1)
+                    lab[:M] = labels[g]
+                    msk[:M] = mask[g]
+                    out_hw.append([2 * h, 2 * w])
+                else:
+                    for j, (oy, ox) in enumerate(((0, 0), (0, S), (S, 0),
+                                                  (S, S))):
+                        k = g + j
+                        h, w = int(hw[k][0]), int(hw[k][1])
+                        canvas[oy:oy + h, ox:ox + w] = imgs[k][:h, :w]
+                        # content-normalized -> the 2S square's
+                        ll = labels[k].copy()
+                        ll[:, 1] = (labels[k][:, 1] * w + ox) / (2 * S)
+                        ll[:, 2] = (labels[k][:, 2] * h + oy) / (2 * S)
+                        ll[:, 3] = labels[k][:, 3] * w / (2 * S)
+                        ll[:, 4] = labels[k][:, 4] * h / (2 * S)
+                        lab[j * M:(j + 1) * M] = ll
+                        msk[j * M:(j + 1) * M] = mask[k]
+                    out_hw.append([2 * S, 2 * S])
+                out_i.append(canvas)
+                out_l.append(lab)
+                out_m.append(msk)
+            yield dict(images=np.stack(out_i),
+                       hw=np.asarray(out_hw, np.float32),
+                       labels=np.stack(out_l), mask=np.stack(out_m),
+                       orig_shapes=np.asarray(out_hw, np.float32),
+                       indices=batch["indices"][::4])
 
 
 def collate(items: list, indices) -> dict:

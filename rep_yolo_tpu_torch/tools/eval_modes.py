@@ -6,7 +6,10 @@
 The checkpoint's weights (a ``TrainState``'s EMA weights, or a variables
 tree: ``train.checkpoint.read_weights``) are loaded into the cfg's model
 (its anchors: a checkpoint carries none) and scored by
-``train/evaluate.py`` on the validation set in each mode:
+``train/evaluate.py`` on the validation set in each mode. ``--val-data
+synthetic[:N]`` is written, as ``cli.train`` writes its own, into
+``synthetic_val`` beside the checkpoint and read from there: a run's
+``best`` is scored on the files its run scored.
 
 - ``fused_f32``: the fused deploy model in float32 (K1 / K2, K3);
 - ``unfused_row3``: the train-form model in ``eval()`` (K2 on row 3);
@@ -28,6 +31,7 @@ from __future__ import annotations
 import argparse
 import json
 import time
+from pathlib import Path
 
 import torch
 
@@ -43,8 +47,8 @@ def parse_args(argv=None):
     p.add_argument("--cfg", default="cfg/rep_yolo.yaml")
     p.add_argument("--val-data", default="synthetic:128",
                    help="'synthetic[:N]' (the generator at seed + 1, as "
-                        "cli.train's), a YOLO-layout dir, a .txt list or a "
-                        "dataset YAML")
+                        "cli.train's, written beside the checkpoint), a "
+                        "YOLO-layout dir, a .txt list or a dataset YAML")
     p.add_argument("--img-size", type=int, default=640)
     p.add_argument("--batch-size", type=int, default=8)
     p.add_argument("--nc", type=int, default=1)
@@ -56,8 +60,11 @@ def parse_args(argv=None):
 
 
 def mode_model(weights: dict, cfg: str, mode: str, val, img_size: int,
-               dev: torch.device, nc: int = 1):
-    """The model of one mode on ``weights`` (a port state dict)."""
+               dev: torch.device, nc: int = 1, calib=None,
+               calib_n: int = 8):
+    """The model of one mode on ``weights`` (a port state dict); the int8
+    modes calibrate on the first ``calib_n`` images of ``calib`` (default
+    ``val``)."""
     from rep_yolo_tpu_torch.cli.test import (calibrate_int8,
                                              calibration_images)
     from rep_yolo_tpu_torch.models.model import RepYOLO
@@ -65,6 +72,7 @@ def mode_model(weights: dict, cfg: str, mode: str, val, img_size: int,
 
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}; the modes: {MODES}")
+    cal = val if calib is None else calib
     model = RepYOLO.from_config(cfg, nc=nc, device=dev).load_state(weights)
     if mode == "unfused_row3":
         return model
@@ -74,18 +82,22 @@ def mode_model(weights: dict, cfg: str, mode: str, val, img_size: int,
     if mode == "bf16_der_fast":
         model.net.set_der_fast("bf16")
     elif mode.startswith("int8"):
-        calibrate_int8(model, val, img_size, dw5_dense=mode == "int8_k7")
+        calibrate_int8(model, cal, img_size, dw5_dense=mode == "int8_k7",
+                       n=calib_n)
     elif mode == "xla_q8":
-        scales = calibrate(model, [calibration_images(val, img_size, dev)])
+        scales = calibrate(model, [calibration_images(cal, img_size, dev,
+                                                      calib_n)])
         model.net.set_der_fast("xla_q8", scales=scales)
     return model
 
 
 def score_modes(weights: dict, val, cfg: str, img_size: int,
-                batch_size: int, dev: torch.device,
-                nc: int = 1) -> dict[str, dict]:
+                batch_size: int, dev: torch.device, nc: int = 1,
+                modes=MODES, calib=None,
+                calib_n: int = 8) -> dict[str, dict]:
     """{mode: {P, R, map50, map, fitness, ms_per_img, seconds, launches,
-    launches_per_forward}} of ``weights`` on ``val``, for every mode."""
+    launches_per_forward}} of ``weights`` on ``val``, for each of
+    ``modes``; ``calib`` / ``calib_n`` as ``mode_model``'s."""
     from rep_yolo_tpu_torch.ops.kernels import (launch_counts,
                                                 reset_launch_counts)
     from rep_yolo_tpu_torch.train.evaluate import evaluate
@@ -93,8 +105,9 @@ def score_modes(weights: dict, val, cfg: str, img_size: int,
     sync = torch.cuda.synchronize if dev.type == "cuda" else lambda: None
     fwd = -(-len(val) // batch_size)
     rows = {}
-    for mode in MODES:
-        model = mode_model(weights, cfg, mode, val, img_size, dev, nc)
+    for mode in modes:
+        model = mode_model(weights, cfg, mode, val, img_size, dev, nc,
+                           calib, calib_n)
         sync()
         reset_launch_counts()
         t = time.perf_counter()
@@ -134,7 +147,7 @@ def main(argv=None) -> dict[str, dict]:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cudnn.deterministic = True
-    val = build_val_set(args)
+    val = build_val_set(args, root=Path(args.weights).parent)
     print(json.dumps({"weights": args.weights, "val": args.val_data,
                       "images": len(val), "batch": args.batch_size,
                       "img_size": args.img_size, "device": str(dev),

@@ -15,6 +15,7 @@ drawn box, the steps, the seconds and ``ok``: IoU >= 0.8 and confidence >=
 0.5 (the exit code is 1 if not). Runs on the card unless ``--device cpu``.
 
 Usage: python -m rep_yolo_tpu_torch.tools.overfit_check [--steps 2000]
+    [--seed 0]   (the model's init seed; the JAX tool's is 0)
 """
 
 from __future__ import annotations
@@ -57,8 +58,9 @@ def box_iou(a, b) -> float:
     return float(inter / (area(a) + area(b) - inter))
 
 
-def run(steps: int = STEPS, device=None, log=print) -> dict:
-    """Train ``steps`` steps, then detect; returns the JSON line's dict."""
+def run(steps: int = STEPS, device=None, log=print, seed: int = 0) -> dict:
+    """Train ``steps`` steps from the init of ``seed``, then detect;
+    returns the JSON line's dict."""
     from rep_yolo_tpu_torch.device import resolve_device
     from rep_yolo_tpu_torch.models.model import RepYOLO
     from rep_yolo_tpu_torch.ops.nms import (detections_to_numpy,
@@ -70,7 +72,7 @@ def run(steps: int = STEPS, device=None, log=print) -> dict:
 
     dev = resolve_device(device)
     model = RepYOLO.from_config(TINY, nc=1, device=dev)
-    model.init(torch.Generator().manual_seed(0))
+    model.init(torch.Generator().manual_seed(seed))
     opt_cfg = optim_lib.OptimConfig(lr0=0.01, epochs=steps, nb=1)
     step = make_train_step(model, LossConfig(nc=1), opt_cfg, S,
                            loss_mode="ota")
@@ -97,17 +99,20 @@ def run(steps: int = STEPS, device=None, log=print) -> dict:
     return {"box": None if top is None else [float(v) for v in top[:4]],
             "conf": conf, "iou": iou, "expected_box": list(BOX),
             "detections": len(det), "first_loss": first, "last_loss": last,
-            "steps": steps, "seconds": secs, "device": str(dev),
+            "steps": steps, "seed": seed, "seconds": secs,
+            "device": str(dev),
             "ok": iou >= MIN_IOU and conf >= MIN_CONF}
 
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser("rep-yolo-tpu-torch overfit_check")
     p.add_argument("--steps", type=int, default=STEPS)
+    p.add_argument("--seed", type=int, default=0,
+                   help="the model's init seed")
     p.add_argument("--device", default=None,
                    help="torch device (default: the card)")
     args = p.parse_args(argv)
-    out = run(args.steps, args.device)
+    out = run(args.steps, args.device, seed=args.seed)
     print(json.dumps(out), flush=True)
     return 0 if out["ok"] else 1
 

@@ -1,8 +1,9 @@
 """The port's tools on the CPU: ``tools/overfit_check.py`` (the batch, the
 IoU, the run's plumbing at a few steps; the full 2000-step run is slow) and
 ``tools/eval_modes.py`` (every mode's model and score against the same
-model built and evaluated directly, the gaps, the CLI's lines). Neither
-tool falls back to the CPU when no card is present."""
+model built and evaluated directly, the gaps, the CLI's lines) and
+``tools/calib_triage.py`` (its grid's cells against the int8 modes scored
+directly). No tool falls back to the CPU when no card is present."""
 
 import json
 import pathlib
@@ -15,6 +16,7 @@ from rep_yolo_tpu_torch.cli.test import calibrate_int8, calibration_images
 from rep_yolo_tpu_torch.data.datasets import make_synthetic_dataset
 from rep_yolo_tpu_torch.models.model import RepYOLO
 from rep_yolo_tpu_torch.ops.quant import calibrate
+from rep_yolo_tpu_torch.tools import calib_triage as CT
 from rep_yolo_tpu_torch.tools import eval_modes as EM
 from rep_yolo_tpu_torch.tools import overfit_check as OC
 from rep_yolo_tpu_torch.train.checkpoint import read_weights, save_checkpoint
@@ -59,9 +61,14 @@ def test_overfit_check_plumbing(capsys):
     rc = OC.main(["--steps", "3", "--device", "cpu"])
     out = json.loads(capsys.readouterr().out.splitlines()[-1])
     assert out["steps"] == 3 and out["device"] == "cpu"
+    assert out["seed"] == 0
     assert np.isfinite([out["first_loss"], out["last_loss"]]).all()
     assert out["ok"] == (out["iou"] >= 0.8 and out["conf"] >= 0.5)
     assert rc == (0 if out["ok"] else 1)
+    # another init seed: another model, so another first loss
+    OC.main(["--steps", "1", "--seed", "5", "--device", "cpu"])
+    other = json.loads(capsys.readouterr().out.splitlines()[-1])
+    assert other["seed"] == 5 and other["first_loss"] != out["first_loss"]
 
 
 @pytest.mark.slow
@@ -122,7 +129,9 @@ def test_eval_modes_scores_every_mode(checkpoint, capsys):
     gaps = lines[-1]["gaps_to_fused_f32"]
     assert list(gaps) == list(EM.MODES[1:])
     weights = read_weights(checkpoint)
-    val = make_synthetic_dataset(4, 64, 1, 120, seed=1)
+    # the JPEG files eval_modes wrote beside the checkpoint and scored
+    val = make_synthetic_dataset(4, 64, 1, 120, seed=1,
+                                 root=checkpoint.parent / "synthetic_val")
     with torch.inference_mode():
         for mode in EM.MODES:
             res = evaluate(_direct(weights, mode, val), val, batch_size=2,
@@ -138,3 +147,43 @@ def test_eval_modes_scores_every_mode(checkpoint, capsys):
                rows["fused_f32"]["map50"]) < 1e-3
     with pytest.raises(ValueError, match="unknown mode"):
         EM.mode_model(weights, TINY, "int4", val, 64, torch.device("cpu"))
+
+
+def test_calib_triage_grid(checkpoint, capsys):
+    """Every cell of the grid once, in order; each cell's int8 scores are
+    those of the mode calibrated on that set's first images and scored on
+    the other, built and evaluated directly; its float32 base is the
+    scored set's."""
+    rows = CT.main(["--weights", str(checkpoint), "--cfg", TINY,
+                    "--val-data", "synthetic:3", "--img-size", "64",
+                    "--batch-size", "2", "--device", "cpu"])
+    lines = [json.loads(s) for s in capsys.readouterr().out.splitlines()]
+    assert lines == json.loads(json.dumps(rows))
+    assert [(r["scored"], r["calibrated_on"], r["calib_images"])
+            for r in rows] == [(a, b, k) for a in CT.SETS for b in CT.SETS
+                               for k in CT.CALIB_COUNTS]
+    weights = read_weights(checkpoint)
+    sets = {"files": make_synthetic_dataset(
+        3, 64, 1, 120, seed=1, root=checkpoint.parent / "synthetic_val"),
+        "memory": make_synthetic_dataset(3, 64, 1, 120, seed=1)}
+    assert not np.array_equal(sets["files"].load_item(0)[0],
+                              sets["memory"].load_item(0)[0])
+    with torch.inference_mode():
+        for r in rows[1:3]:             # files scored, memory calibrated
+            val, cal = sets[r["scored"]], sets[r["calibrated_on"]]
+            for mode in CT.INT8_MODES:
+                m = EM.mode_model(weights, TINY, mode, val, 64,
+                                  torch.device("cpu"), calib=cal,
+                                  calib_n=r["calib_images"])
+                res = evaluate(m, val, batch_size=2, img_size=64)
+                got = r["modes"][mode]
+                assert (got["P"], got["R"], got["map50"], got["map"]) == (
+                    res.mp, res.mr, res.map50, res.map), (r, mode)
+                assert r["gaps_to_fused_f32"][mode]["map"] == \
+                    got["map"] - r["modes"]["fused_f32"]["map"]
+        res = evaluate(EM.mode_model(weights, TINY, "fused_f32",
+                                     sets["memory"], 64, torch.device("cpu")),
+                       sets["memory"], batch_size=2, img_size=64)
+        assert rows[-1]["modes"]["fused_f32"]["map"] == res.map
+    with pytest.raises(ValueError, match="synthetic"):
+        CT.main(["--weights", str(checkpoint), "--val-data", "data.yaml"])

@@ -580,11 +580,10 @@ def test_identity_batch_matches_jax():
     np.testing.assert_allclose(lab_t.numpy(), np.asarray(lab_j), rtol=1e-7)
 
 
-@pytest.mark.parametrize("flags", [["--cache-images", "ram"], ["--bf16"],
+@pytest.mark.parametrize("flags", [["--remat"], ["--bf16"],
                                    ["--multi-scale"], ["--aux"],
                                    ["--wandb", "p"], ["--evolve", "2"],
-                                   ["--multihost"],
-                                   ["--data", "runs/yolo_dir"],
+                                   ["--multihost"], ["--rbg"],
                                    ["--devices", "2"]])
 def test_cli_refuses_unported_paths(flags):
     args = cli.parse_args(["--data", "synthetic:4", "--no-augment",
