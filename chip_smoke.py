@@ -91,8 +91,10 @@ and for the int8 path:
      csrc/launch_floor.cu, at the call's grid, block and shared memory, and
      at the previous design's); the earlier designs' ms, readings of
      earlier runs, stand in the phase line only, not in the kernels line
-  8. served_ab: one served batch of 4, the four engines in turns (the
-     three above and the bfloat16 one of 5d)
+  8. served_ab: one served batch of 4, the five engines in turns (the
+     three above, the bfloat16 one of 5d and xla_q8 of 5e); the host us a
+     call of K1-K3 through their rep_yolo_torch:: custom ops against the
+     same launches called directly, and what that adds to a forward
 
 and for bfloat16 serving (the JAX bench.py's mode, with the DER blocks'
 "bf16" fast path; golden weights fused, then cast, the attention islands in
@@ -176,9 +178,9 @@ as cli.train runs:
      device ms by category and busy share under torch.profiler, peak memory
   12. train_overfit: 20 steps on one batch, warmup off, cuDNN held to
      deterministic algorithms: the loss falls
-  13. train_cli: python -m rep_yolo_tpu_torch.cli.train --data synthetic:16
-     --epochs 1 (batch 8, 640 px, no augment, no autoanchor, no eval) exits
-     0 with finite step lines
+  13. train_cli: rep_yolo_tpu_torch.cli.train's main (in process) --data
+     synthetic:16 --epochs 1 (batch 8, 640 px, no augment, no autoanchor,
+     no eval) returns with finite step lines
   13a. train_augment, twice (AUG_SETTINGS: scratch.p5 as shipped, mosaic-9
      0.2, paste-in 0.15; then mosaic-9 0.5, paste-in 0.5, cutout 0.3):
      augmentation (data/augment.py) on one batch from one CPU generator's
@@ -191,7 +193,7 @@ as cli.train runs:
      ms of the step and of its train/augment range, the augmentation's
      launches, with the card's name and power limit
   13b. train_cli_augment: the train CLI of 13 with --hyp scratch.p5 as
-     shipped, augmentation and autoanchor on, exits 0 with finite step
+     shipped, augmentation and autoanchor on, returns with finite step
      lines, prints the autoanchor line and writes anchors.json
   13c. autoanchor_demo: check_anchors on the JAX demo run's set
      (synthetic:768 at 640 px, seed 0, thr 4.0) reproduces
@@ -213,7 +215,7 @@ as cli.train runs:
      line says so with the build error, and 13e runs on the Python loader
      and must print why
   13e. train_cli_files: the train CLI on that directory, --native-loader
-     --cache-images disk --image-weights --epochs 2 --eval-every 1: exit 0,
+     --cache-images disk --image-weights --epochs 1 --eval-every 1: exit 0,
      finite losses, the native loader's line, labels.cache.npz written;
      then in this process an epoch's seconds with the native loader
      against the Python one, the steps' host ms and feed waits, and the
@@ -239,8 +241,9 @@ after it):
      forward; K2 on the row-3 route at the six CCVA shapes at batch 8,
      summed per forward; K3 at K = 8192, batch 8, beside the plain matrix
      version
-  18. eval_train_cli (after training): python -m rep_yolo_tpu_torch.cli.train
-     --data synthetic:64 --val-data synthetic:32 --epochs 3 --eval-every 1
+  18. eval_train_cli (after training): rep_yolo_tpu_torch.cli.train's main
+     (in process) --data synthetic:32 --val-data synthetic:8 --epochs 1
+     --eval-every 1
      (640 px, batch 8, no augment, no autoanchor): exit 0, an eval line every
      epoch with 6 + 6 K2 launches per forward on the row-3 route and no K1,
      one K3 per batch; best and last written
@@ -250,9 +253,10 @@ after it):
      with K12, and xla_q8 (the int8 modes calibrated on the first 8
      images): P, R, mAP@.5, mAP@.5:.95, host ms per image, launches per
      forward, the gaps to float32 and K12 - K7
-  20. test_cli: python -m rep_yolo_tpu_torch.cli.test --weights best on the
-     val images written as PNG files, --rect --fast int8, then with
-     --dw5-exact (K12): exit 0, and mAP within 1e-6 of a direct evaluate on
+  20. test_cli: rep_yolo_tpu_torch.cli.test's main (in process) --weights
+     best on the val images written as PNG files, --rect --fast int8, then
+     with --dw5-exact (K12): it returns, and mAP within 1e-6 of a direct
+     evaluate (one model loaded for both) on
      DetectionDataset.from_path of that directory with the same flags (no
      image decoder on the machine: says so and runs nothing)
   21. serving_ckpt: serve --ckpt of that best (parsed as the CLI parses it),
@@ -260,9 +264,27 @@ after it):
      loaded through read_checkpoint (float32 1e-4 max|ref|; bfloat16 2e-2
      and corr > 0.999 against the cast model on cuDNN), 24 K10 / 28 K11
      launches per der_fast forward, one served call each
+  21a. detect_cli: cli.detect's main (in process) on that best, 640 px, on
+     a directory of 4 synthetic JPEGs of different sizes and a 10-frame
+     mp4v clip, plain, --augment and --fast int8, each --save-txt: every
+     image, video and label file written; every label line within 1e-3 px
+     and 5e-5 in conf of the same frames through letterbox_batch, predict
+     (predict_tta) and NMS in this process; per run 12 K1, 6 + 6 K2 a
+     forward (3 forwards a frame with --augment) and one K3 a frame, and
+     K4-K8 under --fast int8
+  21b. hub_client: hub.load(ckpt=best) -> AutoShape on those images as
+     paths, an array and a grey image (boxes inside each frame, K1-K3
+     launched); serve.make_server on best's float engine, client.main
+     --mode image (its rows equal a direct Engine call's, de-letterboxed;
+     K1-K3 launched), client.infer (equal to the Engine call), --mode dummy
+  21c. export: cli.export's main --include-nms of best (its seconds), the
+     .pt2 loaded by torch.export.load and run on 4 letterboxed images: the
+     graph's rep_yolo_torch:: ops (K1, K2, K3), detections equal to the
+     live model's predict + NMS (same valid slots, boxes 1e-3 px, scores
+     1e-5), K1-K3 launched by the loaded program
   22. train_resume: python -m rep_yolo_tpu_torch.cli.train --resume of
-     phase 18's last, --epochs 4: it continues at epoch 3 in the same run
-     directory, its first step is 3 * 8 + 1, results.txt has 4 epoch lines
+     phase 18's last, --epochs 2: it continues at epoch 1 in the same run
+     directory, its first step is 1 * 4 + 1, results.txt has 2 epoch lines
      and metrics.csv its 2 new rows, init.npz is there from the first run,
      and the generator states it restored are the ones last.json saved
   23. overfit_box: python -m rep_yolo_tpu_torch.tools.overfit_check: the
@@ -1968,15 +1990,67 @@ def phase_kernels_neck(torch, engine, x, errs):
     return calls
 
 
+def dispatch_us(torch, dev, n: int = 200) -> dict:
+    """Host us a call of K1, K2 (both modes) and K3 through their
+    ``rep_yolo_torch::`` custom ops against the same launches called
+    directly (``launch_project`` / ``launch_attend`` / ``launch_nms_keep``),
+    at served shapes (the first CCVA map of 640 px, batch 4; NMS at K =
+    1024, batch 4): the enqueue time of n back-to-back calls (the device
+    catches up after the clock stops), in turns direct, op, op, direct;
+    then what the ops add to a served forward (ATTN_PER_FORWARD calls and
+    one NMS)."""
+    from rep_yolo_tpu_torch.ops.kernels import axial_attention as KA
+    from rep_yolo_tpu_torch.ops.kernels import nms as KN
+
+    x, wqk, pq, pv, gamma = attention_inputs(64, 80, 80, 4, 5, 0.7, dev)
+    q, k, v = KA.launch_project(x, wqk, pq, pv)
+    _, boxes, valid, thr = next(c for c in nms_cases(dev, ks=(1024,),
+                                                     batch=4, ragged=()))
+    calls = {
+        "axial_project": (lambda: KA.launch_project(x, wqk, pq, pv),
+                          lambda: KA.project(x, wqk, pq, pv)),
+        "axial_attend_criss_cross": (
+            lambda: KA.launch_attend(q, k, v, x, gamma, True),
+            lambda: KA.attend(q, k, v, x, gamma, True)),
+        "axial_attend_vertical": (
+            lambda: KA.launch_attend(q, k, v, x, gamma, False),
+            lambda: KA.attend(q, k, v, x, gamma, False)),
+        "nms_keep": (lambda: KN.launch_nms_keep(boxes, valid, thr),
+                     lambda: KN.nms_keep(boxes, valid, thr))}
+
+    def enqueue_us(fn):
+        for _ in range(10):
+            fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(n):
+            fn()
+        us = (time.perf_counter() - t) / n * 1e6
+        torch.cuda.synchronize()
+        return us
+
+    out = {}
+    for name, (direct, op) in calls.items():
+        d1, o1, o2, d2 = (enqueue_us(f) for f in (direct, op, op, direct))
+        out[name] = {"direct_us": [d1, d2], "op_us": [o1, o2],
+                     "added_us": (o1 + o2 - d1 - d2) / 2}
+    per_fwd = {**ATTN_PER_FORWARD, "nms_keep": 1}
+    out["added_ms_per_forward"] = sum(
+        out[k]["added_us"] * n for k, n in per_fwd.items()) / 1e3
+    return out
+
+
 def phase_served_ab(torch, engines, batch):
     """One served batch of 4 for each engine, in turns (each, then the
-    same in reverse): host ms median of 10 after 3 warm-ups."""
+    same in reverse): host ms median of 10 after 3 warm-ups; and the host
+    cost of the custom ops K1-K3 go through (``dispatch_us``)."""
     modes = list(engines)
     out = {m: [] for m in modes}
     for m in modes + modes[::-1]:
         out[m].append(served_ms(torch, engines[m], batch))
+    dispatch = dispatch_us(torch, next(iter(engines.values())).device)
     emit({"phase": "served_ab", "ok": True, "turns": modes + modes[::-1],
-          "served_batch4_host_ms": out})
+          "served_batch4_host_ms": out, "custom_op_dispatch": dispatch})
     return out
 
 
@@ -3239,31 +3313,45 @@ def phase_train_overfit(torch, dev, size=SIZE, cfg=CFG, batch=TRAIN_BATCH,
           "cudnn_deterministic": True, "total": totals})
 
 
-def phase_train_cli(torch, timeout=900, hyp=None):
-    """``python -m rep_yolo_tpu_torch.cli.train`` as a user runs it:
-    ``--no-augment --no-autoanchor``, or with augmentation and autoanchor on
-    and ``--hyp hyp`` (a preset name or a YAML), which must print the
-    autoanchor line and write ``anchors.json`` into its run directory."""
+def run_cli_train(argv) -> tuple[float, str]:
+    """``rep_yolo_tpu_torch.cli.train``'s ``main(argv)`` in this process
+    (the command line a user runs, without a process start to pay): its
+    seconds and its standard output. A failure raises."""
+    import contextlib
+    import io
+
+    from rep_yolo_tpu_torch.cli import train as cli
+
+    log = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        cli.main(argv)
+    return time.perf_counter() - t, log.getvalue()
+
+
+def phase_train_cli(torch, hyp=None):
+    """``rep_yolo_tpu_torch.cli.train``'s ``main`` as a user runs the CLI
+    (in process, ``run_cli_train``): ``--no-augment --no-autoanchor``, or
+    with augmentation and autoanchor on and ``--hyp hyp`` (a preset name or
+    a YAML), which must print the autoanchor line and write
+    ``anchors.json`` into its run directory."""
     import numpy as np
 
-    cmd = [sys.executable, "-m", "rep_yolo_tpu_torch.cli.train",
-           "--data", "synthetic:16", "--epochs", "1", "--batch-size",
-           str(TRAIN_BATCH), "--img-size", str(SIZE), "--eval-every", "0"] \
+    cmd = ["--cfg", CFG, "--data", "synthetic:16", "--epochs", "1",
+           "--batch-size",
+           str(TRAIN_BATCH), "--img-size", str(SIZE), "--eval-every", "0",
+           "--project", str(ROOT / "runs" / "train")] \
         + (["--no-augment", "--no-autoanchor"] if hyp is None
            else ["--hyp", str(hyp)])
-    t = time.perf_counter()
-    p = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
-                       timeout=timeout)
-    secs = time.perf_counter() - t
-    lines = [json.loads(s) for s in p.stdout.splitlines()
-             if s.startswith("{")]
+    secs, out = run_cli_train(cmd)
+    lines = [json.loads(s) for s in out.splitlines() if s.startswith("{")]
     steps = [r for r in lines if "total" in r]
-    ok = (p.returncode == 0 and len(steps) == 2 and all(
+    ok = (len(steps) == 2 and all(
         np.isfinite([r[k] for k in ("box", "obj", "cls", "total")]).all()
         for r in steps))
     anchor_line, anchors = None, None
     if ok and hyp is not None:
-        anchor_line = next((s for s in p.stdout.splitlines()
+        anchor_line = next((s for s in out.splitlines()
                             if s.startswith("autoanchor: BPR ")), None)
         run = next((r["run_dir"] for r in lines if "run_dir" in r), None)
         path = ROOT / run / "anchors.json" if run else None
@@ -3272,13 +3360,10 @@ def phase_train_cli(torch, timeout=900, hyp=None):
         ok = anchor_line is not None and anchors is not None and \
             np.asarray(anchors["anchors_px"]).shape == (3, 3, 2)
     if not ok:
-        raise AssertionError(f"cli.train failed (exit {p.returncode}), or "
-                             f"printed no autoanchor line / wrote no "
-                             f"anchors.json:\n{p.stdout[-3000:]}\n"
-                             f"{p.stderr[-3000:]}")
+        raise AssertionError(f"cli.train failed, or printed no autoanchor "
+                             f"line / wrote no anchors.json:\n{out[-3000:]}")
     emit({"phase": "train_cli" if hyp is None else "train_cli_augment",
-          "ok": True, "cmd": " ".join(cmd[1:]), "exit": p.returncode,
-          "seconds": secs, "steps": steps,
+          "ok": True, "cmd": " ".join(cmd), "seconds": secs, "steps": steps,
           **({} if hyp is None else {"autoanchor_line": anchor_line,
                                      "anchors_json": anchors})})
 
@@ -3700,7 +3785,7 @@ def phase_loader_native(torch):
 def phase_train_cli_files(torch, dev, ds, timeout=600):
     """``python -m rep_yolo_tpu_torch.cli.train`` on phase
     ``loader_native``'s YOLO directory, the flagship at 640 px, batch 8,
-    ``--native-loader --cache-images disk --image-weights --epochs 2
+    ``--native-loader --cache-images disk --image-weights --epochs 1
     --eval-every 1``: exit 0, finite losses, the native loader's line,
     ``labels.cache.npz`` written. Then in this process, on the same files
     without the cache (``build_training`` as the CLI builds it, augmented):
@@ -3720,7 +3805,7 @@ def phase_train_cli_files(torch, dev, ds, timeout=600):
     native = ds is not None
     shutil.rmtree(EVAL_RUNS / "files", ignore_errors=True)
     cmd = [sys.executable, "-m", "rep_yolo_tpu_torch.cli.train",
-           "--cfg", CFG, "--data", str(FILES_ROOT), "--epochs", "2",
+           "--cfg", CFG, "--data", str(FILES_ROOT), "--epochs", "1",
            "--eval-every", "1", "--batch-size", str(TRAIN_BATCH),
            "--img-size", str(SIZE), "--cache-images", "disk",
            "--image-weights", "--project", str(EVAL_RUNS), "--name",
@@ -3737,11 +3822,11 @@ def phase_train_cli_files(torch, dev, ds, timeout=600):
     cache = FILES_ROOT / "labels.cache.npz"
     checks = {"loader_line": any(s.startswith(want_line) and (
                   s.endswith(", cached)") or not native) for s in out),
-              "steps": len(steps) == 2 * FILES_N // TRAIN_BATCH,
+              "steps": len(steps) == FILES_N // TRAIN_BATCH,
               "finite": bool(steps) and all(np.isfinite(
                   [r[k] for k in ("box", "obj", "cls", "total")]).all()
                   for r in steps),
-              "evals": sum("eval" in r for r in lines) == 2,
+              "evals": sum("eval" in r for r in lines) == 1,
               "labels_cache": cache.is_file(),
               "disk_cache": (FILES_ROOT / "images" / f"00000.r{SIZE}.npy")
               .is_file()}
@@ -3909,7 +3994,7 @@ def phase_profiler_after_training(torch, dev, reps: int = 10,
 
 EVAL_K = 8192            # evaluation's max_nms (train/evaluate.py)
 EVAL_BATCH = 8
-EVAL_TRAIN_N, EVAL_VAL_N, EVAL_EPOCHS = 64, 32, 2
+EVAL_TRAIN_N, EVAL_VAL_N, EVAL_EPOCHS = 32, 8, 1
 EVAL_RUNS = ROOT / "runs" / "chip_smoke"        # gitignored
 DW5_PER_FORWARD = 18     # the flagship's depthwise 5x5 calls per forward
 
@@ -4098,32 +4183,28 @@ def phase_times_eval(torch, dev, calls):
     return agg, attn, nms
 
 
-def phase_eval_train_cli(torch, timeout=600):
-    """``python -m rep_yolo_tpu_torch.cli.train`` with evaluation every
-    epoch on the synthetic val set (seed + 1): eval lines with the row-3
-    route's K2 launches (no K1: the train form projects with cuDNN), K3,
-    and best / last written. Returns the run directory."""
+def phase_eval_train_cli(torch):
+    """``rep_yolo_tpu_torch.cli.train``'s ``main`` (in process,
+    ``run_cli_train``) with evaluation every epoch on the synthetic val set
+    (seed + 1): eval lines with the row-3 route's K2 launches (no K1: the
+    train form projects with cuDNN), K3, and best / last written. Returns
+    the run directory."""
     import shutil
 
     import numpy as np
 
     shutil.rmtree(EVAL_RUNS / "train", ignore_errors=True)
-    cmd = [sys.executable, "-m", "rep_yolo_tpu_torch.cli.train",
-           "--cfg", CFG, "--data", f"synthetic:{EVAL_TRAIN_N}", "--val-data",
+    cmd = ["--cfg", CFG, "--data", f"synthetic:{EVAL_TRAIN_N}", "--val-data",
            f"synthetic:{EVAL_VAL_N}", "--epochs", str(EVAL_EPOCHS),
            "--eval-every", "1", "--batch-size", str(EVAL_BATCH),
            "--img-size", str(SIZE), "--no-augment", "--no-autoanchor",
            "--project", str(EVAL_RUNS), "--name", "train"]
-    t = time.perf_counter()
-    p = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
-                       timeout=timeout)
-    secs = time.perf_counter() - t
-    lines = [json.loads(s) for s in p.stdout.splitlines()
-             if s.startswith("{")]
+    secs, out = run_cli_train(cmd)
+    lines = [json.loads(s) for s in out.splitlines() if s.startswith("{")]
     evals = [r for r in lines if "eval" in r]
     run = pathlib.Path(lines[0]["run_dir"]) if lines else None
     fwd = -(-EVAL_VAL_N // EVAL_BATCH)
-    ok = (p.returncode == 0 and len(evals) == EVAL_EPOCHS and run is not None
+    ok = (len(evals) == EVAL_EPOCHS and run is not None
           and all((run / f"{n}.npz").exists() for n in ("best", "last"))
           and all(r["launches"].get(f"axial_attend_{m}")
                   == len(ATTN_SHAPES) * fwd
@@ -4132,12 +4213,11 @@ def phase_eval_train_cli(torch, timeout=600):
                   for r in evals for m in ("criss_cross", "vertical"))
           and all(np.isfinite(r["total"]) for r in lines if "total" in r))
     if not ok:
-        raise AssertionError(f"cli.train with evaluation failed (exit "
-                             f"{p.returncode}):\n{p.stdout[-3000:]}\n"
-                             f"{p.stderr[-3000:]}")
+        raise AssertionError(f"cli.train with evaluation failed:\n"
+                             f"{out[-3000:]}")
     best = json.loads((run / "best.json").read_text())
-    emit({"phase": "eval_train_cli", "ok": True, "cmd": " ".join(cmd[1:]),
-          "exit": p.returncode, "seconds": secs, "evals": evals,
+    emit({"phase": "eval_train_cli", "ok": True, "cmd": " ".join(cmd),
+          "seconds": secs, "evals": evals,
           "best": best, "steps": sum("total" in r for r in lines),
           "checkpoint_mb": (run / "last.npz").stat().st_size / 1e6})
     return run
@@ -4283,14 +4363,16 @@ def phase_overfit_box(timeout=900):
                              f"\n{p.stderr[-3000:]}")
 
 
-def phase_test_cli(torch, dev, run, timeout=600):
-    """``python -m rep_yolo_tpu_torch.cli.test`` on the val images written
-    as PNG files, with --rect and --fast int8 (K7, then K12 with
-    --dw5-exact): exit 0, and the same mAP, within 1e-6, as a direct
-    ``evaluate`` on ``DetectionDataset.from_path`` of that directory with
-    the same weights and flags. Without an image decoder the phase runs
-    nothing and says so."""
-    import numpy as np
+def phase_test_cli(torch, dev, run):
+    """``rep_yolo_tpu_torch.cli.test``'s ``main`` in process on the val
+    images written as PNG files, with --rect and --fast int8 (K7, then K12
+    with --dw5-exact): it returns, and the same mAP, within 1e-6, as a
+    direct ``evaluate`` on ``DetectionDataset.from_path`` of that directory
+    with the same weights and flags (one model loaded for both, calibrated
+    for each). Without an image decoder the phase runs nothing and says
+    so."""
+    import contextlib
+    import io
 
     from rep_yolo_tpu_torch.cli import test as cli_test
     from rep_yolo_tpu_torch.cli.detect import load_model_and_vars
@@ -4322,7 +4404,7 @@ def phase_test_cli(torch, dev, run, timeout=600):
             for c, x, y, w, h in lab))
     tol = 1e-6
     was = torch.backends.cudnn.deterministic
-    rows = []
+    rows, model = [], None
     for extra, kernel in (([], "dwconv5x5_q8"),
                           (["--dw5-exact"], "dwconv5x5_f32w_q8")):
         argv = ["--weights", str(run / "best"), "--data",
@@ -4330,19 +4412,21 @@ def phase_test_cli(torch, dev, run, timeout=600):
                 "--batch-size", str(EVAL_BATCH), "--img-size",
                 str(SIZE)] + extra
         t = time.perf_counter()
-        p = subprocess.run([sys.executable, "-m",
-                            "rep_yolo_tpu_torch.cli.test"] + argv, cwd=ROOT,
-                           capture_output=True, text=True, timeout=timeout)
+        log = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(log):
+                cli_test.main(argv)
+        finally:
+            torch.backends.cudnn.deterministic = was
         secs = time.perf_counter() - t
-        if p.returncode != 0:
-            raise AssertionError(f"cli.test failed (exit {p.returncode}):\n"
-                                 f"{p.stdout[-3000:]}\n{p.stderr[-3000:]}")
-        out = json.loads(p.stdout[p.stdout.rindex('{\n  "P"'):])
-        # the same, in this process, as cli.test runs it
+        text = log.getvalue()
+        out = json.loads(text[text.rindex('{\n  "P"'):])
+        # the same, as cli.test runs it
         args = cli_test.parse_args(argv)
         torch.backends.cudnn.deterministic = True
         try:
-            model = load_model_and_vars(args)
+            if model is None:
+                model = load_model_and_vars(args)
             ds = DetectionDataset.from_path(str(root / "images"), SIZE)
             cli_test.calibrate_int8(model, ds, SIZE,
                                     dw5_dense=not args.dw5_exact)
@@ -4354,10 +4438,9 @@ def phase_test_cli(torch, dev, run, timeout=600):
         gap = {k: abs(out[k] - getattr(res, a)) for k, a in
                (("P", "mp"), ("R", "mr"), ("map50", "map50"),
                 ("map", "map"))}
-        row = {"flags": " ".join(argv[6:]), "exit": p.returncode,
-               "seconds": secs, "cli": {k: out[k] for k in
-                                        ("P", "R", "map50", "map",
-                                         "ms_per_img_infer")},
+        row = {"flags": " ".join(argv[6:]), "seconds": secs,
+               "cli": {k: out[k] for k in ("P", "R", "map50", "map",
+                                           "ms_per_img_infer")},
                "direct": {"P": res.mp, "R": res.mr, "map50": res.map50,
                           "map": res.map}, "abs_gap": gap,
                "launches": out["launches"]}
@@ -4365,7 +4448,7 @@ def phase_test_cli(torch, dev, run, timeout=600):
         if max(gap.values()) > tol or out["launches"].get(kernel) != \
                 DW5_PER_FORWARD * fwd:
             raise AssertionError(f"cli.test disagrees: {row}")
-        del model
+    del model
     emit({"phase": "test_cli", "ok": True, "ran": True, "decoder": decoder,
           "data": str(root), "tolerance": tol, "runs": rows})
 
@@ -4432,6 +4515,362 @@ def phase_serving_ckpt(torch, dev, run, batch=4):
     emit(out)
     if not ok:
         raise AssertionError(f"serve --ckpt check failed: {out}")
+
+
+# ---------------------------------------------------------------------------
+# the inference entry points on the trained best: cli.detect, hub, client,
+# cli.export (after serving_ckpt, before train_resume replaces best)
+# ---------------------------------------------------------------------------
+
+DETECT_CONF = 0.01       # a best of one short epoch: few boxes above 0.25
+DETECT_CLIP = 10         # frames of the mp4v clip
+DETECT_RUNS = EVAL_RUNS / "detect"                  # gitignored
+ATTN_PER_FORWARD = {"axial_project": 2 * len(ATTN_SHAPES),
+                    "axial_attend_criss_cross": len(ATTN_SHAPES),
+                    "axial_attend_vertical": len(ATTN_SHAPES)}
+
+
+def detect_sources(root: pathlib.Path):
+    """The first 4 images of the synthetic generator at seed 3 (each of
+    its own size) as JPEG files in ``root/images``, and a DETECT_CLIP-frame
+    mp4v clip of them at 640 x 480, ``root/clip.mp4``."""
+    import shutil
+
+    import cv2
+
+    from rep_yolo_tpu_torch.data.datasets import make_synthetic_dataset
+
+    shutil.rmtree(root, ignore_errors=True)
+    (root / "images").mkdir(parents=True)
+    imgs = [cv2.cvtColor(im, cv2.COLOR_RGB2BGR) for im in
+            make_synthetic_dataset(4, SIZE, 1, 120, seed=3).images]
+    for i, im in enumerate(imgs):
+        cv2.imwrite(str(root / "images" / f"im{i}.jpg"), im)
+    clip = root / "clip.mp4"
+    w = cv2.VideoWriter(str(clip), cv2.VideoWriter_fourcc(*"mp4v"), 10,
+                        (640, 480))
+    for i in range(DETECT_CLIP):
+        w.write(cv2.resize(imgs[i % len(imgs)], (640, 480)))
+    w.release()
+    return root / "images", clip
+
+
+def detect_rows(torch, model, source, tta, int8):
+    """{file stem: [[cls, xc, yc, w, h, conf], ...]}: the frames of
+    ``source`` through letterbox_batch, ``predict`` (``predict_tta``) and
+    NMS in this process, as cli.detect computes its label lines (int8:
+    calibrated on the first frame), unrounded."""
+    import numpy as np
+
+    from rep_yolo_tpu_torch.cli.detect import _frame_source, fit_canvas
+    from rep_yolo_tpu_torch.data.letterbox import letterbox_batch
+    from rep_yolo_tpu_torch.ops.nms import detections_to_numpy, \
+        non_max_suppression
+    from rep_yolo_tpu_torch.ops.quant import enable_int8_fast_path
+
+    dev = model.device
+    model.net.set_q8(None)
+    rows = {}
+    for i, (f, img0, _) in enumerate(_frame_source(str(source))):
+        h0, w0 = img0.shape[:2]
+        canvas, (h, w), r0 = fit_canvas(img0, SIZE)
+        imgs, ratio, pad = letterbox_batch(
+            torch.from_numpy(canvas[None]).to(dev),
+            torch.tensor([[h, w]], dtype=torch.float32, device=dev), SIZE)
+        if int8 and i == 0:
+            enable_int8_fast_path(model, imgs)
+        pred = model.predict_tta(imgs) if tta else model.predict(imgs)
+        d = detections_to_numpy(non_max_suppression(
+            pred, DETECT_CONF, 0.45, max_nms=1024, nc=1))[0]
+        r, (pw, ph) = float(ratio[0]), pad[0].tolist()
+        d[:, [0, 2]] = ((d[:, [0, 2]] - pw) / r / r0).clip(0, w0)
+        d[:, [1, 3]] = ((d[:, [1, 3]] - ph) / r / r0).clip(0, h0)
+        rows.setdefault(pathlib.Path(f).stem, []).extend(
+            [c, (x1 + x2) / 2 / w0, (y1 + y2) / 2 / h0, (x2 - x1) / w0,
+             (y2 - y1) / h0, s, w0, h0] for x1, y1, x2, y2, s, c in d)
+    model.net.set_q8(None)
+    return rows
+
+
+def phase_detect_cli(torch, dev, run):
+    """``cli.detect.main`` in process on phase 18's best at 640 px, on a
+    directory of 4 JPEGs of different sizes and a DETECT_CLIP-frame mp4v
+    clip, plain, ``--augment`` and ``--fast int8``, each ``--save-txt``:
+    every image, video and label file written (the clip DETECT_CLIP frames
+    long); every label line equal, within 1e-3 px (plus the ``%.6f``
+    rounding) and 5e-5 in conf (``%.4f``), to the same frames through
+    letterbox_batch, predict (predict_tta) and NMS in this process on the
+    same model; the counts zeroed before each run and read after: K1 and
+    K2 ATTN_PER_FORWARD a forward (3 forwards a frame with --augment),
+    K3 once a frame; with --fast int8, K4-K8 launched too (its first
+    frame's calibration forward adds float attention launches)."""
+    import contextlib
+    import io
+
+    import cv2
+    import numpy as np
+
+    from rep_yolo_tpu_torch.cli import detect
+    from rep_yolo_tpu_torch.ops.kernels import launch_counts, \
+        reset_launch_counts
+
+    images, clip = detect_sources(DETECT_RUNS / "src")
+    sources = {"images": (images, len(list(images.glob("*.jpg")))),
+               "clip": (clip, DETECT_CLIP)}
+    best = str(run / "best")
+    base = ["--weights", best, "--cfg", CFG, "--img-size", str(SIZE),
+            "--conf-thres", str(DETECT_CONF), "--save-txt",
+            "--project", str(DETECT_RUNS), "--device", str(dev)]
+    t0 = time.perf_counter()
+    model = detect.load_model_and_vars(detect.parse_args(
+        base + ["--source", str(images)]))
+    runs, ok = [], True
+    for mode, extra in (("plain", []), ("augment", ["--augment"]),
+                        ("int8", ["--fast", "int8"])):
+        for kind, (src, frames) in sources.items():
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            log = io.StringIO()
+            t = time.perf_counter()
+            with contextlib.redirect_stdout(log):
+                out = detect.main(base + extra + ["--source", str(src),
+                                                  "--name", f"{mode}_{kind}"])
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t
+            counts = launch_counts()
+            fwd = frames * (3 if mode == "augment" else 1)
+            launch_ok = counts["nms_keep"] == frames and all(
+                (counts[k] >= n * fwd) if mode == "int8"
+                else (counts[k] == n * fwd)
+                for k, n in ATTN_PER_FORWARD.items())
+            if mode == "int8":
+                launch_ok = launch_ok and all(counts[k] > 0
+                                              for k in Q8_PER_FORWARD)
+            if kind == "images":
+                names = sorted(p.name for p in src.glob("*.jpg"))
+                written = all((out / n).is_file() and
+                              (out / (pathlib.Path(n).stem + ".txt")).is_file()
+                              for n in names)
+            else:
+                cap = cv2.VideoCapture(str(out / "clip.mp4"))
+                n_written = int(cap.get(cv2.CAP_PROP_FRAME_COUNT))
+                cap.release()
+                written = n_written == DETECT_CLIP and \
+                    (out / "clip.txt").is_file()
+            with torch.inference_mode():
+                want = detect_rows(torch, model, src, mode == "augment",
+                                   mode == "int8")
+            n_rows, max_px, max_conf, same = 0, 0.0, 0.0, True
+            for stem, rows in want.items():
+                got = np.loadtxt(out / f"{stem}.txt", ndmin=2)
+                ref = np.asarray(rows, np.float64).reshape(-1, 8)
+                if got.shape[0] != ref.shape[0]:
+                    same = False
+                    continue
+                n_rows += len(ref)
+                if not len(ref):
+                    continue
+                same &= bool((got[:, 0] == ref[:, 0]).all())
+                wh = ref[:, [6, 7, 6, 7]]
+                max_px = max(max_px, float(
+                    (np.abs(got[:, 1:5] - ref[:, 1:5]) * wh
+                     - 5e-7 * wh).max()))
+                max_conf = max(max_conf, float(np.abs(got[:, 5]
+                                                      - ref[:, 5]).max()))
+            good = (launch_ok and written and same and max_px <= 1e-3
+                    and max_conf <= 5e-5 + 1e-9)
+            ok = ok and good
+            done = [s for s in log.getvalue().splitlines()
+                    if s.startswith("done: ")]
+            runs.append({"mode": mode, "source": kind, "frames": frames,
+                         "seconds": secs, "label_rows": n_rows,
+                         "max_px_err": max_px, "max_conf_err": max_conf,
+                         "launches": {k: v for k, v in counts.items() if v},
+                         "written": written, "done": done[-1:],
+                         "ok": good})
+    row = {"phase": "detect_cli", "ok": ok, "weights": best,
+           "conf": DETECT_CONF, "seconds": time.perf_counter() - t0,
+           "tolerance": {"px": 1e-3, "conf": 5e-5}, "runs": runs}
+    emit(row)
+    if not ok:
+        raise AssertionError(f"cli.detect failed: {row}")
+
+
+def phase_hub_client(torch, dev, run):
+    """``hub.load(ckpt=best)`` -> AutoShape on detect_cli's 4 images, given
+    as paths, an RGB uint8 array and a grey 2-D image: 4 results of their
+    own shapes, every box inside its image's frame, K1 / K2
+    ATTN_PER_FORWARD and K3 once for the batch. Then ``serve.make_server``
+    on the float engine of best in a thread: ``client.infer`` of an image's
+    ``letterbox_np`` array returns a direct ``Engine`` call's detections,
+    ``client.main --mode image`` prints that call's rows de-letterboxed
+    by the same formula (K1 / K2 / K3 launched by it), and ``--mode dummy``
+    runs."""
+    import contextlib
+    import io
+
+    import cv2
+    import numpy as np
+
+    from rep_yolo_tpu_torch import client, hub
+    from rep_yolo_tpu_torch.data.datasets import read_image
+    from rep_yolo_tpu_torch.ops.kernels import launch_counts, \
+        reset_launch_counts
+    from rep_yolo_tpu_torch.serve import build_engine, make_server
+
+    best = str(run / "best")
+    files = sorted(str(p) for p in (DETECT_RUNS / "src" / "images").glob(
+        "*.jpg"))
+    t0 = time.perf_counter()
+    auto = hub.load(CFG, ckpt=best, size=SIZE, conf=DETECT_CONF, device=dev)
+    inputs = [files[0], files[1],
+              cv2.cvtColor(cv2.imread(files[2]), cv2.COLOR_BGR2RGB),
+              cv2.imread(files[3], cv2.IMREAD_GRAYSCALE)]
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    det = auto(inputs)
+    torch.cuda.synchronize()
+    hub_counts = launch_counts()
+    shapes = [tuple(cv2.imread(f).shape[:2]) for f in files]
+    inside = [bool(((d[:, [0, 2]] >= 0) & (d[:, [0, 2]] <= w)).all() and
+                   ((d[:, [1, 3]] >= 0) & (d[:, [1, 3]] <= h)).all())
+              for (h, w), d in zip(shapes, det.xyxy)]
+    hub_ok = (len(det) == 4 and [tuple(s) for s in det.shapes] == shapes
+              and all(inside) and hub_counts["nms_keep"] == 1 and all(
+                  hub_counts[k] == n for k, n in ATTN_PER_FORWARD.items()))
+    del auto
+
+    engine = build_engine(CFG, None, SIZE, 4, DETECT_CONF, 0.45, dev,
+                          ckpt=best)
+    srv = make_server(engine, "127.0.0.1", 0)
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    try:
+        boxed, r, (dw, dh) = hub.letterbox_np(read_image(files[1]), SIZE)
+        x = boxed[None] / 255.0
+        direct = engine(x)
+        infer_same = client.infer(url, x)["detections"] == direct
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        log = io.StringIO()
+        with contextlib.redirect_stdout(log):
+            client.main(["--host", url, "--mode", "image", "--input",
+                         files[1], "--img-size", str(SIZE)])
+        torch.cuda.synchronize()
+        client_counts = launch_counts()
+        printed = log.getvalue().splitlines()
+        d = np.asarray(direct[0]).reshape(-1, 6)
+        d[:, [0, 2]] = (d[:, [0, 2]] - dw) / r
+        d[:, [1, 3]] = (d[:, [1, 3]] - dh) / r
+        rows_same = printed[2:] == ["   " + str([round(float(v), 1)
+                                                 for v in row]) for row in d]
+        log = io.StringIO()
+        with contextlib.redirect_stdout(log):
+            client.main(["--host", url, "--mode", "dummy", "--batch", "4",
+                         "--iters", "5", "--img-size", str(SIZE)])
+        dummy = log.getvalue().splitlines()
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        engine.close()
+    client_ok = (infer_same and rows_same and len(d) > 0
+                 and client_counts["nms_keep"] == 1 and all(
+                     client_counts[k] == n
+                     for k, n in ATTN_PER_FORWARD.items())
+                 and any("median latency" in s for s in dummy))
+    row = {"phase": "hub_client", "ok": hub_ok and client_ok,
+           "weights": best, "seconds": time.perf_counter() - t0,
+           "hub": {"inputs": ["path", "path", "uint8 RGB", "grey 2-D"],
+                   "detections": [len(d) for d in det.xyxy],
+                   "shapes": shapes, "inside_frame": inside,
+                   "launches": {k: v for k, v in hub_counts.items() if v},
+                   "ok": hub_ok},
+           "client": {"image": files[1], "detections": len(d),
+                      "infer_equals_engine": infer_same,
+                      "printed_rows_equal": rows_same,
+                      "launches": {k: v for k, v in client_counts.items()
+                                   if v},
+                      "dummy": dummy[-1:], "ok": client_ok}}
+    emit(row)
+    if not row["ok"]:
+        raise AssertionError(f"hub / client failed: {row}")
+
+
+def phase_export(torch, dev, run, batch=4):
+    """``cli.export.main`` of best with ``--include-nms`` at 640 px, batch
+    4 (the export's seconds), then ``torch.export.load(...).module()`` on
+    detect_cli's 4 images letterboxed by ``hub.letterbox_np``: the graph
+    holds the rep_yolo_torch:: ops of K1, K2 and K3; its detections equal
+    the live model's predict + NMS on the same batch (the same valid slots,
+    boxes within 1e-3 px, scores within 1e-5); the counts zeroed before the
+    loaded program's call and read after: K1 / K2 ATTN_PER_FORWARD, K3
+    once."""
+    import numpy as np
+
+    from rep_yolo_tpu_torch.cli import export
+    from rep_yolo_tpu_torch.cli.detect import load_model_and_vars
+    from rep_yolo_tpu_torch.data.datasets import read_image
+    from rep_yolo_tpu_torch.hub import letterbox_np
+    from rep_yolo_tpu_torch.ops.kernels import launch_counts, \
+        reset_launch_counts
+    from rep_yolo_tpu_torch.ops.nms import non_max_suppression
+
+    out = DETECT_RUNS / "export" / "model"
+    argv = ["--weights", str(run / "best"), "--cfg", CFG, "--img-size",
+            str(SIZE), "--batch-size", str(batch), "--include-nms",
+            "--conf-thres", str(DETECT_CONF), "--out", str(out),
+            "--device", str(dev)]
+    t = time.perf_counter()
+    export.main(argv)
+    export_s = time.perf_counter() - t
+    t = time.perf_counter()
+    program = torch.export.load(str(out.with_suffix(".pt2")))
+    ops = sorted({str(n.target) for n in program.graph.nodes
+                  if str(n.target).startswith("rep_yolo_torch.")})
+    module = program.module()
+    load_s = time.perf_counter() - t
+    files = sorted((DETECT_RUNS / "src" / "images").glob("*.jpg"))
+    x = torch.from_numpy(np.stack([
+        letterbox_np(read_image(str(f)), SIZE)[0] for f in files[:batch]])
+        / 255.0).float().to(dev)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    with torch.no_grad():
+        got = module(x)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    args = export.parse_args(argv)
+    args.no_fuse = False
+    with torch.inference_mode():
+        want = non_max_suppression(load_model_and_vars(args).predict(x),
+                                   DETECT_CONF, 0.45, max_nms=1024, nc=1)
+    valid = want.valid.cpu()
+    same_slots = bool(torch.equal(got[3].cpu(), valid)) and \
+        bool(torch.equal(got[4].cpu(), want.count.cpu()))
+    box_err = float((got[0].cpu() - want.boxes.cpu())[valid].abs().max()) \
+        if valid.any() else 0.0
+    score_err = float((got[1].cpu() - want.scores.cpu())[valid].abs().max()) \
+        if valid.any() else 0.0
+    want_ops = ["rep_yolo_torch.axial_attend.default",
+                "rep_yolo_torch.axial_project.default",
+                "rep_yolo_torch.nms_keep.default"]
+    ok = (ops == want_ops and same_slots and box_err <= 1e-3
+          and score_err <= 1e-5 and counts["nms_keep"] == 1 and all(
+              counts[k] == n for k, n in ATTN_PER_FORWARD.items()))
+    row = {"phase": "export", "ok": ok, "argv": argv,
+           "export_s": export_s, "load_s": load_s,
+           "pt2_mb": out.with_suffix(".pt2").stat().st_size / 1e6,
+           "params_npz_mb": out.with_suffix(".params.npz").stat().st_size
+           / 1e6, "meta": json.loads(out.with_suffix(".json").read_text()),
+           "graph_ops": ops, "valid": int(valid.sum()),
+           "same_valid_slots": same_slots, "max_box_err_px": box_err,
+           "max_score_err": score_err,
+           "tolerance": {"px": 1e-3, "score": 1e-5},
+           "launches": {k: v for k, v in counts.items() if v}}
+    emit(row)
+    if not ok:
+        raise AssertionError(f"export failed: {row}")
 
 
 def eval_rows(counts, errs, dw_agg, attn_agg, attn_err,
@@ -4550,6 +4989,9 @@ def main(argv=None) -> int:
         counts_eval = phase_eval_modes(torch, dev, run)
         phase_test_cli(torch, dev, run)
         phase_serving_ckpt(torch, dev, run)
+    phase_detect_cli(torch, dev, run)
+    phase_hub_client(torch, dev, run)
+    phase_export(torch, dev, run)       # torch.export: outside inference_mode
     phase_train_resume(torch, run)
     phase_overfit_box()
     with torch.inference_mode():

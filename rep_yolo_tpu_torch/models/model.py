@@ -144,6 +144,56 @@ class RepYOLO:
         return heads_lib.decode_topk(maps, self.anchors_px, self.strides,
                                      k=k, conf_thres=conf_thres)
 
+    @torch.no_grad()
+    def predict_tta(self, x: torch.Tensor) -> torch.Tensor:
+        """Test-time-augmented inference (reference models/yolo.py:569-585,
+        the JAX ``predict_tta``): 3 scales (1.0, 0.83, 0.67) x flips (none,
+        lr, none), each size rounded up to the largest stride, the decoded
+        boxes de-scaled and de-flipped to the input's frame, concatenated
+        along the rows. The resize is ``jax.image.resize(..., "bilinear")``'s:
+        a triangle filter widened by the scale when it shrinks
+        (``resize_matrix``)."""
+        b, h, w, c = x.shape
+        gs = int(max(self.strides))
+        outs = []
+        for s, flip in zip((1.0, 0.83, 0.67), (False, True, False)):
+            nh = max(gs, int(math.ceil(h * s / gs) * gs))
+            nw = max(gs, int(math.ceil(w * s / gs) * gs))
+            xi = x
+            if (nh, nw) != (h, w):
+                ry = resize_matrix(h, nh, x.device).to(x.dtype)
+                rx = resize_matrix(w, nw, x.device).to(x.dtype)
+                xi = torch.einsum("bhwc,hy,wx->byxc", x, ry, rx)
+            if flip:
+                xi = xi.flip(2)
+            yi = self.predict(xi)
+            sx, sy = w / nw, h / nh
+            boxes = yi[..., :4] * torch.tensor(
+                [sx, sy, sx, sy], dtype=yi.dtype, device=yi.device)
+            if flip:
+                boxes = torch.cat([w - boxes[..., :1], boxes[..., 1:]], -1)
+            outs.append(torch.cat([boxes, yi[..., 4:]], -1))
+        return torch.cat(outs, 1)
+
+
+def resize_matrix(n_in: int, n_out: int, device=None) -> torch.Tensor:
+    """(n_in, n_out) weights of ``jax.image.resize``'s bilinear resample
+    along one axis (``jax._src.image.scale.compute_weight_mat``, antialias
+    on): sample i sits at (i + 0.5) n_in / n_out - 0.5; the triangle kernel
+    is widened by n_in / n_out when shrinking; each column is normalised
+    to sum 1, and zeroed where the sample falls outside the input."""
+    inv = torch.tensor(n_in / n_out, dtype=torch.float32)
+    ks = torch.clamp(inv, min=1.0)
+    f = (torch.arange(n_out, dtype=torch.float32) + 0.5) * inv - 0.5
+    d = (f[None, :] - torch.arange(n_in, dtype=torch.float32)[:, None]).abs()
+    wgt = torch.clamp(1 - d / ks, min=0.0)
+    tot = wgt.sum(0, keepdim=True)
+    wgt = torch.where(tot.abs() > 1000.0 * float(np.finfo(np.float32).eps),
+                      wgt / torch.where(tot != 0, tot, torch.ones_like(tot)),
+                      torch.zeros_like(wgt))
+    inside = (f >= -0.5) & (f <= n_in - 0.5)
+    return torch.where(inside[None, :], wgt, torch.zeros_like(wgt)).to(device)
+
 
 def derive_strides(cfg: ModelConfig, s: int = 256) -> list[float]:
     """Stride per detect level by a shape pass over the plan (spatial

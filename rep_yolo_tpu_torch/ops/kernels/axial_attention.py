@@ -13,7 +13,11 @@ out) then a column pass that merges the two under the joint softmax.
 Layouts follow the TPU kernel: x ``(B, H, W, C)`` f32; packed deploy
 constants ``wqk (2*c8, C)``, ``pq (3, 2*c8)``, ``pv (4, C)`` (see
 ``nn.blocks.axial_consts``). The wrappers take the plain versions for CPU
-tensors only; on a CUDA tensor they launch the kernel or raise.
+tensors only; on a CUDA tensor they launch the kernel or raise. They go
+through the custom ops ``rep_yolo_torch::axial_project`` and
+``rep_yolo_torch::axial_attend`` (``torch.library``), whose CUDA
+implementation is the kernel launch and whose CPU implementation is the
+plain version, so a ``torch.export`` graph holds the ops on either device.
 """
 
 from __future__ import annotations
@@ -165,7 +169,7 @@ def project_plain(x, wqk, pq, pv):
                      0.0, 6.0)
     v = torch.nn.functional.silu(x * pv[0] + pv[1])
     v = torch.clamp(v * pv[2] + pv[3], 0.0, 6.0)
-    return qk[..., :c8], qk[..., c8:], v
+    return qk[..., :c8].contiguous(), qk[..., c8:].contiguous(), v
 
 
 def attend_plain(q, k, v, x, gamma, criss_cross: bool):
@@ -209,9 +213,15 @@ def _aligned(*ts):
 
 
 def project(x, wqk, pq, pv):
-    """K1: q, k, v from x. CPU tensors take ``project_plain``."""
-    if x.device.type == "cpu":
-        return project_plain(x, wqk, pq, pv)
+    """K1: q, k, v from x (``rep_yolo_torch::axial_project``). CPU tensors
+    take ``project_plain``."""
+    return torch.ops.rep_yolo_torch.axial_project(x, wqk, pq, pv)
+
+
+def launch_project(x, wqk, pq, pv):
+    """K1's launch on CUDA tensors, the CUDA implementation of
+    ``rep_yolo_torch::axial_project`` (called directly, it skips the
+    dispatcher: the host cost of the op is measured against it)."""
     _check_cuda_f32("axial_project", x, wqk, pq, pv)
     if x.dim() != 4:
         raise ValueError(f"axial_project: x must be (B, H, W, C), got "
@@ -237,12 +247,18 @@ def project(x, wqk, pq, pv):
 
 
 def attend(q, k, v, x, gamma, criss_cross: bool):
-    """K2: gamma * attention(q, k, v) + x. CPU tensors take
-    ``attend_plain``. Vertical launches the line kernel on the columns;
-    criss-cross launches its row pass, then its column pass, which merges
-    the row pass's partials (allocated here) under the joint softmax."""
-    if x.device.type == "cpu":
-        return attend_plain(q, k, v, x, gamma, criss_cross)
+    """K2: gamma * attention(q, k, v) + x (``rep_yolo_torch::axial_attend``).
+    CPU tensors take ``attend_plain``. Vertical launches the line kernel on
+    the columns; criss-cross launches its row pass, then its column pass,
+    which merges the row pass's partials (allocated here) under the joint
+    softmax."""
+    return torch.ops.rep_yolo_torch.axial_attend(q, k, v, x, gamma,
+                                                 criss_cross)
+
+
+def launch_attend(q, k, v, x, gamma, criss_cross):
+    """K2's launches on CUDA tensors, the CUDA implementation of
+    ``rep_yolo_torch::axial_attend``."""
     _check_cuda_f32("axial_attend", q, k, v, x, gamma)
     if x.dim() != 4:
         raise ValueError(f"axial_attend: x must be (B, H, W, C), got "
@@ -277,6 +293,30 @@ def attend(q, k, v, x, gamma, criss_cross: bool):
     LAUNCHES["axial_attend_criss_cross" if criss_cross
              else "axial_attend_vertical"] += 1
     return y
+
+
+# the custom ops: the kernels on CUDA tensors, the plain versions on CPU
+# tensors, shapes alone under torch.export's fake tensors
+_project_op = torch.library.custom_op(
+    "rep_yolo_torch::axial_project", launch_project, mutates_args=(),
+    device_types="cuda", schema="(Tensor x, Tensor wqk, Tensor pq, "
+                                "Tensor pv) -> (Tensor, Tensor, Tensor)")
+_project_op.register_kernel("cpu", project_plain)
+
+
+@_project_op.register_fake
+def _project_fake(x, wqk, pq, pv):
+    q = x.new_empty((*x.shape[:-1], wqk.shape[0] // 2))
+    return q, torch.empty_like(q), torch.empty_like(x)
+
+
+_attend_op = torch.library.custom_op(
+    "rep_yolo_torch::axial_attend", launch_attend, mutates_args=(),
+    device_types="cuda", schema="(Tensor q, Tensor k, Tensor v, Tensor x, "
+                                "Tensor gamma, bool criss_cross) -> Tensor")
+_attend_op.register_kernel("cpu", attend_plain)
+_attend_op.register_fake(
+    lambda q, k, v, x, gamma, criss_cross: torch.empty_like(x))
 
 
 def axial_attention(x, wqk, pq, pv, gamma, criss_cross: bool):

@@ -12,7 +12,9 @@ boxes ``(B, K, 4)`` f32 xyxy, score-descending per image with class
 offsets applied; valid ``(B, K)`` bool. Returns keep ``(B, K)`` bool,
 exactly greedy NMS. The plain version is the port of
 ``nms_keep_matrix_xla`` (the fixed point of
-``keep <- valid & (keep @ M == 0)``).
+``keep <- valid & (keep @ M == 0)``). ``nms_keep`` goes through the custom
+op ``rep_yolo_torch::nms_keep`` (``torch.library``): the kernel on CUDA
+tensors, the plain version on CPU tensors.
 """
 
 from __future__ import annotations
@@ -116,10 +118,15 @@ def nms_keep_plain(boxes: torch.Tensor, valid: torch.Tensor,
 
 def nms_keep(boxes: torch.Tensor, valid: torch.Tensor,
              iou_thres: float) -> torch.Tensor:
-    """Keep mask. CPU tensors take ``nms_keep_plain``; CUDA tensors launch
-    the kernel (K <= MAX_K) or raise."""
-    if boxes.device.type == "cpu":
-        return nms_keep_plain(boxes, valid, iou_thres)
+    """Keep mask (``rep_yolo_torch::nms_keep``). CPU tensors take
+    ``nms_keep_plain``; CUDA tensors launch the kernel (K <= MAX_K) or
+    raise."""
+    return torch.ops.rep_yolo_torch.nms_keep(boxes, valid, float(iou_thres))
+
+
+def launch_nms_keep(boxes, valid, iou_thres):
+    """K3's launch on CUDA tensors, the CUDA implementation of
+    ``rep_yolo_torch::nms_keep``."""
     if boxes.device.type != "cuda" or valid.device != boxes.device:
         raise ValueError(f"nms_keep: expected CUDA tensors, got "
                          f"{boxes.device} / {valid.device}")
@@ -135,6 +142,17 @@ def nms_keep(boxes: torch.Tensor, valid: torch.Tensor,
     D.check_launch("nms_keep", err)
     LAUNCHES["nms_keep"] += 1
     return keep.bool()
+
+
+# the custom op: the kernel on CUDA tensors, the plain version on CPU
+# tensors, the shape alone under torch.export's fake tensors
+_nms_keep_op = torch.library.custom_op(
+    "rep_yolo_torch::nms_keep", launch_nms_keep, mutates_args=(),
+    device_types="cuda",
+    schema="(Tensor boxes, Tensor valid, float iou_thres) -> Tensor")
+_nms_keep_op.register_kernel("cpu", nms_keep_plain)
+_nms_keep_op.register_fake(lambda boxes, valid, iou_thres: torch.empty(
+    valid.shape, dtype=torch.bool, device=valid.device))
 
 
 def _buffers(boxes, valid):

@@ -1,13 +1,24 @@
 """General utilities (port of ``rep_yolo_tpu/utils/general.py``'s
-``increment_path`` and the image-weight helpers)."""
+``check_img_size``, ``increment_path`` and the image-weight helpers)."""
 
 from __future__ import annotations
 
 import glob
+import math
 import re
 from pathlib import Path
 
 import numpy as np
+
+
+def check_img_size(img_size: int, s: int = 32) -> int:
+    """Round img_size up to a multiple of stride s
+    (reference utils/general.py:123-129)."""
+    new_size = int(math.ceil(img_size / s) * s)
+    if new_size != img_size:
+        print(f"WARNING: --img-size {img_size} must be multiple of "
+              f"max stride {s}, updating to {new_size}")
+    return new_size
 
 
 def increment_path(path: str | Path, exist_ok: bool = False) -> Path:

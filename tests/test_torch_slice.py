@@ -221,6 +221,11 @@ def test_port_imports_no_jax():
     files = sorted((ROOT / "rep_yolo_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 10
+    # the inference entry points (hub, client, detect, export) among them
+    assert {"rep_yolo_tpu_torch/hub.py", "rep_yolo_tpu_torch/client.py",
+            "rep_yolo_tpu_torch/cli/detect.py",
+            "rep_yolo_tpu_torch/cli/export.py"} <= {
+        str(f.relative_to(ROOT)) for f in files}
     for f in files:
         for node in ast.walk(ast.parse(f.read_text())):
             if isinstance(node, ast.Import):
